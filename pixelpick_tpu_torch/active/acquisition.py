@@ -1,0 +1,147 @@
+"""The acquisition engine — batched pool scoring on the device.
+
+Counterpart of ``pixelpick_tpu/active/acquisition.py`` (reference
+``query.py:144-247``): for a batch of pool images, softmax the logits, score
+each pixel with the chosen uncertainty strategy, overwrite already-labelled
+and void pixels with the strategy's "worst" value, then take the top-k over
+the flattened map (k = ``top_n_percent * H*W`` with a random sub-sample of
+``n_pixels_by_us``, or directly ``n_pixels_by_us``), optionally through the
+``reverse_order`` variant. Only the (B, n_pixels) indices and small stats
+tensors leave the device.
+
+Randomness (the sub-sample draws, the ``reverse_order`` candidate draws,
+the ``random`` strategy's scores) comes from a ``torch.Generator``, or is
+injected by the caller, so tests can feed both frameworks the same draws.
+The MC-dropout committee comes later (ROADMAP.md, Queue 1), as do the
+bucket-padding masks of variable-size pools.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from pixelpick_tpu_torch.engine.trainer import normalize_images
+from pixelpick_tpu_torch.ops.resize import resize_align_corners
+from pixelpick_tpu_torch.ops.uncertainty import (
+    MAXIMIZING, fill_value, uncertainty_map, xlogx,
+)
+
+
+def _full_res_pred(model, x: torch.Tensor) -> torch.Tensor:
+    """Full-resolution f32 logits without the full-resolution emb."""
+    pred = model(x, upsample=False)["pred"].float()
+    if pred.shape[1:3] != x.shape[1:3]:
+        pred = resize_align_corners(pred, x.shape[1:3])
+    return pred
+
+
+def candidate_count(n: int, n_pixels: int, top_n_percent: float) -> int:
+    """Size of the candidate pool the sub-sample draws from. The JAX
+    function bounds it by ``int(n * p)`` in double and masks ranks beyond
+    ``int(f32(n) * f32(p))`` (acquisition.py:73-80); the smaller of the two
+    is the effective pool. Both are clamped to >= n_pixels."""
+    k_bucket = max(n_pixels, int(n * top_n_percent))
+    k_true = max(n_pixels, int(np.float32(n) * np.float32(top_n_percent)))
+    return min(k_bucket, k_true)
+
+
+def _select_topk(uc_flat: torch.Tensor, uniforms: Optional[torch.Tensor], *,
+                 strategy: str, n_pixels: int, top_n_percent: float,
+                 reverse_order: bool) -> torch.Tensor:
+    """Per-image selection over flattened uncertainty maps (B, n)
+    (query.py:33-69). ``uniforms`` (B, n) are U[0,1) draws, one per pixel:
+    the sub-sample keys (highest n_pixels among the candidates win, which is
+    choice without replacement keyed to pixel identity), or the
+    ``reverse_order`` candidate draws. Unused when ``top_n_percent <= 0``.
+
+    Returns (B, n_pixels) int64 flat indices."""
+    signed = uc_flat if strategy in MAXIMIZING else -uc_flat
+    if top_n_percent <= 0.0:
+        return torch.topk(signed, n_pixels, dim=1).indices
+
+    k = candidate_count(uc_flat.shape[1], n_pixels, top_n_percent)
+    if reverse_order:
+        # a uniform candidate subset of size k (query.py:39-42), then the
+        # top-n_pixels by score among it (query.py:44-54)
+        cand = torch.topk(uniforms, k, dim=1).indices
+        picked = torch.topk(torch.gather(signed, 1, cand), n_pixels,
+                            dim=1).indices
+        return torch.gather(cand, 1, picked)
+    idx = torch.topk(signed, k, dim=1).indices
+    sel = torch.topk(torch.gather(uniforms, 1, idx), n_pixels, dim=1).indices
+    return torch.gather(idx, 1, sel)
+
+
+def make_score_fn(model, *, strategy: str, mean, std,
+                  n_pixels: int, top_n_percent: float, reverse_order: bool,
+                  ignore_index: int) -> Callable:
+    """Build the batched pool-scoring function.
+
+    ``score_batch(batch, generator=None, uniforms=None)``, batch keys (all
+    tensors on the model's device):
+      x:        (B, H, W, 3) uint8
+      excluded: (B, H, W) bool — already-labelled pixels
+      y:        (B, H, W) int ground truth (oracle mode; all zeros in
+                human-label mode) — the void exclusion and the stats.
+    ``uniforms`` may inject the draws: ``{"select": (B, H*W)}`` and, for the
+    random strategy, ``{"score": (B, H, W)}``; otherwise they are drawn
+    from ``generator`` (on the batch's device).
+
+    Returns (indices (B, n_pixels) int64 flat, stats dict of tensors).
+    """
+    @torch.no_grad()
+    def score_batch(batch: Dict[str, torch.Tensor], generator=None,
+                    uniforms: Optional[Dict[str, torch.Tensor]] = None):
+        bsz, big_h, big_w = batch["x"].shape[:3]
+        dev = batch["x"].device
+        if uniforms is None:
+            uniforms = {}
+            if top_n_percent > 0.0:
+                uniforms["select"] = torch.rand(
+                    (bsz, big_h * big_w), generator=generator, device=dev)
+            if strategy == "random":
+                uniforms["score"] = torch.rand(
+                    (bsz, big_h, big_w), generator=generator, device=dev)
+
+        x = normalize_images(batch["x"], mean, std)
+        prob = torch.softmax(_full_res_pred(model, x), -1)
+        uc = uncertainty_map(prob, strategy, uniforms.get("score"))
+        excluded = batch["excluded"] | (batch["y"] == ignore_index)
+        uc = uc.masked_fill(excluded, fill_value(strategy))
+        idx = _select_topk(uc.reshape(bsz, -1), uniforms.get("select"),
+                           strategy=strategy, n_pixels=n_pixels,
+                           top_n_percent=top_n_percent,
+                           reverse_order=reverse_order)
+
+        # acquisition stats at the picked pixels (QueryStats,
+        # query.py:250-308). picked_valid masks picks that spilled into
+        # excluded/void pixels (an image with < n_pixels candidates)
+        picked_valid = torch.gather((~excluded).reshape(bsz, -1), 1, idx)
+        c = prob.shape[-1]
+        picked_prob = torch.gather(prob.reshape(bsz, -1, c), 1,
+                                   idx[..., None].expand(-1, -1, c))
+        picked_ent = -xlogx(picked_prob).sum(-1)
+        picked_y = torch.gather(batch["y"].reshape(bsz, -1).long(), 1, idx)
+        ys, xs = idx // big_w, idx % big_w
+        # mean pairwise distance per image over valid picks (coverage)
+        dy = ys[:, :, None] - ys[:, None, :]
+        dx = xs[:, :, None] - xs[:, None, :]
+        d = torch.sqrt((dy * dy + dx * dx).float())
+        pair_ok = (picked_valid[:, :, None] & picked_valid[:, None, :]
+                   & ~torch.eye(n_pixels, dtype=torch.bool, device=dev))
+        # an image with < 2 valid picks has no pair distances: NaN, as the
+        # reference's _spatial_coverage (query.py:269-279)
+        n_pairs = pair_ok.sum((1, 2))
+        coverage = torch.where(
+            n_pairs > 0,
+            (d * pair_ok).sum((1, 2)) / n_pairs.clamp(min=1),
+            torch.full_like(d[:, 0, 0], float("nan")))
+
+        stats = {"entropy": picked_ent, "labels": picked_y,
+                 "coverage": coverage, "picked_valid": picked_valid}
+        return idx, stats
+
+    return score_batch

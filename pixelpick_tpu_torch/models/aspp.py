@@ -1,0 +1,60 @@
+"""Atrous Spatial Pyramid Pooling, eval mode (reference ``networks/aspp.py``).
+
+Counterpart of ``pixelpick_tpu/models/aspp.py``: four atrous branches
+(dilations 1/6/12/18 at os=16, 1/12/24/36 at os=8) plus a global-average-pool
+branch, concatenated 5x256 -> 1x1 conv 256. The reference's bilinear
+align-corners upsample of the 1x1 pooled map is a broadcast
+(``aspp.py:44-50``). Module names follow the reference.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from pixelpick_tpu_torch.models.layers import BatchNorm, conv
+
+
+class _GlobalMean(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.mean(dim=(2, 3), keepdim=True)
+
+
+class _ASPPModule(nn.Module):
+    def __init__(self, inplanes: int, planes: int, kernel: int, padding: int,
+                 dilation: int, dtype):
+        super().__init__()
+        self.atrous_conv = conv(inplanes, planes, kernel, padding=padding,
+                                dilation=dilation, dtype=dtype)
+        self.bn = BatchNorm(planes, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.bn(self.atrous_conv(x)))
+
+
+class ASPP(nn.Module):
+    def __init__(self, inplanes: int, output_stride: int = 16,
+                 dtype=torch.float32):
+        super().__init__()
+        if output_stride == 16:
+            dilations = (1, 6, 12, 18)
+        elif output_stride == 8:
+            dilations = (1, 12, 24, 36)
+        else:
+            raise NotImplementedError(output_stride)
+        for i, d in enumerate(dilations, start=1):
+            k, pad = (1, 0) if d == 1 else (3, d)
+            setattr(self, f"aspp{i}",
+                    _ASPPModule(inplanes, 256, k, pad, d, dtype))
+        self.global_avg_pool = nn.Sequential(
+            _GlobalMean(), conv(inplanes, 256, 1, dtype=dtype),
+            BatchNorm(256, dtype), nn.ReLU())
+        self.conv1 = conv(1280, 256, 1, dtype=dtype)
+        self.bn1 = BatchNorm(256, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        branches = [getattr(self, f"aspp{i}")(x) for i in range(1, 5)]
+        branches.append(self.global_avg_pool(x).expand_as(branches[0]))
+        h = torch.cat(branches, dim=1)  # 1280
+        return F.relu(self.bn1(self.conv1(h)))

@@ -1,0 +1,167 @@
+"""Shared building blocks.
+
+Counterpart of ``pixelpick_tpu/models/layers.py``, eval mode only. Modules
+take and return NCHW tensors in ``torch.channels_last`` memory format, so
+``x.permute(0, 2, 3, 1)`` is a free, contiguous NHWC view (the layout of the
+JAX package and of the depthwise kernel) and cuDNN convolutions read the
+same memory with no transposes.
+
+Parameters and BatchNorm statistics stay f32; each conv casts its input and
+weight to the compute ``dtype`` and BatchNorm casts its output to it, as the
+JAX modules do (``layers.py:81-83``, ``:134-136``, ``:304-318``). Parameter
+and buffer names follow the reference's torch modules (``weight``, ``bias``,
+``running_mean``, ``running_var``, ``num_batches_tracked``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from pixelpick_tpu_torch.ops.depthwise import depthwise_conv3x3
+
+
+def he_normal_fan_in_(weight: torch.Tensor, generator: torch.Generator) -> None:
+    """torch kaiming_normal_ (fan_in, a=0) == flax He normal fan_in
+    (``layers.py:17``), drawn from an explicit generator."""
+    fan_in = weight.shape[1] * weight.shape[2] * weight.shape[3]
+    with torch.no_grad():
+        weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode BatchNorm2d with the JAX package's arithmetic:
+    ``(x - mean) * rsqrt(var + eps) * scale + bias`` in f32, cast to the
+    compute dtype (``layers.py:80-83``). Init: scale 1, bias 0, mean 0,
+    var 1 (``layers.py:73-78``). Train-mode (ghost) BatchNorm comes with the
+    training slice."""
+
+    def __init__(self, num_features: int, dtype=torch.float32,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.dtype = dtype
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+        self.register_buffer("num_batches_tracked",
+                             torch.tensor(0, dtype=torch.long))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "train-mode (ghost) BatchNorm is not ported yet (ROADMAP.md, "
+                "Queue 1); call .eval()")
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        y = (x.float() - self.running_mean.view(shape)) * mul.view(shape) \
+            + self.bias.view(shape)
+        return y.to(self.dtype)
+
+
+class Conv1x1(nn.Module):
+    """1x1 convolution as a channel matmul on the NHWC view
+    (``layers.py:113-141``). Weight ``(O, I, 1, 1)``, as ``nn.Conv2d``."""
+
+    def __init__(self, in_ch: int, out_ch: int, bias: bool = False,
+                 dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, 1, 1))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.linear(x.permute(0, 2, 3, 1).to(self.dtype),
+                     self.weight[:, :, 0, 0].to(self.dtype))
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y.permute(0, 3, 1, 2)
+
+
+class Conv2d(nn.Module):
+    """General convolution through the library (cuDNN on the card), the
+    counterpart of the JAX package's ``nn.Conv`` / ``lax.conv`` path."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
+                 padding: int = 0, dilation: int = 1, groups: int = 1,
+                 bias: bool = False, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.stride, self.padding = stride, padding
+        self.dilation, self.groups = dilation, groups
+        self.weight = nn.Parameter(
+            torch.empty(out_ch, in_ch // groups, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), bias,
+                        self.stride, self.padding, self.dilation, self.groups)
+
+
+class PallasDepthwise(nn.Module):
+    """3x3 depthwise conv (padding 0: the block input is already padded)
+    backed by ``ops/depthwise.py`` — the hand-written kernel at stride 1,
+    the grouped conv at stride 2 (``layers.py:366-388``). Weight
+    ``(C, 1, 3, 3)``, as the grouped ``nn.Conv2d``; the class keeps the JAX
+    module's name, as the flag does."""
+
+    def __init__(self, features: int, stride: int = 1, dilation: int = 1,
+                 dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.stride, self.dilation = stride, dilation
+        self.weight = nn.Parameter(torch.empty(features, 1, 3, 3))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight[:, 0].permute(1, 2, 0).to(self.dtype).contiguous()
+        # a no-op copy for channels_last input, which the model keeps
+        xh = x.to(self.dtype).permute(0, 2, 3, 1).contiguous()
+        y = depthwise_conv3x3(xh, w, self.stride, self.dilation, 0)
+        return y.permute(0, 3, 1, 2)
+
+
+_DEPTHWISE_IMPL = "xla"
+
+
+def set_depthwise_impl(name: str) -> None:
+    """'xla' (the library's grouped conv, default; the name is the JAX
+    package's) or 'pallas' (the hand-written kernel of ``ops/depthwise.py``;
+    ``--pallas_dw``). Process-global, read when a model is built."""
+    global _DEPTHWISE_IMPL
+    if name not in ("xla", "pallas"):
+        raise ValueError(name)
+    _DEPTHWISE_IMPL = name
+
+
+def conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1, *,
+         dilation: int = 1, padding: int = 0, groups: int = 1,
+         bias: bool = False, dtype=torch.float32) -> nn.Module:
+    """The conv factory's dispatch (``layers.py:269-321``)."""
+    if kernel == 1 and stride == 1 and groups == 1 and padding == 0:
+        return Conv1x1(in_ch, out_ch, bias, dtype)
+    if (_DEPTHWISE_IMPL == "pallas" and kernel == 3 and groups == out_ch
+            and in_ch == out_ch and not bias and padding == 0):
+        return PallasDepthwise(out_ch, stride, dilation, dtype)
+    return Conv2d(in_ch, out_ch, kernel, stride, padding, dilation, groups,
+                  bias, dtype)
+
+
+def fixed_padding_amounts(kernel_size: int, dilation: int) -> Tuple[int, int]:
+    """TF-style explicit padding used by the reference MobileNetV2
+    (``networks/mobilenet_v2.py:15-21``)."""
+    effective = kernel_size + (kernel_size - 1) * (dilation - 1)
+    total = effective - 1
+    beg = total // 2
+    return beg, total - beg
+
+
+def fixed_pad(x: torch.Tensor, kernel_size: int, dilation: int) -> torch.Tensor:
+    """Pad H and W of an NCHW tensor (memory format kept)."""
+    beg, end = fixed_padding_amounts(kernel_size, dilation)
+    return F.pad(x, (beg, end, beg, end))

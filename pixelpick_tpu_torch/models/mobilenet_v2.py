@@ -1,0 +1,109 @@
+"""MobileNetV2 backbone for DeepLabv3+, eval mode.
+
+Counterpart of ``pixelpick_tpu/models/mobilenet_v2.py`` (reference
+``networks/mobilenet_v2.py``):
+
+- the inverted-residual settings table with the reference's output-stride
+  dilation schedule (at os=16 the (6,96,3,1) and (6,160,3,2) groups run
+  stride 1 / dilation 1 and the final (6,320,1,1) group dilation 2);
+- TF-style ``fixed_padding`` applied to the *block input*, before the 1x1
+  expand conv, so the depthwise conv runs VALID;
+- features split after block 2: low-level (stride 4) / high-level
+  (stride 16).
+
+Module names follow the reference (``features.0`` the stem,
+``features.{i+1}.conv.{j}`` the blocks), which is the layout
+``pixelpick_tpu.models.convert.convert_deeplab`` reads. The MC-dropout sites
+come with the MC-dropout committee (ROADMAP.md, Queue 1).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+
+from pixelpick_tpu_torch.models.layers import BatchNorm, conv, fixed_pad
+
+# (expand_ratio t, channels c, repeats n, stride s) — mobilenet_v2.py:82-91
+INVERTED_RESIDUAL_SETTINGS = (
+    (1, 16, 1, 1),
+    (6, 24, 2, 2),
+    (6, 32, 3, 2),
+    (6, 64, 4, 2),
+    (6, 96, 3, 1),
+    (6, 160, 3, 2),
+    (6, 320, 1, 1),
+)
+
+
+def block_plan(output_stride: int, width_mult: float = 1.0):
+    """Expand the settings table into per-block (in, out, stride, dilation,
+    expand_ratio), reproducing the reference's stride->dilation loop."""
+    plan = []
+    input_channel = int(32 * width_mult)
+    current_stride = 2  # after the stem conv
+    rate = 1
+    for t, c, n, s in INVERTED_RESIDUAL_SETTINGS:
+        if current_stride == output_stride:
+            stride, dilation = 1, rate
+            rate *= s
+        else:
+            stride, dilation = s, 1
+            current_stride *= s
+        out_channel = int(c * width_mult)
+        for i in range(n):
+            plan.append((input_channel, out_channel,
+                         stride if i == 0 else 1, dilation, t))
+            input_channel = out_channel
+    return plan, input_channel
+
+
+class InvertedResidual(nn.Module):
+    """One inverted-residual block (mobilenet_v2.py:24-66)."""
+
+    def __init__(self, inp: int, oup: int, stride: int, dilation: int,
+                 expand_ratio: int, dtype=torch.float32):
+        super().__init__()
+        hidden = int(round(inp * expand_ratio))
+        self.use_res = stride == 1 and inp == oup
+        self.dilation = dilation
+        layers = []
+        if expand_ratio != 1:
+            layers += [conv(inp, hidden, 1, dtype=dtype),
+                       BatchNorm(hidden, dtype), nn.ReLU6()]
+        layers += [conv(hidden, hidden, 3, stride, dilation=dilation,
+                        groups=hidden, dtype=dtype),
+                   BatchNorm(hidden, dtype), nn.ReLU6(),
+                   conv(hidden, oup, 1, dtype=dtype),
+                   BatchNorm(oup, dtype)]
+        self.conv = nn.Sequential(*layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv(fixed_pad(x, 3, self.dilation))  # pad the block input (:61)
+        return x + h if self.use_res else h
+
+
+class MobileNetV2(nn.Module):
+    def __init__(self, output_stride: int = 16, width_mult: float = 1.0,
+                 dtype=torch.float32):
+        super().__init__()
+        plan, self.out_channels = block_plan(output_stride, width_mult)
+        self.low_channels = plan[2][1]
+        stem_ch = int(32 * width_mult)
+        # stem: conv 3x3 stride 2, torch padding=1 (mobilenet_v2.py:7-12)
+        stem = nn.Sequential(conv(3, stem_ch, 3, 2, padding=1, dtype=dtype),
+                             BatchNorm(stem_ch, dtype), nn.ReLU6())
+        self.features = nn.Sequential(
+            stem, *[InvertedResidual(*p, dtype=dtype) for p in plan])
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """NCHW in; returns (high_level 1/16, low_level 1/4)."""
+        h = self.features[0](x)
+        low = None
+        for i, block in enumerate(self.features[1:]):
+            h = block(h)
+            if i == 2:  # features[0:4] = stem + blocks 0..2 (:125)
+                low = h
+        return h, low
