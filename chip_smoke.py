@@ -6,11 +6,12 @@ for CUDA and the CUDA toolkit (nvcc):
 
     python3 chip_smoke.py [--out chiprun_out]
 
-It builds the hand-written kernels from the sources in the checkout and
-drives the port's pool-scoring (query) path at full width, in phases; any
-failure exits nonzero:
+It builds the hand-written kernels from the sources in the checkout (one
+``nvcc`` per source, started together) and drives the port's pool-scoring
+(query) path and its training round at full width, in phases; any failure
+exits nonzero:
 
-1. card: name and power limit, torch and CUDA versions, the kernel build;
+1. card: name and power limit, torch and CUDA versions, the kernel builds;
 2. kernels vs plain: the depthwise 3x3 kernel at every shape one
    DeepLabv3+/MobileNetV2 forward (batch 32, 360x480) gives it, in f32 and
    bf16, plus ragged shapes, held against its plain PyTorch version; the
@@ -23,7 +24,28 @@ failure exits nonzero:
    counters are zeroed just before the sweep and read just after it; one
    pool batch is repeated with the library's depthwise conv for comparison;
 4. human-mode CLI round: ``pixelpick_tpu_torch.cli.query.main`` on a saved
-   checkpoint, with picks labelled from the synthetic ground truth.
+   checkpoint, with picks labelled from the synthetic ground truth;
+5. fused kernels vs plain: the fused inverted-residual forward and backward
+   kernels at the 13 stride-1 t=6 block shapes of a train step (batch 4,
+   one ghost-BN group) and at the remainder batch of 3, in f32 and bf16,
+   plus ragged shapes (two groups, odd sizes, channels not a multiple of
+   the tiles), held against their plain versions gradient by gradient, two
+   calls bit-equal, and controls (dx zeroed, a gradient 5% off) refused;
+   the kernels', the plain versions' and the library-built block's times,
+   and the bounds;
+6. train step: the full-width model at 360x480, batch 4, f32, dropout off
+   for this check, at well-conditioned weights: the loss and every
+   parameter gradient with the kernels (``--fused_ir --pallas_dw``) against
+   the library path, leaf by leaf, and a planted 5% fault refused; the
+   launches per step (13 fused forward, 13 fused backward, 1 + 1
+   depthwise); the median step time of both paths;
+7. AL campaign: ``pixelpick_tpu_torch.cli.main_al.main`` on a synthetic
+   367-train / 101-val CamVid at 360x480 with ``--fused_ir --pallas_dw
+   --n_pixels_by_us 10 --max_budget 20`` and 2 epochs per round (a dataset
+   config overlay): two rounds. The warm epoch's train images/s, its
+   device share (profiler), the train loader's images/s alone, validation
+   images/s; the artifacts, 10 valid picks per image per round, finite
+   losses, and the kernels' launches over the campaign.
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. The details go to
@@ -51,6 +73,7 @@ HERE = Path(__file__).resolve().parent
 # CUDA-core arithmetic (the kernel accumulates in f32 in both dtypes)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12  # dense tensor-core rate, the peak for bf16 inputs
 L2_BYTES = 50 * 2 ** 20
 
 # Kernel vs plain version, elementwise, with mag = sum over the 9 taps of
@@ -64,9 +87,39 @@ MODEL_TOL = 1e-4     # whole-model logits, kernel vs library depthwise, f32,
 #                      relative to the largest |logit|: other summation
 #                      orders through ~60 layers
 SLEEP_CYCLES = 20_000_000  # ~10 ms of device time for the host to run ahead
+SLEEP_CYCLES_PER_S = 2.0e9  # the sleep's clock, about the card's (1.98 GHz)
 PORTED_KERNEL = "dw3x3_s1_nhwc"  # csrc/depthwise.cu's kernel, by name
 
+# fused kernels vs plain: y relative to its largest |value| and the moments
+# to theirs, as tests/test_fused_ir.py holds them. Each of the ten
+# gradients relative to its own largest |value|, or to GRAD_FLOOR of the
+# largest of the ten where its own is smaller (a near-zero gradient). f32:
+# 1e-4, on the entries that no ReLU6 input within KINK_CLEARANCE of 0 or 6
+# reaches (kink_masks). bf16: 4e-2, or twice how far the plain version
+# itself moves between bf16 and f32 on the same inputs where that is more
+FUSED_TOL = {"float32": 1e-4, "bfloat16": 4e-2}
+FUSED_GRAD_TOL = {"float32": 1e-4, "bfloat16": 4e-2}
+FUSED_STATS_TOL = {"float32": 1e-5, "bfloat16": 4e-2}
+GRAD_FLOOR = 1e-3
+KINK_CLEARANCE = 4e-6
+# train step, kernels vs library path, f32, on weights and images chosen so
+# that few ReLU inputs lie near a kink and no BatchNorm cancels
+# (well_conditioned_): the loss relative; each parameter gradient relative
+# to its own largest |value| plus STEP_GRAD_FLOOR of the largest |gradient|
+# (the floor holds the leaves whose true gradient is zero to their rounding
+# noise). A ReLU input within rounding of its kink still occurs where a
+# zero-padded border meets those positive activations (on an H100: 1.7e-5
+# from it, in block 0), and the other branch moves the leaves that read it
+# by a few pixels' worth of the 23x30 maps, each 1/2760 of their scale (on
+# an H100: up to 6.5e-4, in block 17); a wrong gradient in one block moves
+# its leaves by its own size
+STEP_LOSS_TOL, STEP_GRAD_TOL, STEP_GRAD_FLOOR = 1e-5, 2e-3, 1e-5
+
+GRAD_NAMES = ("dx", "dwe", "dwd", "dwp", "dg1", "db1", "dg2", "db2", "dg3",
+              "db3")
+
 N_IMAGES, IMAGE_HW, POOL_BATCH, N_CLASSES, VOID = 367, (360, 480), 32, 11, 11
+N_VAL, TRAIN_BATCH = 101, 4
 DEVICE = "cuda"
 
 
@@ -99,9 +152,17 @@ def time_ms(fn, inputs, reps: int = 20, warmup: int = 3) -> float:
     for i in range(warmup):
         fn(*inputs[i % len(inputs)])
     torch.cuda.synchronize()
+    # the host's time to enqueue one call: the sleep must outlast enqueueing
+    # all of them, or a function of many small launches is timed at the
+    # host's pace
+    t0 = time.perf_counter()
+    fn(*inputs[0])
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    torch.cuda._sleep(SLEEP_CYCLES)
+    torch.cuda._sleep(max(SLEEP_CYCLES,
+                          int(2 * reps * host_s * SLEEP_CYCLES_PER_S)))
     for i, (start, end) in enumerate(events):
         start.record()
         fn(*inputs[i % len(inputs)])
@@ -132,7 +193,7 @@ def import_port():
 def phase_card() -> dict:
     import torch
 
-    from pixelpick_tpu_torch.ops import depthwise as dw
+    from pixelpick_tpu_torch.ops import build, depthwise as dw, fused_ir
 
     smi = nvidia_smi_line()
     print(f"[1] card: {smi}")
@@ -141,14 +202,17 @@ def phase_card() -> dict:
           f"{torch.cuda.get_device_capability(0)}, "
           f"{torch.cuda.device_count()} visible")
     t0 = time.perf_counter()
-    so = dw.build_library()
+    libs = build.build_all(["depthwise", "fused_ir"])
     dw._library()
+    fused_ir._library()
     build_s = time.perf_counter() - t0
-    log = so.with_suffix(".log").read_text() if so.with_suffix(".log").is_file() else ""
-    print(f"[1] built {so.relative_to(HERE)} in {build_s:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[1] ptxas: {line.strip()}")
+    for name, so in libs.items():
+        print(f"[1] built {so.relative_to(HERE)} (in {build_s:.2f} s for "
+              f"both, in parallel)")
+        log = so.with_suffix(".log").read_text()
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[1] ptxas {name}: {line.strip()}")
     return {"nvidia_smi": smi, "torch": torch.__version__,
             "cuda": torch.version.cuda, "kind": torch.cuda.get_device_name(0),
             "build_s": build_s}
@@ -166,9 +230,9 @@ def main_path_dw_shapes(model, batch: int) -> list:
     seen = []
     launch = dw._launch_kernel
 
-    def spy(x, w, dilation):
+    def spy(x, w, dilation, counter="kernel"):
         seen.append((tuple(x.shape), dilation))
-        return launch(x, w, dilation)
+        return launch(x, w, dilation, counter)
 
     dw._launch_kernel = spy
     try:
@@ -295,26 +359,28 @@ def phase_kernels(model) -> dict:
 
 # ------------------------------ phase 3 ------------------------------
 
-def make_synthetic_camvid(root: Path, n: int, seed: int = 0) -> None:
+def make_synthetic_camvid(root: Path, n: int, n_val: int = 0,
+                          seed: int = 0) -> None:
     """CamVid layout: {root}/train/*.png RGB and {root}/trainannot/*.png
-    labels 0..10 with void 11, in 30x40-pixel tiles; images are a colour per
-    class plus noise."""
+    labels 0..10 with void 11 (and ``n_val`` more under test/, testannot/),
+    in 30x40-pixel tiles; images are a colour per class plus noise."""
     from PIL import Image
 
     rng = np.random.default_rng(seed)
     palette = rng.integers(0, 256, (N_CLASSES + 1, 3))
     h, w = IMAGE_HW
-    (root / "train").mkdir(parents=True)
-    (root / "trainannot").mkdir(parents=True)
-    for i in range(n):
-        tiles = rng.integers(0, N_CLASSES, (h // 30, w // 40))
-        tiles[rng.random(tiles.shape) < 0.05] = VOID
-        lab = np.repeat(np.repeat(tiles, 30, 0), 40, 1).astype(np.uint8)
-        img = palette[lab] + rng.integers(-20, 21, (h, w, 3))
-        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
-            root / "train" / f"{i:04d}.png", compress_level=1)
-        Image.fromarray(lab).save(root / "trainannot" / f"{i:04d}.png",
-                                  compress_level=1)
+    for split, count in (("train", n), ("test", n_val)):
+        (root / split).mkdir(parents=True)
+        (root / f"{split}annot").mkdir(parents=True)
+        for i in range(count):
+            tiles = rng.integers(0, N_CLASSES, (h // 30, w // 40))
+            tiles[rng.random(tiles.shape) < 0.05] = VOID
+            lab = np.repeat(np.repeat(tiles, 30, 0), 40, 1).astype(np.uint8)
+            img = palette[lab] + rng.integers(-20, 21, (h, w, 3))
+            Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                root / split / f"{i:04d}.png", compress_level=1)
+            Image.fromarray(lab).save(root / f"{split}annot" / f"{i:04d}.png",
+                                      compress_level=1)
 
 
 def phase_oracle_round(work: Path, model, args) -> dict:
@@ -427,7 +493,6 @@ def warm_sweep(selector, dataset, args) -> dict:
     and the kernels that take its time. Picks are dropped; no mask
     changes."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from pixelpick_tpu_torch.data.loader import Loader
@@ -449,6 +514,29 @@ def warm_sweep(selector, dataset, args) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         traced_s = sweep()
+    busy, busy_us, by_name = device_busy(prof, traced_s)
+    ours_ms = sum(t for name, (t, _) in by_name.items()
+                  if PORTED_KERNEL in name) / 1e3
+    print(f"[3] warm sweep (images decoded): {warm_s:.3f} s = "
+          f"{N_IMAGES / warm_s:.1f} images/s; under the profiler "
+          f"{traced_s:.3f} s, device busy "
+          + (f"{100 * busy:.1f}%, of which {ours_ms:.3f} ms in "
+             f"{PORTED_KERNEL}" if busy is not None else "not measured (the "
+             "profiler saw no device activity)"))
+    top = print_top("[3]", by_name)
+    return {"warm_s": warm_s, "images_per_s": N_IMAGES / warm_s,
+            "traced_s": traced_s, "device_busy_share": busy,
+            "device_busy_ms": busy_us / 1e3, "ported_kernel_ms": ours_ms,
+            "top_device_ms": top}
+
+
+def device_busy(prof, wall_s: float):
+    """From a ``torch.profiler`` trace: the share of ``wall_s`` in which the
+    device ran anything (the union of its kernels' intervals; None when the
+    trace holds no device activity), that busy time in us, and
+    {kernel name: (us, launches)}."""
+    from torch.autograd import DeviceType
+
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     busy_us, end = 0.0, float("-inf")
@@ -458,23 +546,16 @@ def warm_sweep(selector, dataset, args) -> dict:
         end = max(end, e)
         t, n = by_name.get(name, (0.0, 0))
         by_name[name] = (t + (e - s), n + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    busy = busy_us / 1e6 / traced_s if spans else None
-    ours_ms = sum(t for name, (t, _) in by_name.items()
-                  if PORTED_KERNEL in name) / 1e3
-    print(f"[3] warm sweep (images decoded): {warm_s:.3f} s = "
-          f"{N_IMAGES / warm_s:.1f} images/s; under the profiler "
-          f"{traced_s:.3f} s, device busy "
-          + (f"{100 * busy:.1f}%, of which {ours_ms:.3f} ms in "
-             f"{PORTED_KERNEL}" if spans else "not measured (the profiler "
-             "saw no device activity)"))
-    for name, (us, n) in top:
-        print(f"[3]   {us / 1e3:9.3f} ms {n:5d}x  {name[:90]}")
-    return {"warm_s": warm_s, "images_per_s": N_IMAGES / warm_s,
-            "traced_s": traced_s, "device_busy_share": busy,
-            "device_busy_ms": busy_us / 1e3, "ported_kernel_ms": ours_ms,
-            "top_device_ms": [{"name": k, "ms": v[0] / 1e3, "count": v[1]}
-                              for k, v in top]}
+    busy = busy_us / 1e6 / wall_s if spans else None
+    return busy, busy_us, by_name
+
+
+def print_top(prefix: str, by_name: dict, n: int = 10) -> list:
+    """Print and return the ``n`` kernels that took the most device time."""
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
+    for name, (us, count) in top:
+        print(f"{prefix}   {us / 1e3:9.3f} ms {count:5d}x  {name[:90]}")
+    return [{"name": k, "ms": v[0] / 1e3, "count": v[1]} for k, v in top]
 
 
 # ------------------------------ phase 4 ------------------------------
@@ -536,6 +617,643 @@ def phase_human_cli(work: Path, model, args) -> dict:
             "launches": counts}
 
 
+
+# ------------------------------ phase 5 ------------------------------
+
+def fused_block_shapes(batch: int) -> list:
+    """(B, H, W, Cin, Cout, dilation) of the 13 stride-1 t=6 blocks of one
+    train step at 360x480 (os 16, width 1.0), in order."""
+    from pixelpick_tpu_torch.models.mobilenet_v2 import block_plan
+
+    plan, _ = block_plan(16, 1.0)
+    h, w = IMAGE_HW[0] // 2, IMAGE_HW[1] // 2  # after the stride-2 stem
+    shapes = []
+    for inp, oup, stride, d, t in plan:
+        if stride == 2:
+            h, w = (h + 2 * d - 3) // 2 + 1, (w + 2 * d - 3) // 2 + 1
+        elif t != 1:
+            shapes.append((batch, h, w, inp, oup, d))
+    return shapes
+
+
+def fused_inputs(b, h, w, cin, cout, dtype, seed):
+    import torch
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    ch = 6 * cin
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, device=DEVICE, generator=g) * scale
+
+    x = rn(b, h, w, cin).to(dtype)
+    # the two ReLU6 BatchNorms' biases in [1, 2]: the kink at 0 sits in the
+    # tail of their outputs, not at its mode, so few inputs lie near it, and
+    # both sides of both kinks still occur. The depthwise taps and the
+    # projection's columns sum to zero, so the products of those positive
+    # activations stay centred and their fast variances do not cancel
+    wd, wp = rn(3, 3, ch, scale=1 / 3), rn(ch, cout, scale=ch ** -0.5)
+    weights = [rn(cin, ch, scale=cin ** -0.5).to(dtype),
+               (wd - wd.mean((0, 1))).to(dtype), (wp - wp.mean(0)).to(dtype)]
+    for c, lo in ((ch, 1.0), (ch, 1.0), (cout, None)):
+        weights += [0.5 + torch.rand(c, device=DEVICE, generator=g),
+                    0.1 * rn(c) if lo is None
+                    else lo + torch.rand(c, device=DEVICE, generator=g)]
+    return x, tuple(weights), rn(b, h, w, cout).to(dtype)
+
+
+def library_block(x, weights, d: int, use_res: bool):
+    """The block from library calls over one ghost-BN group (the batch):
+    1x1 and grouped ``F.conv2d``, ``F.batch_norm(training=True)``,
+    ``F.hardtanh``, in eager PyTorch; NCHW out. A yardstick only: no single
+    PyTorch call computes a fused block."""
+    import torch.nn.functional as F
+
+    we, wd, wp, g1, b1, g2, b2, g3, b3 = weights
+    xc = x.permute(0, 3, 1, 2)
+    h = F.conv2d(F.pad(xc, (d, d, d, d)), we.t()[:, :, None, None])
+    h = F.hardtanh(F.batch_norm(h, None, None, g1, b1, training=True), 0, 6)
+    h = F.conv2d(h, wd.permute(2, 0, 1)[:, None], dilation=d,
+                 groups=h.shape[1])
+    h = F.hardtanh(F.batch_norm(h, None, None, g2, b2, training=True), 0, 6)
+    h = F.batch_norm(F.conv2d(h, wp.t()[:, :, None, None]), None, None, g3,
+                     b3, training=True)
+    return xc + h if use_res else h
+
+
+def relu6_inputs(x, weights, group: int, d: int):
+    """The inputs of the block's two ReLU6s in the plain forward, per group:
+    over the padded domain (B, H + 2d, W + 2d, Ch) and the image."""
+    import torch
+
+    from pixelpick_tpu_torch.ops import fused_ir
+
+    we, wd, _, g1, b1, g2, b2, _, _ = weights
+    u1s, u2s = [], []
+    for i in range(0, x.shape[0], group):
+        u1 = fused_ir.stage1_pre(x[i:i + group], we, g1, b1, d)[0]
+        u1s.append(u1)
+        u2s.append(fused_ir.stage2_pre(u1.clamp(0, 6), wd, g2, b2, d)[0])
+    return torch.cat(u1s), torch.cat(u2s)
+
+
+def kink_masks(x, weights, group: int, d: int):
+    """Where the gradients may take another branch than the plain version's.
+    A ReLU6 input within KINK_CLEARANCE of 0 or 6 can land on either side
+    of the kink under another summation order, and every gradient that
+    reads it then moves by that element's whole contribution: a different
+    branch, not a rounding error (block 2 at batch 4 has 13M ReLU6 inputs,
+    about ten within 4e-6 of a kink). Such an input at hidden channel c reaches
+    the gradients of channel c (we's column, wd's taps, both BatchNorms'
+    parameters) and dx at the pixels that read it (its own for the first
+    ReLU6, the 3x3 taps around it for the second). Returns (the pixels and
+    channels no such input reaches, the count of such inputs)."""
+    import torch.nn.functional as F
+
+    u1, u2 = relu6_inputs(x, weights, group, d)
+    near = [(u.float().abs() < KINK_CLEARANCE)
+            | ((u.float() - 6).abs() < KINK_CLEARANCE) for u in (u1, u2)]
+    taps = F.max_pool2d(F.pad(near[1].any(-1)[:, None].float(), (d,) * 4),
+                        3, 1, 0, d)[:, 0]
+    keep_p = ~(near[0].any(-1)[:, d:-d, d:-d] | (taps > 0))
+    keep_c = ~(near[0].flatten(0, 2).any(0) | near[1].flatten(0, 2).any(0))
+    return keep_p, keep_c, sum(int(n.sum()) for n in near)
+
+
+def held(grads, keep_p, keep_c) -> list:
+    """The entries of the ten gradients that ``kink_masks`` leaves."""
+    dx, dwe, dwd, dwp, dg1, db1, dg2, db2, dg3, db3 = grads
+    return [dx[keep_p], dwe[:, keep_c], dwd[:, :, keep_c], dwp, dg1[keep_c],
+            db1[keep_c], dg2[keep_c], db2[keep_c], dg3, db3]
+
+
+def grad_errors(grads, ref, gmax: float) -> dict:
+    """Per gradient, the largest |difference| over the larger of its own
+    largest |value| and GRAD_FLOOR * gmax."""
+    out = {}
+    for n, a, r in zip(GRAD_NAMES, grads, ref):
+        if r.numel() == 0:
+            out[n] = 0.0
+            continue
+        scale = max(float(r.float().abs().max()), GRAD_FLOOR * gmax)
+        out[n] = float((a.float() - r.float()).abs().max()) / scale
+    return out
+
+
+def measure_fused(shape, group: int, dtype, seed: int, timed: bool) -> dict:
+    import torch
+
+    from pixelpick_tpu_torch.ops import fused_ir
+
+    b, h, w, cin, cout, d = shape
+    x, weights, dy = fused_inputs(b, h, w, cin, cout, dtype, seed)
+    use_res = cin == cout
+    args = (group, d, use_res)
+    y, stats = fused_ir.fused_fwd_kernel(x, weights, *args)
+    grads = fused_ir.fused_bwd_kernel(x, dy, weights, *args)
+    y2, stats2 = fused_ir.fused_fwd_kernel(x, weights, *args)
+    grads2 = fused_ir.fused_bwd_kernel(x, dy, weights, *args)
+    torch.cuda.synchronize()
+    bit_equal = (torch.equal(y, y2)
+                 and all(torch.equal(a, c) for a, c in zip(stats, stats2))
+                 and all(torch.equal(a, c) for a, c in zip(grads, grads2)))
+    y_ref, stats_ref = fused_ir.fused_fwd_plain(x, weights, *args)
+    grads_ref = fused_ir.fused_bwd_plain(x, dy, weights, *args)
+
+    def err(a, r):
+        return float((a.float() - r.float()).abs().max())
+
+    name = str(dtype).replace("torch.", "")
+    y_scale = float(y_ref.float().abs().max())
+    gmax = max(float(r.float().abs().max()) for r in grads_ref)
+    y_err = err(y, y_ref)
+    stat_rel = max(err(a, r) / max(float(r.abs().max()), 1e-30)
+                   for a, r in zip(stats, stats_ref))
+    grad_tol = dict.fromkeys(GRAD_NAMES, FUSED_GRAD_TOL[name])
+    bf16_drift = kinks = None
+    if dtype == torch.float32:
+        keep_p, keep_c, n_near = kink_masks(x, weights, group, d)
+        kinks = {"near": n_near, "pixels_held": int(keep_p.sum()),
+                 "pixels": keep_p.numel(), "channels_held": int(keep_c.sum()),
+                 "channels": keep_c.numel()}
+
+        def judged(gs):
+            return held(gs, keep_p, keep_c)
+    else:  # the plain version's own bf16 error
+        def judged(gs):
+            return gs
+        f32 = fused_ir.fused_bwd_plain(
+            x.float(), dy.float(), tuple(t.float() for t in weights), *args)
+        bf16_drift = grad_errors(grads_ref, f32, gmax)
+        grad_tol = {n: max(t, 2 * bf16_drift[n]) for n, t in grad_tol.items()}
+    ref_held = judged(grads_ref)
+    grad_errs = grad_errors(judged(grads), ref_held, gmax)
+
+    def grads_pass(gs):
+        errs = grad_errors(judged(gs), ref_held, gmax)
+        return all(errs[n] <= grad_tol[n] for n in GRAD_NAMES)
+
+    # controls the judge must refuse: dx zeroed, and in f32 the expand
+    # weight's gradient 5% too large
+    controls = [[torch.zeros_like(grads[0]), *grads[1:]]]
+    if dtype == torch.float32:
+        controls.append([grads[0], grads[1] * 1.05, *grads[2:]])
+    controls_fail = not any(grads_pass(c) for c in controls)
+    ok = (y_err <= FUSED_TOL[name] * y_scale
+          and stat_rel <= FUSED_STATS_TOL[name]
+          and grads_pass(grads) and bit_equal and controls_fail)
+    item = x.element_size()
+    fwd_flops, bwd_flops = fused_ir.block_flops(b, h, w, cin, 6 * cin, cout,
+                                                d)
+    wbytes = sum(t.numel() * t.element_size() for t in weights)
+    fwd_bytes = (x.numel() + y.numel()) * item + wbytes \
+        + sum(t.numel() * 4 for t in stats)
+    bwd_bytes = (2 * x.numel() + dy.numel()) * item + wbytes \
+        + sum(t.numel() * 4 for t in weights)
+    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    r = {"shape": list(shape), "group": group, "dtype": name,
+         "y_max_abs_err": y_err, "y_max_abs": y_scale,
+         "stats_max_rel_err": stat_rel,
+         "grad_max_abs_err": max(err(a, r) for a, r in zip(grads, grads_ref)),
+         "grad_max_abs": gmax, "grad_rel_err": grad_errs,
+         "grad_own_max": {n: float(r.float().abs().max()) / gmax
+                          for n, r in zip(GRAD_NAMES, grads_ref)},
+         "grad_tol": grad_tol, "grad_worst": max(
+             grad_errs[n] / grad_tol[n] for n in GRAD_NAMES),
+         "plain_bf16_drift": bf16_drift, "controls_fail": controls_fail,
+         "relu6_inputs_near_kinks": kinks,
+         "bit_equal": bit_equal, "ok": ok,
+         "fwd_flops": fwd_flops, "bwd_flops": bwd_flops,
+         "fwd_bytes": fwd_bytes, "bwd_bytes": bwd_bytes}
+    for k, fl, by in (("fwd", fwd_flops, fwd_bytes),
+                      ("bwd", bwd_flops, bwd_bytes)):
+        t_bytes = by / PEAK_BYTES_PER_S * 1e3
+        t_ops = fl / peak * 1e3
+        r[f"{k}_bound_ms"] = max(t_bytes, t_ops)
+        r[f"{k}_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    if not timed:
+        return r
+    inputs = [(xc,) for xc in cold_copies(x)]
+    r["fwd_ms"] = time_ms(
+        lambda a: fused_ir.fused_fwd_kernel(a, weights, *args), inputs)
+    r["bwd_ms"] = time_ms(
+        lambda a: fused_ir.fused_bwd_kernel(a, dy, weights, *args), inputs)
+    if dtype != torch.float32:
+        return r
+    r["plain_fwd_ms"] = time_ms(
+        lambda a: fused_ir.fused_fwd_plain(a, weights, *args), inputs,
+        reps=3, warmup=1)
+    r["plain_bwd_ms"] = time_ms(
+        lambda a: fused_ir.fused_bwd_plain(a, dy, weights, *args), inputs,
+        reps=3, warmup=1)
+    if group == b:
+        leaves = [t.detach().requires_grad_() for t in weights]
+        dyc = dy.permute(0, 3, 1, 2)
+
+        def fwd_bwd(a):
+            a = a.detach().requires_grad_()
+            out = library_block(a, leaves, d, use_res)
+            torch.autograd.grad(out, [a, *leaves], dyc)
+
+        with torch.no_grad():
+            r["library_fwd_ms"] = time_ms(
+                lambda a: library_block(a, weights, d, use_res), inputs)
+        # the backward kernel's function, from x and dy to the gradients,
+        # recomputes the forward; so does its library yardstick
+        r["library_bwd_ms"] = time_ms(fwd_bwd, inputs)
+    return r
+
+
+def phase_fused_kernels() -> dict:
+    import torch
+
+    results = {"float32": [], "bfloat16": [], "remainder": [], "ragged": []}
+    failures = []  # every shape is measured before the phase fails
+
+    def judge(r, what):
+        if not r["ok"]:
+            failures.append(what)
+            print(f"[5] FAILED {what}: {r}")
+
+    main = fused_block_shapes(TRAIN_BATCH)
+    check(len(main) == 13, f"{len(main)} fused blocks in the plan")
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        for i, shape in enumerate(main):
+            r = measure_fused(shape, TRAIN_BATCH, dtype, seed=i, timed=True)
+            results[name].append(r)
+            print(f"[5] {name:8s} block x{tuple(shape)}: y err "
+                  f"{r['y_max_abs_err']:.3g}/{r['y_max_abs']:.3g}, worst "
+                  f"gradient at {r['grad_worst']:.3g} of its tolerance, "
+                  f"ReLU6 inputs near a kink {r['relu6_inputs_near_kinks']}, "
+                  f"controls refused {r['controls_fail']}, "
+                  f"bit-equal {r['bit_equal']}; fwd {r['fwd_ms']:.4f} ms "
+                  f"(bound {r['fwd_bound_ms']:.4f}, plain "
+                  f"{r.get('plain_fwd_ms', float('nan')):.3f}, library "
+                  f"{r.get('library_fwd_ms', float('nan')):.4f}), bwd "
+                  f"{r['bwd_ms']:.4f} ms (bound {r['bwd_bound_ms']:.4f}, "
+                  f"plain {r.get('plain_bwd_ms', float('nan')):.3f}, library "
+                  f"{r.get('library_bwd_ms', float('nan')):.4f})")
+            judge(r, f"{name} block {shape}")
+        # the epoch's remainder batch of 3 runs every block with group 3
+        for i, shape in enumerate(main):
+            rem = (3, *shape[1:])
+            r = measure_fused(rem, 3, dtype, seed=50 + i, timed=False)
+            results["remainder"].append(r)
+            judge(r, f"{name} remainder {rem}")
+        worst = max(r["grad_worst"] for r in results["remainder"][-13:])
+        print(f"[5] {name}: the 13 blocks at the remainder batch of 3, worst "
+              f"gradient at {worst:.3g} of its tolerance")
+    # ragged: 1, 2, 3 and 12 groups (batch 48 in ghost-BN groups of 4), odd
+    # sizes, channels off the 32/64 tiles
+    extras = [((8, 23, 30, 64, 64, 1), 4), ((8, 11, 13, 20, 28, 1), 4),
+              ((6, 7, 9, 24, 24, 2), 2), ((3, 5, 7, 40, 40, 3), 3),
+              ((2, 9, 10, 16, 24, 1), 1), ((48, 5, 6, 16, 16, 1), 4)]
+    for i, (shape, group) in enumerate(extras):
+        for dtype in (torch.float32, torch.bfloat16):
+            r = measure_fused(shape, group, dtype, seed=100 + i, timed=False)
+            results["ragged"].append(r)
+            print(f"[5] ragged {r['dtype']} x{shape} group {group}: y err "
+                  f"{r['y_max_abs_err']:.3g}, worst gradient at "
+                  f"{r['grad_worst']:.3g} of its tolerance, bit-equal "
+                  f"{r['bit_equal']}")
+            judge(r, f"ragged {shape} group {group} {r['dtype']}")
+    check(not failures, f"fused kernels disagree with their plain versions "
+                        f"at {failures}")
+    return results
+
+
+# ------------------------------ phase 6 ------------------------------
+
+def relu_batchnorms(model) -> list:
+    """(name, module) of the BatchNorms whose outputs feed a ReLU: all but
+    the blocks' projections."""
+    from pixelpick_tpu_torch.models import layers
+    from pixelpick_tpu_torch.models.mobilenet_v2 import InvertedResidual
+
+    projections = {
+        id([m for m in block.conv if isinstance(m, layers.BatchNorm)][-1])
+        for block in model.modules() if isinstance(block, InvertedResidual)}
+    return [(n, m) for n, m in model.named_modules()
+            if isinstance(m, layers.BatchNorm) and id(m) not in projections]
+
+
+def well_conditioned_(model, seed: int) -> None:
+    """Weights at which f32 rounding moves no ReLU input across a kink and
+    no BatchNorm through a cancellation: every BatchNorm that feeds a ReLU
+    with scale in [0.15, 0.3] and bias in [2.5, 3.5] (its outputs 8
+    standard deviations or more from 0 and 6), every conv's taps minus
+    their mean over its inputs (a conv of those positive activations is
+    centred). At a random
+    init the ReLU kinks sit in the middle of the activations, and the
+    gradients of two summation orders differ by whole elements."""
+    import torch
+
+    from pixelpick_tpu_torch.models import layers
+
+    g = torch.Generator().manual_seed(seed)
+    # the blocks' projection BatchNorms feed no ReLU but the residual
+    # stream: centred, so that the stream stays centred too
+    relu = {id(m) for _, m in relu_batchnorms(model)}
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, layers.BatchNorm):
+                c = m.weight.shape[0]
+                if id(m) not in relu:
+                    m.weight.copy_(0.5 + 0.5 * torch.rand(c, generator=g))
+                    m.bias.copy_(0.2 * torch.rand(c, generator=g) - 0.1)
+                else:
+                    m.weight.copy_(0.15 + 0.15 * torch.rand(c, generator=g))
+                    m.bias.copy_(2.5 + torch.rand(c, generator=g))
+            elif getattr(m, "weight", None) is not None \
+                    and m.weight.dim() == 4:
+                m.weight.sub_(m.weight.mean((1, 2, 3), keepdim=True))
+
+
+def phase_train_step(args_cv) -> dict:
+    """One full-width train step with the kernels against the library path
+    at the same weights and batch, then timed steps of both."""
+    import torch
+
+    from pixelpick_tpu_torch.engine.optim import make_optimizer
+    from pixelpick_tpu_torch.engine.trainer import (
+        make_train_step, normalize_images, sparse_ce_and_hist,
+    )
+    from pixelpick_tpu_torch.models import layers
+    from pixelpick_tpu_torch.models.factory import get_model
+    from pixelpick_tpu_torch.ops import depthwise as dw, fused_ir
+
+    rng = np.random.default_rng(7)
+    k = 10
+    # images of distinct content (a 24x24-pixel random mosaic plus noise, at
+    # a contrast and brightness of their own), so that ASPP's pooled branch
+    # varies across the batch
+    mosaic = np.kron(rng.uniform(-1, 1, (TRAIN_BATCH, IMAGE_HW[0] // 24,
+                                         IMAGE_HW[1] // 24, 3)),
+                     np.ones((1, 24, 24, 1)))
+    images = (rng.uniform(30, 120, (TRAIN_BATCH, 1, 1, 3)) * mosaic
+              + rng.uniform(60, 200, (TRAIN_BATCH, 1, 1, 3))
+              + rng.normal(0, 10, mosaic.shape))
+    batch = {
+        "x": torch.from_numpy(np.clip(images, 0, 255).astype(np.uint8))
+        .to(DEVICE),
+        "coords": torch.from_numpy(np.stack(
+            [rng.integers(0, IMAGE_HW[0], (TRAIN_BATCH, k)),
+             rng.integers(0, IMAGE_HW[1], (TRAIN_BATCH, k))], -1)).to(DEVICE),
+        "labels": torch.from_numpy(rng.integers(0, N_CLASSES,
+                                                (TRAIN_BATCH, k))).to(DEVICE),
+        "valid": torch.ones((TRAIN_BATCH, k), dtype=torch.bool,
+                            device=DEVICE),
+    }
+    models = {}
+    for name, fused in (("kernels", True), ("library", False)):
+        args_cv.fused_ir = fused
+        layers.set_depthwise_impl("pallas" if fused else "xla")
+        models[name] = get_model(args_cv, DEVICE, seed=11)
+    layers.set_depthwise_impl("pallas")
+    args_cv.fused_ir = False
+    well_conditioned_(models["kernels"], seed=12)
+    models["library"].load_state_dict(models["kernels"].state_dict())
+    for m in models.values():
+        for mod in m.modules():
+            if isinstance(mod, layers.Dropout):
+                mod.p = 0.0  # dropout off for this comparison only
+        m.train()
+    margins = []
+
+    def margin(name):
+        def hook(_mod, _inp, out):
+            out = out.detach().float()
+            margins.append((float(torch.minimum(out.abs(),
+                                                (out - 6).abs()).min()),
+                            name, float(out.min()), float(out.max())))
+        return hook
+
+    hooks = [m.register_forward_hook(margin(n))
+             for n, m in relu_batchnorms(models["library"])]
+
+    def loss_and_grads(model):
+        x = normalize_images(batch["x"], args_cv.mean, args_cv.std)
+        out = model(x, upsample=False)
+        loss, _ = sparse_ce_and_hist(out["pred"], batch["coords"],
+                                     batch["labels"], batch["valid"],
+                                     IMAGE_HW, N_CLASSES)
+        names, params = zip(*model.named_parameters())
+        return loss, dict(zip(names, torch.autograd.grad(loss, params)))
+
+    torch.cuda.synchronize()
+    fused_ir.reset_launch_counts()
+    dw.reset_launch_counts()
+    loss_k, grads_k = loss_and_grads(models["kernels"])
+    torch.cuda.synchronize()
+    counts = {**fused_ir.launch_counts, **{f"depthwise_{k}": v for k, v in
+                                           dw.launch_counts.items()}}
+    loss_l, grads_l = loss_and_grads(models["library"])
+    torch.cuda.synchronize()
+    for hook in hooks:
+        hook.remove()
+    print(f"[6] launches in one train step with the kernels: {counts}")
+    check(counts["fused_fwd"] == 13 and counts["fused_bwd"] == 13,
+          f"fused launches per step {counts}")
+    check(counts["depthwise_kernel"] == 1 and counts["depthwise_kernel_dx"] == 1
+          and counts["depthwise_stride2_conv"] == 3,
+          f"depthwise launches per step {counts}")
+    loss_k, loss_l = float(loss_k.detach()), float(loss_l.detach())
+    loss_err = abs(loss_k - loss_l) / abs(loss_l)
+    gmax = max(float(g.abs().max()) for g in grads_l.values())
+
+    def leaf_errors(grads):
+        """Per leaf: largest |diff| over its tolerance."""
+        return {n: float((grads[n] - g).abs().max())
+                / (STEP_GRAD_TOL * float(g.abs().max())
+                   + STEP_GRAD_FLOOR * gmax)
+                for n, g in grads_l.items()}
+
+    errs = leaf_errors(grads_k)
+    worst = sorted(((e, n, float(grads_l[n].abs().max()) / gmax)
+                    for n, e in errs.items()), reverse=True)[:5]
+    # a control the judge must refuse: block 2's expand-weight gradient 5%
+    # too large
+    planted = dict(grads_k)
+    planted["backbone.features.2.conv.0.weight"] = \
+        grads_k["backbone.features.2.conv.0.weight"] * 1.05
+    control_fails = max(leaf_errors(planted).values()) > 1
+    print(f"[6] loss {loss_k:.7f} with the kernels, {loss_l:.7f} with the "
+          f"library (relative {loss_err:.3g}, tolerance {STEP_LOSS_TOL}); "
+          f"least distance of a ReLU input from 0 or 6 "
+          f"{min(margins)}; gradients, kernels vs library, the worst "
+          f"leaves at {[(n, f'{e:.3g}') for e, n, _ in worst]} of their "
+          f"tolerance (their largest |value| over the largest gradient: "
+          f"{[f'{o:.2g}' for _, _, o in worst]}); the planted 5% fault "
+          f"refused: {control_fails}")
+    check(np.isfinite(loss_k), "non-finite loss")
+    check(loss_err <= STEP_LOSS_TOL, f"loss {loss_k} vs {loss_l}")
+    check(worst[0][0] <= 1, f"gradients off: {worst}")
+    check(control_fails, "the planted gradient fault passed the check")
+
+    # whole steps (forward, loss, backward, Adam), each synchronised after
+    # it, kernels and library in turns
+    step_ms = {"kernels": [], "library": []}
+    torch.cuda.reset_peak_memory_stats()
+    for name in ("kernels", "library", "library", "kernels"):
+        m = models[name]
+        step = make_train_step(m, make_optimizer(args_cv, m, 92),
+                               n_classes=N_CLASSES, mean=args_cv.mean,
+                               std=args_cv.std)
+        step(batch)
+        torch.cuda.synchronize()
+        for _ in range(5):
+            t0 = time.perf_counter()
+            step(batch)
+            torch.cuda.synchronize()
+            step_ms[name].append((time.perf_counter() - t0) * 1e3)
+    med = {k: statistics.median(v) for k, v in step_ms.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[6] train step at batch {TRAIN_BATCH} (median of 10): "
+          f"{med['kernels']:.2f} ms with the kernels, {med['library']:.2f} ms "
+          f"with the library path; peak device memory {peak_gb:.2f} GB")
+    return {"launches_per_step": counts, "loss_kernels": loss_k,
+            "loss_library": loss_l, "loss_rel_err": loss_err,
+            "kink_margin": min(margins), "grad_worst": worst,
+            "grad_err_over_tol": errs, "control_fails": control_fails,
+            "step_ms": step_ms, "median_step_ms": med,
+            "peak_device_gb": peak_gb}
+
+
+# ------------------------------ phase 7 ------------------------------
+
+def phase_campaign(work: Path) -> dict:
+    """Two AL rounds through the CLI entry point, as a user runs them; the
+    round-0 warm epoch timed, the round-1 warm epoch under the profiler."""
+    import torch
+    import yaml
+    from torch.profiler import ProfilerActivity, profile
+
+    from pixelpick_tpu_torch.active import codec, driver
+    from pixelpick_tpu_torch.cli.main_al import main as main_al
+    from pixelpick_tpu_torch.config import DATASET_DEFAULTS
+    from pixelpick_tpu_torch.data.loader import Loader
+    from pixelpick_tpu_torch.ops import depthwise as dw, fused_ir
+
+    run = work / "campaign"
+    # the CamVid block with n_epochs 2 (the epoch count is set by a
+    # dataset config overlay, not a flag, in both packages)
+    cfg = {k: v for k, v in DATASET_DEFAULTS["cv"].items()
+           if k != "dir_dataset_name"}
+    cfg["optimizer_params"] = dict(cfg["optimizer_params"],
+                                   betas=list(cfg["optimizer_params"]["betas"]))
+    cfg.update(dataset_name="cv", dir_dataset=str(work / "camvid"),
+               n_epochs=2)
+    (work / "cv_2epochs.yaml").write_text(yaml.safe_dump(cfg))
+
+    record = {}
+    train_epoch = driver.ALModel._train_epoch
+
+    def timed_epoch(self, epoch, step_fn):
+        if epoch != 2:
+            return train_epoch(self, epoch, step_fn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if self.nth_query == 0:
+            out = train_epoch(self, epoch, step_fn)
+            torch.cuda.synchronize()
+            record["warm_epoch_s"] = time.perf_counter() - t0
+            return out
+        # the device's activity only: sifting a host trace of every
+        # operator of the epoch takes longer than the epoch itself
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = train_epoch(self, epoch, step_fn)
+            torch.cuda.synchronize()
+        record["traced_epoch_s"] = time.perf_counter() - t0
+        record["busy"] = device_busy(prof, record["traced_epoch_s"])
+        return out
+
+    driver.ALModel._train_epoch = timed_epoch
+    fused_ir.reset_launch_counts()
+    dw.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        al = main_al([
+            "-pdc", str(work / "cv_2epochs.yaml"), "--dir_checkpoints",
+            str(run), "--device", DEVICE, "--fused_ir", "--pallas_dw",
+            "--n_pixels_by_us", "10", "--max_budget", "20",
+            "-qs", "margin_sampling", "--pool_batch_size", str(POOL_BATCH),
+            "--n_workers", "8", "--seed", "0"])
+        torch.cuda.synchronize()
+    finally:
+        driver.ALModel._train_epoch = train_epoch
+    campaign_s = time.perf_counter() - t0
+    counts = {**fused_ir.launch_counts, **{f"depthwise_{k}": v for k, v in
+                                           dw.launch_counts.items()}}
+    n_steps = 2 * 2 * -(-N_IMAGES // TRAIN_BATCH)
+    print(f"[7] two rounds in {campaign_s:.1f} s; launches {counts} for "
+          f"{n_steps} train steps")
+    check(counts["fused_fwd"] == 13 * n_steps
+          and counts["fused_bwd"] == 13 * n_steps, f"fused launches {counts}")
+    check(counts["depthwise_kernel_dx"] == n_steps, f"dx launches {counts}")
+
+    for stage in ("0_query", "1_query"):
+        for f in ("queries.pkl", "query_stats.pkl", "log_train.txt",
+                  "log_val.txt", "best_miou_model.ckpt", "timing.json",
+                  "1_train.png", "2_train.png", "1_val.png", "2_val.png"):
+            check((run / stage / f).is_file(), f"{stage}/{f} not written")
+        rows = (run / stage / "log_train.txt").read_text().split()[1:]
+        check(len(rows) == 2 and all(np.isfinite(float(r.split(",")[3]))
+                                     for r in rows), f"{stage} losses {rows}")
+    check((run / "2_query" / "queries.pkl").is_file(), "2_query not written")
+    labelled = None
+    for nth in (0, 1, 2):
+        with open(run / f"{nth}_query" / "queries.pkl", "rb") as f:
+            masks = codec.decode_queries(pkl.load(f), return_as_dict=True)
+        check(len(masks) == N_IMAGES, f"{nth}_query: {len(masks)} images")
+        for p, m in masks.items():
+            check(int(m.sum()) == 10, f"{nth}_query {p}: {int(m.sum())} picks")
+            gt = np.asarray(al.dataset._load_y(
+                al.dataset.list_inputs.index(p)))
+            check(not (gt[m] == VOID).any(), f"{nth}_query {p}: a void pick")
+        if labelled is not None:
+            check(not any((labelled[p] & m).any() for p, m in masks.items()),
+                  f"{nth}_query re-picked a labelled pixel")
+            labelled = {p: labelled[p] | m for p, m in masks.items()}
+        else:
+            labelled = masks
+    check(al.dataset.n_pixels_total == 3 * 10 * N_IMAGES,
+          f"{al.dataset.n_pixels_total} labelled pixels")
+    timing = {stage: json.loads((run / stage / "timing.json").read_text())
+              for stage in ("0_query", "1_query")}
+    busy, busy_us, by_name = record["busy"]
+    warm_ips = N_IMAGES / record["warm_epoch_s"]
+    # the profiler slows the host, not the device: the traced epoch's device
+    # time over the untraced warm epoch's wall time (same number of steps)
+    busy_untraced = busy_us / 1e6 / record["warm_epoch_s"]
+    val_ips = [timing[s]["val"]["items_per_sec"] for s in timing]
+    # the host's share: one epoch of the train loader alone (images decoded
+    # and cached already), no step
+    with Loader(al.dataset, TRAIN_BATCH, mode="train", shuffle=True,
+                n_workers=8, seed=0) as loader:
+        loader.set_epoch(3)
+        t0 = time.perf_counter()
+        n_loaded = sum(len(b["x"]) for b in loader)
+        loader_s = time.perf_counter() - t0
+    print(f"[7] warm epoch (round 0, epoch 2): {record['warm_epoch_s']:.2f} s "
+          f"= {warm_ips:.1f} train images/s; round 1 epoch 2 under the "
+          f"profiler {record['traced_epoch_s']:.2f} s, device busy "
+          + (f"{100 * busy:.1f}% of it, its device time {busy_us / 1e6:.2f} "
+             f"s = {100 * busy_untraced:.1f}% of the untraced warm epoch"
+             if busy is not None else "not measured")
+          + f"; the train loader alone {n_loaded / loader_s:.1f} images/s; "
+          f"validation {val_ips} images/s")
+    top = print_top("[7]", by_name)
+    return {"campaign_s": campaign_s, "launches": counts, "n_steps": n_steps,
+            "warm_epoch_s": record["warm_epoch_s"],
+            "train_images_per_s": warm_ips,
+            "traced_epoch_s": record["traced_epoch_s"],
+            "device_busy_share": busy, "device_busy_ms": busy_us / 1e3,
+            "device_busy_share_untraced_epoch": busy_untraced,
+            "loader_images_per_s": n_loaded / loader_s,
+            "top_device_ms": top, "val_images_per_s": val_ips,
+            "timing": timing}
+
+
 # ------------------------------ main ------------------------------
 
 def main(argv=None) -> int:
@@ -559,7 +1277,7 @@ def main(argv=None) -> int:
     work = HERE / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     t0 = time.perf_counter()
-    make_synthetic_camvid(work / "camvid", N_IMAGES)
+    make_synthetic_camvid(work / "camvid", N_IMAGES, N_VAL)
     print(f"[3] wrote the synthetic pool in {time.perf_counter() - t0:.1f} s")
     args = default_args(
         dataset_name="cv", dir_datasets=str(work),
@@ -570,9 +1288,14 @@ def main(argv=None) -> int:
         top_n_percent=0.05, pool_batch_size=POOL_BATCH, n_workers=4, seed=0)
     model = get_model(args)
 
+    t_start = time.perf_counter()
     kernels = phase_kernels(model)
     oracle = phase_oracle_round(work, model, args)
     human = phase_human_cli(work, model, args)
+    fused = phase_fused_kernels()
+    step = phase_train_step(args)
+    campaign = phase_campaign(work)
+    phases_s = time.perf_counter() - t_start
 
     f32 = kernels["float32"]
     entry = {
@@ -590,16 +1313,41 @@ def main(argv=None) -> int:
         else "operations",
         "library_ms": sum(r["library_ms"] for r in f32),
     }
+    # the fused kernels: per train step of the main path, the 13 blocks at
+    # batch 4 in f32, summed; launches over the two-round campaign
+    f32 = fused["float32"]
+    fused_entries = []
+    for k, name, line in (("fwd", "fused_ir_fwd", 221),
+                          ("bwd", "fused_ir_bwd", 241)):
+        bound_by = {r[f"{k}_bound_by"] for r in f32}
+        fused_entries.append({
+            "name": name, "route": "cuda",
+            "source": "pixelpick_tpu_torch/csrc/fused_ir.cu",
+            "replaces": f"pixelpick_tpu/ops/fused_ir.py:{line}",
+            "launches": campaign["launches"][f"fused_{k}"],
+            "max_abs_err": max(r["y_max_abs_err" if k == "fwd"
+                                 else "grad_max_abs_err"] for r in f32),
+            "ms": sum(r[f"{k}_ms"] for r in f32),
+            "plain_ms": sum(r[f"plain_{k}_ms"] for r in f32),
+            "bound_ms": sum(r[f"{k}_bound_ms"] for r in f32),
+            "bound_by": bound_by.pop() if len(bound_by) == 1
+            else "operations",
+            "library_ms": sum(r[f"library_{k}_ms"] for r in f32),
+        })
+    print(f"[7] phases 2-7 took {phases_s:.1f} s")
     out = Path(opts.out)
     if not out.is_absolute():
         out = HERE / out
     out.mkdir(parents=True, exist_ok=True)
     with open(out / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "kernels": kernels, "oracle_round": oracle,
-                   "human_cli": human, "summary": entry}, f, indent=1)
+                   "human_cli": human, "fused_kernels": fused,
+                   "train_step": step, "campaign": campaign,
+                   "phases_s": phases_s,
+                   "summary": [entry, *fused_entries]}, f, indent=1)
     shutil.rmtree(work, ignore_errors=True)
 
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [entry, *fused_entries]}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -149,8 +149,9 @@ def build_parser() -> ArgumentParser:
                         help="evaluate the first 4 MobileNetV2 blocks in "
                              "space-to-depth layout")
     parser.add_argument("--fused_ir", action="store_true", default=False,
-                        help="run eligible stride-1 t=6 MobileNetV2 blocks "
-                             "through the fused inverted-residual kernel")
+                        help="in training, run the stride-1 t=6 MobileNetV2 "
+                             "blocks through the fused inverted-residual "
+                             "kernels (ops/fused_ir.py, csrc/fused_ir.cu)")
     parser.add_argument("--conv3x3_matmul", action="store_true", default=False,
                         help="lower same-shape stride-1 3x3 convs to 9 tap "
                              "channel matmuls")
@@ -232,9 +233,20 @@ def check_supported(args: Namespace) -> None:
         missing.append("--network_name FPN (Queue 1: FPN/ResNet)")
     if args.use_mc_dropout:
         missing.append("--use_mc_dropout (Queue 1: MC-dropout committee)")
-    if args.fused_ir:
-        missing.append("--fused_ir (Queue 2: fused inverted-residual "
-                       "kernels, with the training slice)")
+    if args.n_pixels_by_us == 0:
+        missing.append("--n_pixels_by_us 0, the fully supervised dense step "
+                       "(Queue 1: the dense step)")
+    if args.micro_batch_size > 0:
+        missing.append("--micro_batch_size > 0 (Queue 1: the micro-batch "
+                       "scan step)")
+    if args.stage_ckpt_interval:
+        missing.append("--stage_ckpt_interval (Queue 1: stage snapshots "
+                       "and resume)")
+    if args.resume_campaign:
+        missing.append("--resume_campaign (Queue 1: stage snapshots and "
+                       "resume)")
+    if args.device_augment:
+        missing.append("--device_augment (Queue 1: device augmentation)")
     if args.s2d_backbone:
         missing.append("--s2d_backbone (Queue 1: TPU-only rewrites)")
     if args.conv3x3_matmul:

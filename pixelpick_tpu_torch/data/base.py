@@ -10,18 +10,24 @@ Counterpart of ``pixelpick_tpu/data/base.py`` (reference
   (``base_dataset.py:143-149``);
 - ``generate_init_queries``: seeded random initial picks, non-void unless
   ``void_filter`` is off, cached on disk (``camvid.py:50-96``);
+- ``train_sample``: co-augmented (``data/augment.py``) image, label and
+  query mask, then the labelled pixels as sparse coordinates
+  (``extract_sparse_labels``) for the sparse-label train step
+  (``base.py:286-323``);
 - ``val_sample`` / ``query_sample``: uint8 images and int32 labels, decoded
   once and cached in RAM; normalisation happens on the device
   (``engine/trainer.py:normalize_images``).
 
-Training samples (augmentation, sparse-label extraction) come with the
-training slice.
+The human-label train mode (``set_human_inputs``) comes with
+``cli/train.py`` (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
 import os
 import pickle as pkl
+import random
+import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -37,6 +43,38 @@ def atomic_publish(path: str, write_fn) -> None:
     tmp = f"{path}.tmp.{os.getpid()}"
     write_fn(tmp)
     os.replace(tmp, path)
+
+
+# Sparse-extraction overflow counters: labelled pixels dropped because a
+# crop held more than k_max of them. The reference's dense path never drops
+# a label, so k_max carries headroom that makes this unreachable and the
+# tests hold both at 0. COUNT counts events (crops), PIXELS dropped pixels.
+SPARSE_OVERFLOW_COUNT = 0
+SPARSE_OVERFLOW_PIXELS = 0
+
+
+def extract_sparse_labels(queries: np.ndarray, y: np.ndarray,
+                          ignore_index: int, k_max: int):
+    """Labelled-pixel coordinates and labels after augmentation, padded to
+    k_max (``base.py:76-102``). Picks whose label is void are kept but not
+    valid: CE ``ignore_index`` on the densified path."""
+    global SPARSE_OVERFLOW_COUNT, SPARSE_OVERFLOW_PIXELS
+    ys, xs = np.nonzero(queries)
+    labels = y[ys, xs].astype(np.int32)
+    if len(ys) > k_max:
+        SPARSE_OVERFLOW_COUNT += 1
+        SPARSE_OVERFLOW_PIXELS += len(ys) - k_max
+        warnings.warn(f"sparse-label overflow: {len(ys)} labelled pixels in "
+                      f"crop but k_max={k_max}; {len(ys) - k_max} dropped")
+    n = min(len(ys), k_max)
+    coords = np.zeros((k_max, 2), np.int32)
+    out_labels = np.zeros((k_max,), np.int32)
+    valid = np.zeros((k_max,), bool)
+    coords[:n, 0] = ys[:n]
+    coords[:n, 1] = xs[:n]
+    out_labels[:n] = labels[:n]
+    valid[:n] = labels[:n] != ignore_index
+    return coords, out_labels, valid
 
 
 class SegDatasetBase:
@@ -61,6 +99,20 @@ class SegDatasetBase:
         self.crop_size: Tuple[int, int] = (0, 0)
         self._x_cache: dict = {}
         self._y_cache: dict = {}
+        augs = getattr(args, "augmentations", {})
+        self.geometric_augmentations = dict(augs.get("geometric", {}))
+        self.photometric_augmentations = dict(augs.get("photometric", {}))
+        self.mean_fill = tuple((np.array(self.mean) * 255.0)
+                               .astype(np.uint8).tolist())
+        self.jitter = (0.8, 0.8, 0.8, 0.2)  # base_dataset.py:131
+        # sparse coordinate budget per image: random scale up to 2x with
+        # nearest-resized masks repeats a labelled pixel up to 4 times, all
+        # possibly inside the crop, so 4x the nominal budget never truncates
+        base_k = int(max(args.max_budget + max(args.n_init_pixels, 0),
+                         args.n_pixels_by_us, 1))
+        headroom = 4 if self.geometric_augmentations.get("random_scale") \
+            else 1
+        self.k_max = base_k * headroom
 
     # ----------------------------- state -----------------------------
 
@@ -138,6 +190,31 @@ class SegDatasetBase:
         return len(self.list_inputs)
 
     # ----------------------------- samples -----------------------------
+
+    def sample_rng(self, epoch: int, index: int) -> random.Random:
+        return random.Random(
+            (int(self.seed) * 1_000_003 + int(epoch)) * 1_000_003 + int(index))
+
+    def train_sample(self, i: int, epoch: int) -> dict:
+        """Augmented sample with sparse labels: x uint8 (H, W, 3), coords
+        (k_max, 2), labels (k_max,), valid (k_max,)."""
+        from pixelpick_tpu_torch.data.augment import (
+            geometric_augment, photometric_augment,
+        )
+
+        rng = self.sample_rng(epoch, i)
+        x = Image.fromarray(self._load_x(i))
+        y = Image.fromarray(self._load_y(i).astype(np.int32), mode="I")
+        x, y_np, q_np, _ = geometric_augment(
+            x, y, self.queries[i], None, rng, crop_size=self.crop_size,
+            mean_fill=self.mean_fill, ignore_index=self.ignore_index,
+            enabled=self.geometric_augmentations)
+        x = photometric_augment(x, rng, jitter=self.jitter,
+                                enabled=self.photometric_augmentations)
+        coords, labels, valid = extract_sparse_labels(
+            q_np, y_np, self.ignore_index, self.k_max)
+        return {"x": np.asarray(x, dtype=np.uint8), "coords": coords,
+                "labels": labels, "valid": valid}
 
     def val_sample(self, i: int) -> dict:
         return {"x": self._load_x(i), "y": self._load_y(i)}

@@ -1,11 +1,15 @@
-"""Threaded prefetching batch loader, val and query modes.
+"""Threaded prefetching batch loader: train, val and query modes.
 
 Counterpart of ``pixelpick_tpu/data/loader.py`` (which replaces the
 reference's ``torch.utils.data.DataLoader``, ``utils/utils.py:102-108``):
 worker threads decode samples while the device computes, and batches are
-collated into contiguous NumPy arrays, in dataset order. Val and query
-loaders drop no image. The training modes and the shape buckets of
-variable-size pools come later (ROADMAP.md, Queue 1).
+collated into contiguous NumPy arrays. The train mode shuffles per epoch
+(``batch_index_plan``, ``loader.py:143-161``) and drops the last shuffled
+image only when ``n % batch_size == 1`` (the reference's drop-last,
+``utils/utils.py:107``); val and query loaders keep dataset order and drop
+nothing. Augmentation draws from a per-(epoch, index) stream, so batches do
+not depend on thread scheduling. The dense train mode and the shape buckets
+of variable-size pools come later (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -21,19 +25,26 @@ def collate(samples: List[dict]) -> Dict[str, np.ndarray]:
 
 
 class Loader:
-    """mode: 'val' | 'query'."""
+    """mode: 'train' | 'val' | 'query'."""
 
     def __init__(self, dataset, batch_size: int, mode: str = "query",
                  n_workers: int = 4, human_labels: bool = False,
-                 prefetch: int = 2):
-        if mode not in ("val", "query"):
+                 prefetch: int = 2, shuffle: bool = False, seed: int = 0):
+        if mode not in ("train", "val", "query"):
             raise NotImplementedError(f"loader mode {mode!r} is not ported "
                                       "yet (ROADMAP.md, Queue 1)")
+        if mode == "train" and human_labels:
+            raise NotImplementedError("human-label training is not ported "
+                                      "yet (ROADMAP.md, Queue 1: cli/train)")
         self.dataset = dataset
         self.batch_size = batch_size
         self.mode = mode
         self.human_labels = human_labels
         self.prefetch = max(1, prefetch)
+        self.shuffle = shuffle
+        self.seed = seed
+        self.epoch = 0
+        self.drop_last = mode == "train" and len(dataset) % batch_size == 1
         # separate pools: a batch task must never wait on sample tasks
         # queued behind it in its own pool
         self._pool = ThreadPoolExecutor(max_workers=max(1, n_workers))
@@ -51,9 +62,27 @@ class Loader:
         self.close()
 
     def __len__(self) -> int:
-        return -(-len(self.dataset) // self.batch_size)
+        n = len(self.dataset) - (1 if self.drop_last else 0)
+        return -(-n // self.batch_size)
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def batch_index_plan(self, epoch: int) -> List[np.ndarray]:
+        """The epoch's batches of dataset indices: shuffled by
+        ``seed * 100003 + epoch`` when shuffling, the last image dropped
+        under the drop-last rule."""
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.RandomState(self.seed * 100003 + epoch).shuffle(order)
+        if self.drop_last:
+            order = order[:-1]
+        return [order[i:i + self.batch_size]
+                for i in range(0, len(order), self.batch_size)]
 
     def _fetch(self, i: int) -> dict:
+        if self.mode == "train":
+            return self.dataset.train_sample(i, self.epoch)
         if self.mode == "val":
             return self.dataset.val_sample(i)
         return self.dataset.query_sample(i, human_labels=self.human_labels)
@@ -62,9 +91,7 @@ class Loader:
         return collate(list(self._pool.map(self._fetch, idxs)))
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        n = len(self.dataset)
-        batches = iter([range(i, min(i + self.batch_size, n))
-                        for i in range(0, n, self.batch_size)])
+        batches = iter(self.batch_index_plan(self.epoch))
         # keep `prefetch` batches in flight
         futures = [self._batch_pool.submit(self._make_batch, b)
                    for _, b in zip(range(self.prefetch), batches)]

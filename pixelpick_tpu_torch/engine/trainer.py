@@ -1,18 +1,120 @@
-"""Train/eval step functions.
+"""Train and eval steps.
 
-Counterpart of ``pixelpick_tpu/engine/trainer.py``. Only the input
-normalisation that the query path shares is ported so far; the sparse-label
-train step and the eval step come with the training slice (ROADMAP.md,
-Queue 1).
+Counterpart of ``pixelpick_tpu/engine/trainer.py``:
+
+- :func:`sparse_ce_and_hist`: cross-entropy and confusion matrix at the
+  labelled pixels only. The head's logits stay at 1/4 resolution and their
+  align-corners interpolation is evaluated at the labelled coordinates
+  (``ops/resize.py``), which by linearity equals the reference's
+  upsample-then-masked-CE (``model.py:108-116``);
+- :func:`make_train_step`: forward in train mode (``upsample=False``), loss,
+  backward, optimizer update (``make_train_step``/``_jit_step``,
+  ``trainer.py:125-133, 210-226``). The loss and the confusion matrix stay on
+  the device; nothing syncs the host per step;
+- :func:`make_eval_step`: full-resolution argmax and confusion matrix, and
+  one image's visualisation maps (``trainer.py:256-293``).
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
+from typing import Callable
+
 import torch
+
+from pixelpick_tpu_torch.ops.resize import (
+    gather_bilinear_align_corners, gather_bilinear_matmul,
+    resize_align_corners,
+)
+from pixelpick_tpu_torch.ops.uncertainty import vis_maps
+from pixelpick_tpu_torch.utils.metrics import confusion_matrix
+
+
+@lru_cache(maxsize=None)
+def _constant(values: tuple, device: torch.device) -> torch.Tensor:
+    """A small f32 tensor on ``device``, uploaded once: a blocking upload
+    waits for the device, a stall per step. Callers must not write to it."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
 
 
 def normalize_images(x_uint8: torch.Tensor, mean, std) -> torch.Tensor:
     """uint8 NHWC -> normalised f32 (torchvision to_tensor + Normalize)."""
-    mean = torch.as_tensor(mean, dtype=torch.float32, device=x_uint8.device)
-    std = torch.as_tensor(std, dtype=torch.float32, device=x_uint8.device)
+    mean = _constant(tuple(float(v) for v in mean), x_uint8.device)
+    std = _constant(tuple(float(v) for v in std), x_uint8.device)
     return (x_uint8.float() / 255.0 - mean) / std
+
+
+def sparse_ce_and_hist(logits_lr, coords, labels, valid, full_hw,
+                       n_classes: int, gather_impl: str = "matmul"):
+    """Cross-entropy and (n, n) confusion matrix at sparse coordinates.
+
+    logits_lr: (B, h, w, C) low-resolution logits; coords (B, K, 2) int
+    full-resolution (y, x), padding arbitrary; labels (B, K); valid (B, K)
+    bool, False on padding and on void-labelled picks (CE ``ignore_index``).
+    gather_impl: 'matmul' (one-hot selection products) or 'gather'."""
+    if tuple(logits_lr.shape[1:3]) == tuple(full_hw):
+        bsz, _, w_full, c = logits_lr.shape
+        idx = (coords[..., 0] * w_full + coords[..., 1]).long()
+        logits = torch.gather(logits_lr.reshape(bsz, -1, c), 1,
+                              idx[..., None].expand(-1, -1, c))
+    else:
+        gather = gather_bilinear_matmul if gather_impl == "matmul" \
+            else gather_bilinear_align_corners
+        logits = gather(logits_lr, coords, full_hw)
+    logits = logits.float()
+    logp = torch.log_softmax(logits, -1)
+    safe = labels.long().clamp(0, n_classes - 1)
+    ll = torch.gather(logp, -1, safe[..., None])[..., 0]
+    validf = valid.float()
+    n_valid = validf.sum().clamp(min=1)
+    loss = -(ll * validf).sum() / n_valid
+    hist = confusion_matrix(torch.where(valid, labels.long(),
+                                        torch.full_like(labels.long(), -1)),
+                            logits.argmax(-1), n_classes)
+    return loss, hist
+
+
+def batch_to_device(batch: dict, device) -> dict:
+    """Host NumPy batch -> device tensors (uint8 images stay uint8)."""
+    return {k: torch.from_numpy(v).to(device, non_blocking=True)
+            for k, v in batch.items()}
+
+
+def make_train_step(model, optimizer, *, n_classes: int, mean, std,
+                    gather_impl: str = "matmul") -> Callable:
+    """Sparse-label train step. batch (device tensors): x uint8 (B, H, W, 3),
+    coords (B, K, 2), labels (B, K), valid (B, K). Returns (loss, hist), both
+    on the device."""
+
+    def train_step(batch):
+        model.train()
+        x = normalize_images(batch["x"], mean, std)
+        out = model(x, upsample=False)
+        loss, hist = sparse_ce_and_hist(
+            out["pred"], batch["coords"], batch["labels"], batch["valid"],
+            batch["x"].shape[1:3], n_classes, gather_impl=gather_impl)
+        optimizer.zero_grad()
+        loss.backward()
+        optimizer.step()
+        return loss.detach(), hist
+
+    return train_step
+
+
+def make_eval_step(model, *, n_classes: int, mean, std) -> Callable:
+    """Validation step: full-resolution argmax and device confusion matrix.
+    Returns (hist, pred, vis) with ``vis`` the visualisation maps of image
+    ``vis_index``, all on the device."""
+
+    @torch.no_grad()
+    def eval_step(batch, vis_index: int = 0):
+        model.eval()
+        x = normalize_images(batch["x"], mean, std)
+        logits = model(x, upsample=False)["pred"].float()
+        if logits.shape[1:3] != x.shape[1:3]:
+            logits = resize_align_corners(logits, x.shape[1:3])
+        pred = logits.argmax(-1)
+        hist = confusion_matrix(batch["y"], pred, n_classes)
+        return hist, pred, vis_maps(logits[vis_index:vis_index + 1])
+
+    return eval_step

@@ -1,4 +1,4 @@
-"""DeepLabv3+ (MobileNetV2 + ASPP + decoder head), eval mode.
+"""DeepLabv3+ (MobileNetV2 + ASPP + decoder head).
 
 Counterpart of ``pixelpick_tpu/models/deeplab.py`` (reference
 ``networks/deeplab.py:12-61``, head ``networks/decoders.py:104-132``):
@@ -7,25 +7,27 @@ Counterpart of ``pixelpick_tpu/models/deeplab.py`` (reference
   ASPP(high) -> 256ch, bilinear align-corners up to 1/4
   low -> 1x1 conv 24->48 + BN + ReLU
   concat [aspp | low] -> 304ch
-  SegmentHead: 3x3 304->256 BN ReLU, 3x3 256->256 BN ReLU, 1x1 -> n_classes
+  SegmentHead: 3x3 304->256 BN ReLU Drop(0.5), 3x3 256->256 BN ReLU
+               Drop(mc_p), 1x1 -> n_classes
   pred & emb bilinear align-corners up to input resolution
 
 ``upsample=False`` returns the 1/4-resolution head outputs
-(``deeplab.py:99-100``). The model takes and returns NHWC, the JAX layout;
-inside it runs NCHW in ``channels_last`` memory format, so the permutes at
-either end are views. The reference's dropouts are identities in eval mode
-and come with the training slice.
+(``deeplab.py:99-100``), which the sparse train loss reads. The model takes
+and returns NHWC, the JAX layout; inside it runs NCHW in ``channels_last``
+memory format, so the permutes at either end are views. The dropouts are
+active in train mode and draw from the generator that
+``set_dropout_generator`` installs.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
 
 from pixelpick_tpu_torch.models.aspp import ASPP
-from pixelpick_tpu_torch.models.layers import BatchNorm, conv
+from pixelpick_tpu_torch.models.layers import BatchNorm, Dropout, conv
 from pixelpick_tpu_torch.models.mobilenet_v2 import MobileNetV2
 from pixelpick_tpu_torch.ops.resize import resize_align_corners
 
@@ -36,15 +38,17 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 class SegmentHead(nn.Module):
     """DeepLabv3+ decoder head (decoders.py:104-132); the reference's
-    indices 3 and 7 are its dropouts."""
+    indices 3 and 7 are its dropouts (``deeplab.py:46,50-51``)."""
 
-    def __init__(self, n_classes: int, in_ch: int = 304, dtype=torch.float32):
+    def __init__(self, n_classes: int, in_ch: int = 304, dtype=torch.float32,
+                 mc_dropout_p: float = 0.2, bn_groups: int = 0):
         super().__init__()
         self.segment_head = nn.Sequential(
-            conv(in_ch, 256, 3, padding=1, dtype=dtype), BatchNorm(256, dtype),
-            nn.ReLU(), nn.Identity(),
-            conv(256, 256, 3, padding=1, dtype=dtype), BatchNorm(256, dtype),
-            nn.ReLU(), nn.Identity())
+            conv(in_ch, 256, 3, padding=1, dtype=dtype),
+            BatchNorm(256, dtype, groups=bn_groups), nn.ReLU(), Dropout(0.5),
+            conv(256, 256, 3, padding=1, dtype=dtype),
+            BatchNorm(256, dtype, groups=bn_groups), nn.ReLU(),
+            Dropout(mc_dropout_p))
         self.classifier = conv(256, n_classes, 1, bias=True, dtype=dtype)
 
     def forward(self, x: torch.Tensor):
@@ -54,14 +58,26 @@ class SegmentHead(nn.Module):
 
 class DeepLab(nn.Module):
     def __init__(self, n_classes: int, output_stride: int = 16,
-                 width_mult: float = 1.0, dtype=torch.float32):
+                 width_mult: float = 1.0, dtype=torch.float32,
+                 mc_dropout_p: float = 0.2, bn_groups: int = 0,
+                 fused_ir: bool = False):
         super().__init__()
-        self.backbone = MobileNetV2(output_stride, width_mult, dtype)
-        self.aspp = ASPP(self.backbone.out_channels, output_stride, dtype)
+        self.backbone = MobileNetV2(output_stride, width_mult, dtype,
+                                    bn_groups, fused_ir)
+        self.aspp = ASPP(self.backbone.out_channels, output_stride, dtype,
+                         bn_groups)
         self.low_level_conv = nn.Sequential(
             conv(self.backbone.low_channels, 48, 1, dtype=dtype),
-            BatchNorm(48, dtype), nn.ReLU())
-        self.seg_head = SegmentHead(n_classes, 256 + 48, dtype)
+            BatchNorm(48, dtype, groups=bn_groups), nn.ReLU())
+        self.seg_head = SegmentHead(n_classes, 256 + 48, dtype, mc_dropout_p,
+                                    bn_groups)
+
+    def set_dropout_generator(self,
+                              generator: Optional[torch.Generator]) -> None:
+        """Every dropout of the model draws its masks from ``generator``."""
+        for m in self.modules():
+            if isinstance(m, Dropout):
+                m.generator = generator
 
     def forward(self, x: torch.Tensor,
                 upsample: bool = True) -> Dict[str, torch.Tensor]:

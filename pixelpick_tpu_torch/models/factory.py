@@ -43,7 +43,9 @@ def init_model(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     return model
 
 
-def get_model(args, device=None) -> DeepLab:
+def get_model(args, device=None, seed=None) -> DeepLab:
+    """The DeepLab of ``args``, initialised from ``seed`` (default
+    ``args.seed``), on ``device`` (default ``args.device``), in eval mode."""
     # f32 means full f32, as the JAX package's precision="highest"
     # (models/layers.py:304-307, ops/resize.py:75-77): no TF32 in cuDNN's
     # convolutions (on by default) nor in matmuls
@@ -54,7 +56,10 @@ def get_model(args, device=None) -> DeepLab:
                                   "ported yet (ROADMAP.md, Queue 1)")
     model = DeepLab(n_classes=args.n_classes, output_stride=16,
                     width_mult=args.width_multiplier,
-                    dtype=compute_dtype(args))
-    init_model(model, args.seed)
+                    dtype=compute_dtype(args),
+                    mc_dropout_p=getattr(args, "mc_dropout_p", 0.2),
+                    bn_groups=int(getattr(args, "bn_group_size", 0) or 0),
+                    fused_ir=bool(getattr(args, "fused_ir", False)))
+    init_model(model, args.seed if seed is None else seed)
     device = resolve_device(device if device is not None else args.device)
     return model.to(device=device, memory_format=torch.channels_last).eval()

@@ -1,6 +1,6 @@
 """Shared building blocks.
 
-Counterpart of ``pixelpick_tpu/models/layers.py``, eval mode only. Modules
+Counterpart of ``pixelpick_tpu/models/layers.py``. Modules
 take and return NCHW tensors in ``torch.channels_last`` memory format, so
 ``x.permute(0, 2, 3, 1)`` is a free, contiguous NHWC view (the layout of the
 JAX package and of the depthwise kernel) and cuDNN convolutions read the
@@ -11,12 +11,18 @@ weight to the compute ``dtype`` and BatchNorm casts its output to it, as the
 JAX modules do (``layers.py:81-83``, ``:134-136``, ``:304-318``). Parameter
 and buffer names follow the reference's torch modules (``weight``, ``bias``,
 ``running_mean``, ``running_var``, ``num_batches_tracked``).
+
+Train mode: BatchNorm is the JAX package's ghost BN (``ghost_bn_train``,
+``_BNCore``), not ``nn.BatchNorm2d``, whose running variance is the unbiased
+one. ReLU6 is ``min(max(x, 0), 6)``, whose gradient is 0.5 at exactly 0 and
+6, as JAX's (``torch.clamp`` gives 1 and ``F.relu6`` 0 there). The dropouts
+draw from an explicit ``torch.Generator`` when one is set.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -33,18 +39,39 @@ def he_normal_fan_in_(weight: torch.Tensor, generator: torch.Generator) -> None:
         weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
 
 
+def ghost_bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   groups: int, eps: float, dtype):
+    """Train-mode (ghost) BatchNorm of NCHW ``x`` (``layers.py:22-38``):
+    contiguous groups of ``groups`` samples, or the whole batch when
+    ``groups`` does not divide it; f32 fast variance max(0, E[x^2] -
+    E[x]^2). Returns (y in ``dtype``, mu, var) with mu/var (n_groups, C)
+    f32."""
+    b = x.shape[0]
+    g = groups if 0 < groups < b and b % groups == 0 else b
+    xf = x.float().reshape(b // g, g, *x.shape[1:])
+    mu = xf.mean((1, 3, 4))
+    mu2 = (xf * xf).mean((1, 3, 4))
+    var = torch.maximum(torch.zeros((), device=x.device), mu2 - mu * mu)
+    exp = (slice(None), None, slice(None), None, None)
+    mul = torch.rsqrt(var + eps)[exp] * scale.view(1, 1, -1, 1, 1)
+    y = (xf - mu[exp]) * mul + bias.view(1, 1, -1, 1, 1)
+    return y.reshape(x.shape).to(dtype), mu, var
+
+
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm2d with the JAX package's arithmetic:
+    """BatchNorm2d with the JAX package's arithmetic. Eval:
     ``(x - mean) * rsqrt(var + eps) * scale + bias`` in f32, cast to the
-    compute dtype (``layers.py:80-83``). Init: scale 1, bias 0, mean 0,
-    var 1 (``layers.py:73-78``). Train-mode (ghost) BatchNorm comes with the
-    training slice."""
+    compute dtype (``layers.py:80-83``). Train: ghost BN over groups of
+    ``groups`` samples (0 = the whole batch) and the running-stat EMA over
+    the group-mean of the biased variances, momentum 0.9 (``_BNCore``,
+    ``layers.py:85-91``). Init: scale 1, bias 0, mean 0, var 1."""
 
     def __init__(self, num_features: int, dtype=torch.float32,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, groups: int = 0):
         super().__init__()
         self.dtype = dtype
         self.eps = eps
+        self.groups = groups
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -52,16 +79,68 @@ class BatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long))
 
+    @torch.no_grad()
+    def update_running_stats(self, mu: torch.Tensor, var: torch.Tensor,
+                             momentum: float = 0.9) -> None:
+        """EMA of the group-mean moments, as ``_BNCore``/``FusedIRBlock._ema``."""
+        self.running_mean.copy_(momentum * self.running_mean
+                                + (1 - momentum) * mu.mean(0))
+        self.running_var.copy_(momentum * self.running_var
+                               + (1 - momentum) * var.mean(0))
+        self.num_batches_tracked += 1
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(
-                "train-mode (ghost) BatchNorm is not ported yet (ROADMAP.md, "
-                "Queue 1); call .eval()")
+            y, mu, var = ghost_bn_train(x, self.weight, self.bias,
+                                        self.groups, self.eps, self.dtype)
+            self.update_running_stats(mu.detach(), var.detach())
+            return y
         shape = (1, -1, 1, 1)
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight
         y = (x.float() - self.running_mean.view(shape)) * mul.view(shape) \
             + self.bias.view(shape)
         return y.to(self.dtype)
+
+
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, zero), zero + 6)
+
+
+class ReLU6(nn.Module):
+    """``min(max(x, 0), 6)``: the JAX package's ``relu6`` and its gradient."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return relu6(x)
+
+
+class Dropout(nn.Module):
+    """Inverted dropout as flax's ``nn.Dropout``: keep with probability
+    1 - p and scale by 1 / (1 - p); identity in eval mode or at p = 0.
+    ``broadcast_hw`` drops whole feature maps (``Dropout2d``). The mask is
+    drawn from ``self.generator`` (set by ``DeepLab.set_dropout_generator``)
+    or, when none is set, from torch's default generator."""
+
+    def __init__(self, p: float, broadcast_hw: bool = False):
+        super().__init__()
+        self.p = p
+        self.broadcast_hw = broadcast_hw
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0:
+            return x
+        shape = (*x.shape[:2], 1, 1) if self.broadcast_hw else x.shape
+        u = torch.rand(shape, generator=self.generator, device=x.device)
+        keep = u < 1.0 - self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
+
+
+class Dropout2d(Dropout):
+    """Channel dropout, torch ``nn.Dropout2d`` (``layers.py:415-423``)."""
+
+    def __init__(self, p: float):
+        super().__init__(p, broadcast_hw=True)
 
 
 class Conv1x1(nn.Module):

@@ -1,4 +1,4 @@
-"""MobileNetV2 backbone for DeepLabv3+, eval mode.
+"""MobileNetV2 backbone for DeepLabv3+.
 
 Counterpart of ``pixelpick_tpu/models/mobilenet_v2.py`` (reference
 ``networks/mobilenet_v2.py``):
@@ -13,8 +13,10 @@ Counterpart of ``pixelpick_tpu/models/mobilenet_v2.py`` (reference
 
 Module names follow the reference (``features.0`` the stem,
 ``features.{i+1}.conv.{j}`` the blocks), which is the layout
-``pixelpick_tpu.models.convert.convert_deeplab`` reads. The MC-dropout sites
-come with the MC-dropout committee (ROADMAP.md, Queue 1).
+``pixelpick_tpu.models.convert.convert_deeplab`` reads. With ``fused_ir``
+the stride-1 t=6 blocks are ``FusedIRBlock``s (``models/fused_block.py``),
+which keep ``InvertedResidual``'s names (``mobilenet_v2.py:165-170``). The
+MC-dropout sites come with the MC-dropout committee (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 
-from pixelpick_tpu_torch.models.layers import BatchNorm, conv, fixed_pad
+from pixelpick_tpu_torch.models.layers import BatchNorm, ReLU6, conv, fixed_pad
 
 # (expand_ratio t, channels c, repeats n, stride s) — mobilenet_v2.py:82-91
 INVERTED_RESIDUAL_SETTINGS = (
@@ -64,20 +66,21 @@ class InvertedResidual(nn.Module):
     """One inverted-residual block (mobilenet_v2.py:24-66)."""
 
     def __init__(self, inp: int, oup: int, stride: int, dilation: int,
-                 expand_ratio: int, dtype=torch.float32):
+                 expand_ratio: int, dtype=torch.float32, bn_groups: int = 0):
         super().__init__()
         hidden = int(round(inp * expand_ratio))
         self.use_res = stride == 1 and inp == oup
-        self.dilation = dilation
+        self.stride, self.dilation = stride, dilation
+        self.dtype, self.bn_groups = dtype, bn_groups
         layers = []
         if expand_ratio != 1:
             layers += [conv(inp, hidden, 1, dtype=dtype),
-                       BatchNorm(hidden, dtype), nn.ReLU6()]
+                       BatchNorm(hidden, dtype, groups=bn_groups), ReLU6()]
         layers += [conv(hidden, hidden, 3, stride, dilation=dilation,
                         groups=hidden, dtype=dtype),
-                   BatchNorm(hidden, dtype), nn.ReLU6(),
+                   BatchNorm(hidden, dtype, groups=bn_groups), ReLU6(),
                    conv(hidden, oup, 1, dtype=dtype),
-                   BatchNorm(oup, dtype)]
+                   BatchNorm(oup, dtype, groups=bn_groups)]
         self.conv = nn.Sequential(*layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -87,16 +90,25 @@ class InvertedResidual(nn.Module):
 
 class MobileNetV2(nn.Module):
     def __init__(self, output_stride: int = 16, width_mult: float = 1.0,
-                 dtype=torch.float32):
+                 dtype=torch.float32, bn_groups: int = 0,
+                 fused_ir: bool = False):
         super().__init__()
+        from pixelpick_tpu_torch.models.fused_block import FusedIRBlock
+
         plan, self.out_channels = block_plan(output_stride, width_mult)
         self.low_channels = plan[2][1]
         stem_ch = int(32 * width_mult)
         # stem: conv 3x3 stride 2, torch padding=1 (mobilenet_v2.py:7-12)
         stem = nn.Sequential(conv(3, stem_ch, 3, 2, padding=1, dtype=dtype),
-                             BatchNorm(stem_ch, dtype), nn.ReLU6())
-        self.features = nn.Sequential(
-            stem, *[InvertedResidual(*p, dtype=dtype) for p in plan])
+                             BatchNorm(stem_ch, dtype, groups=bn_groups),
+                             ReLU6())
+        blocks = []
+        for inp, oup, stride, d, t in plan:
+            block = FusedIRBlock if fused_ir and stride == 1 and t != 1 \
+                else InvertedResidual
+            blocks.append(block(inp, oup, stride, d, t, dtype=dtype,
+                                bn_groups=bn_groups))
+        self.features = nn.Sequential(stem, *blocks)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """NCHW in; returns (high_level 1/16, low_level 1/4)."""

@@ -4,9 +4,8 @@ version.
 Counterpart of ``pixelpick_tpu/ops/depthwise.py``. The TPU kernel
 ``_dw_halo_kernel`` becomes ``csrc/depthwise.cu`` (a CUDA C++ kernel for
 ``sm_90a``; see the note at the top of that file for what bounds it and how
-it is laid out). It is compiled with ``nvcc`` at first use into
-``build/kernels/`` at the repository root and bound through ``ctypes`` to a
-plain C function, so no PyTorch headers are compiled.
+it is laid out). It is compiled with ``nvcc`` at first use
+(``ops/build.py``) and bound through ``ctypes`` to a plain C function.
 
 Dispatch of :func:`depthwise_conv3x3`, the same as the JAX function's:
 
@@ -17,33 +16,30 @@ Dispatch of :func:`depthwise_conv3x3`, the same as the JAX function's:
 - stride 1 on a CPU tensor runs :func:`depthwise_reference_torch`, the plain
   PyTorch version of the kernel (the tests run it; a card is not needed).
 
-Forward only: the query path needs no gradient. The backward (the JAX
-package's custom VJP) comes with the training slice.
+The stride-1 path is a ``torch.autograd.Function`` with the JAX package's
+custom VJP (``pixelpick_tpu/ops/depthwise.py:178-220``): dx is a stride-1
+depthwise conv of the gradient padded by 2d with the spatially flipped taps,
+which the same kernel computes (a second launch, counted on ``kernel_dx``);
+dw is the per-tap f32 reduction, plain PyTorch as the JAX package leaves it
+to XLA. Stride 2 keeps the grouped conv and its autograd.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "depthwise.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from pixelpick_tpu_torch.ops.build import load_library
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches made by the wrappers below, so that a run can show which path it
-# took: "kernel" counts the hand-written kernel, "stride2_conv" the grouped
+# took: "kernel" counts the hand-written kernel in the forward, "kernel_dx"
+# the same kernel computing dx in the backward, "stride2_conv" the grouped
 # convolutions of the stride-2 blocks.
-launch_counts = {"kernel": 0, "stride2_conv": 0}
-
-_lib = None
+launch_counts = {"kernel": 0, "kernel_dx": 0, "stride2_conv": 0}
 
 
 def reset_launch_counts() -> None:
@@ -51,47 +47,11 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME): the "
-                           "depthwise kernel is built with nvcc")
-    return str(Path(CUDA_HOME) / "bin" / "nvcc")
-
-
-def build_library() -> Path:
-    """Compile ``csrc/depthwise.cu`` into a shared library, once per source
-    content, and return its path. The compiler's output (``-Xptxas -v``:
-    registers, spills) is kept beside it in a ``.log`` file."""
-    digest = hashlib.sha256(_SRC.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"libpp_depthwise_{digest}.so"
-    if out.is_file():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = _BUILD_DIR / f".{out.name}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                          capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SRC} (exit {proc.returncode}):"
-                           f"\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-    return out
-
-
 def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
-        fn = lib.pp_dw3x3_s1_nhwc
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    sig = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+           ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+           ctypes.c_int, ctypes.c_void_p]
+    return load_library("depthwise", {"pp_dw3x3_s1_nhwc": (sig, ctypes.c_int)})
 
 
 def depthwise_reference_torch(x: torch.Tensor, w: torch.Tensor,
@@ -110,8 +70,8 @@ def depthwise_reference_torch(x: torch.Tensor, w: torch.Tensor,
     return acc.to(x.dtype)
 
 
-def _launch_kernel(x: torch.Tensor, w: torch.Tensor,
-                   dilation: int) -> torch.Tensor:
+def _launch_kernel(x: torch.Tensor, w: torch.Tensor, dilation: int,
+                   counter: str = "kernel") -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"the depthwise kernel runs on CUDA tensors, got "
                          f"{x.device}")
@@ -144,7 +104,7 @@ def _launch_kernel(x: torch.Tensor, w: torch.Tensor,
         raise RuntimeError(f"depthwise kernel launch failed: CUDA error "
                            f"{err} for x {tuple(x.shape)} {x.dtype}, "
                            f"dilation {dilation}")
-    launch_counts["kernel"] += 1
+    launch_counts[counter] += 1
     return y
 
 
@@ -159,15 +119,55 @@ def grouped_conv_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int,
     return y.permute(0, 2, 3, 1)
 
 
+def _dw_s1(x: torch.Tensor, w: torch.Tensor, dilation: int,
+           counter: str = "kernel") -> torch.Tensor:
+    """Stride-1 VALID depthwise conv: the plain version for a CPU tensor,
+    the kernel (or an error) for a CUDA tensor."""
+    if x.device.type == "cpu":
+        return depthwise_reference_torch(x, w, dilation)
+    return _launch_kernel(x, w, dilation, counter)
+
+
+def depthwise_wgrad(x: torch.Tensor, g: torch.Tensor,
+                    dilation: int) -> torch.Tensor:
+    """dw of the stride-1 VALID conv: per tap, the f32 sum over batch and
+    space of the shifted input times the output gradient; (3, 3, C) f32."""
+    d = dilation
+    ho, wo = g.shape[1], g.shape[2]
+    gf = g.float()
+    taps = [(x[:, ky * d:ky * d + ho, kx * d:kx * d + wo, :].float() * gf)
+            .sum((0, 1, 2)) for ky in range(3) for kx in range(3)]
+    return torch.stack(taps).reshape(3, 3, -1)
+
+
+class _DepthwiseS1(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, dilation):
+        ctx.save_for_backward(x, w)
+        ctx.dilation = dilation
+        return _dw_s1(x, w, dilation)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        d = ctx.dilation
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            gp = F.pad(g, (0, 0, 2 * d, 2 * d, 2 * d, 2 * d)).contiguous()
+            dx = _dw_s1(gp, w.flip(0, 1).contiguous(), d, "kernel_dx")
+        if ctx.needs_input_grad[1]:
+            dw = depthwise_wgrad(x, g, d).to(w.dtype)
+        return dx, dw, None
+
+
 def _dw_forward(x: torch.Tensor, w: torch.Tensor, stride: int,
                 dilation: int) -> torch.Tensor:
     """x: (B, H, W, C) pre-padded NHWC; w: (3, 3, C). VALID depthwise conv."""
     if stride != 1:
         launch_counts["stride2_conv"] += 1
         return grouped_conv_nhwc(x, w, stride, dilation)
-    if x.device.type == "cpu":
-        return depthwise_reference_torch(x, w, dilation)
-    return _launch_kernel(x, w, dilation)
+    return _DepthwiseS1.apply(x, w, dilation)
 
 
 def depthwise_conv3x3(x: torch.Tensor, w: torch.Tensor, stride: int = 1,

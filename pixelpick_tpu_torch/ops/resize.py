@@ -7,8 +7,10 @@ whatever the input dtype. ``align_corners=True`` is the DeepLab path
 (``s = d * (in - 1) / (out - 1)``); ``False`` is half-pixel
 (``s = (d + 0.5) * in / out - 0.5``).
 
-The sparse-coordinate gather variants serve only the training loss and come
-with the training slice.
+The sparse-coordinate forms (``gather_bilinear_align_corners``,
+``gather_bilinear_matmul``) evaluate the align-corners upsampling at the
+labelled pixels only, for the sparse training loss; by linearity they equal
+upsample-then-index exactly.
 """
 
 from __future__ import annotations
@@ -40,10 +42,20 @@ def _interp_matrix_np(in_size: int, out_size: int, align_corners: bool) -> np.nd
     return mat.astype(np.float32)
 
 
-def interp_matrix(in_size: int, out_size: int, align_corners: bool,
-                  device) -> torch.Tensor:
+@lru_cache(maxsize=None)
+def _interp_matrix_on(in_size: int, out_size: int, align_corners: bool,
+                      device: torch.device) -> torch.Tensor:
     return torch.from_numpy(
         _interp_matrix_np(in_size, out_size, align_corners)).to(device)
+
+
+def interp_matrix(in_size: int, out_size: int, align_corners: bool,
+                  device) -> torch.Tensor:
+    """The matrix on ``device``, uploaded once and cached: a blocking
+    upload waits for the device, so one per call would stall the host on
+    every forward. Callers must not write to it."""
+    return _interp_matrix_on(in_size, out_size, align_corners,
+                             torch.device(device))
 
 
 def resize_bilinear(x: torch.Tensor, out_hw, align_corners: bool) -> torch.Tensor:
@@ -70,3 +82,60 @@ def resize_bilinear(x: torch.Tensor, out_hw, align_corners: bool) -> torch.Tenso
 
 def resize_align_corners(x: torch.Tensor, out_hw) -> torch.Tensor:
     return resize_bilinear(x, out_hw, align_corners=True)
+
+
+def _src(d: torch.Tensor, in_size: int, out_size: int):
+    """Source row/column (floor, clipped to in_size - 2) and fraction of
+    full-resolution coordinates ``d`` under align-corners, in f32."""
+    if out_size == 1 or in_size == out_size:
+        scale = 1.0 if in_size == out_size else 0.0
+    else:
+        scale = (in_size - 1) / (out_size - 1)
+    s = d.float() * scale
+    lo = torch.floor(s).long().clamp(0, max(in_size - 2, 0))
+    return lo, s - lo.float()
+
+
+def gather_bilinear_align_corners(feat: torch.Tensor, coords_yx: torch.Tensor,
+                                  full_hw) -> torch.Tensor:
+    """The align-corners upsampling of ``feat`` (B, h, w, C) at integer
+    full-resolution coordinates ``coords_yx`` (B, K, 2), by four gathers per
+    point; (B, K, C) f32 (``resize.py:86-140``)."""
+    bsz, h, w, _ = feat.shape
+    feat = feat.float()
+    ylo, yfrac = _src(coords_yx[..., 0], h, int(full_hw[0]))
+    xlo, xfrac = _src(coords_yx[..., 1], w, int(full_hw[1]))
+    yhi = (ylo + 1).clamp(max=h - 1)
+    xhi = (xlo + 1).clamp(max=w - 1)
+    flat = feat.reshape(bsz, h * w, -1)
+
+    def take(yy, xx):
+        idx = (yy * w + xx)[..., None].expand(-1, -1, flat.shape[-1])
+        return torch.gather(flat, 1, idx)
+
+    wy, wx = yfrac[..., None], xfrac[..., None]
+    top = take(ylo, xlo) * (1 - wx) + take(ylo, xhi) * wx
+    bot = take(yhi, xlo) * (1 - wx) + take(yhi, xhi) * wx
+    return top * (1 - wy) + bot * wy
+
+
+def gather_bilinear_matmul(feat: torch.Tensor, coords_yx: torch.Tensor,
+                           full_hw) -> torch.Tensor:
+    """Same contract, as separable one-hot selection products: a (B, K, h)
+    row selection and a (B, K, w) column selection with two nonzero weights
+    each, so the backward is a product too (``resize.py:143-190``). At
+    h == 1 (or lo == hi at the border) both terms hit the same row and the
+    weights still sum to 1."""
+    _, h, w, _ = feat.shape
+    ylo, yfrac = _src(coords_yx[..., 0], h, int(full_hw[0]))
+    xlo, xfrac = _src(coords_yx[..., 1], w, int(full_hw[1]))
+    yhi = (ylo + 1).clamp(max=h - 1)
+    xhi = (xlo + 1).clamp(max=w - 1)
+    rows = torch.arange(h, device=feat.device)
+    cols = torch.arange(w, device=feat.device)
+    sel_y = ((rows == ylo[..., None]) * (1 - yfrac)[..., None]
+             + (rows == yhi[..., None]) * yfrac[..., None])
+    sel_x = ((cols == xlo[..., None]) * (1 - xfrac)[..., None]
+             + (cols == xhi[..., None]) * xfrac[..., None])
+    tmp = torch.einsum("bkh,bhwc->bkwc", sel_y.float(), feat.float())
+    return torch.einsum("bkw,bkwc->bkc", sel_x.float(), tmp)

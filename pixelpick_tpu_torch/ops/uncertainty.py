@@ -43,3 +43,16 @@ def uncertainty_map(prob: torch.Tensor, strategy: str,
 def fill_value(strategy: str) -> float:
     """The 'never pick this' value (query.py:196-201)."""
     return 0.0 if strategy in MAXIMIZING else 1.0
+
+
+def vis_maps(logits0: torch.Tensor) -> dict:
+    """The visualisation maps of ONE image's full-resolution logits
+    (1, H, W, C): prediction and the three uncertainty panels
+    (``ops/uncertainty.py:vis_maps``), on the logits' device."""
+    prob = torch.softmax(logits0.float(), -1)
+    return {
+        "pred": prob.argmax(-1)[0],
+        "entropy": uncertainty_map(prob, "entropy")[0],
+        "least_confidence": uncertainty_map(prob, "least_confidence")[0],
+        "margin_sampling": uncertainty_map(prob, "margin_sampling")[0],
+    }

@@ -75,7 +75,8 @@ def test_dispatch_counts_and_cpu_path():
     dw.reset_launch_counts()
     dw.depthwise_conv3x3(torch.from_numpy(x), torch.from_numpy(w), 1, 1, 1)
     dw.depthwise_conv3x3(torch.from_numpy(x), torch.from_numpy(w), 2, 1, 1)
-    assert dw.launch_counts == {"kernel": 0, "stride2_conv": 1}
+    assert dw.launch_counts == {"kernel": 0, "kernel_dx": 0,
+                                "stride2_conv": 1}
 
 
 def test_non_cpu_tensor_never_takes_the_plain_version():

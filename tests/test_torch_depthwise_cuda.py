@@ -63,3 +63,30 @@ def test_kernel_refuses_what_it_does_not_take():
         dw.depthwise_conv3x3(torch.ones((1, 4, 4, 8), device="cuda"), w, 1,
                              2, 0)
     assert dw.launch_counts["kernel"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dilation", [1, 2])
+def test_kernel_backward_matches_plain_version_on_card(dtype, dilation):
+    """dx of the stride-1 path is the kernel again (counted on kernel_dx),
+    on the gradient padded by 2d with the flipped taps; dw is plain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 15 + 2 * dilation, 17 + 2 * dilation, 24))
+    w = rng.standard_normal((3, 3, 24))
+    g = rng.standard_normal((2, 15, 17, 24))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        xt = torch.tensor(x, dtype=dtype, device=dev, requires_grad=True)
+        wt = torch.tensor(w, dtype=dtype, device=dev, requires_grad=True)
+        dw.reset_launch_counts()
+        y = dw.depthwise_conv3x3(xt, wt, 1, dilation, 0)
+        y.backward(torch.tensor(g, dtype=dtype, device=dev))
+        outs[dev] = (xt.grad.float().cpu(), wt.grad.float().cpu(),
+                     dict(dw.launch_counts))
+    assert outs["cuda"][2]["kernel"] == 1 and outs["cuda"][2]["kernel_dx"] == 1
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    for a, r in zip(outs["cuda"][:2], outs["cpu"][:2]):
+        torch.testing.assert_close(a, r, rtol=tol, atol=tol * float(r.abs().max()))

@@ -133,11 +133,14 @@ def test_flag_surface_matches_jax():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--network_name", "FPN"], ["--use_mc_dropout"], ["--fused_ir"],
+    ["--network_name", "FPN"], ["--use_mc_dropout"],
+    ["--micro_batch_size", "2"],
     ["--s2d_backbone", "1"], ["--conv3x3_matmul"],
     ["--spatial_query_sharding"], ["--dist_coordinator", "localhost:1"],
     ["--data_parallel", "2"], ["--dataset_name", "cs"],
-    ["--dataset_name", "voc"]])
+    ["--dataset_name", "voc"], ["--n_pixels_by_us", "0"],
+    ["--stage_ckpt_interval", "1"], ["--resume_campaign"],
+    ["--device_augment"]])
 def test_unported_flags_raise(flags):
     args = config.build_parser().parse_args(flags)
     with pytest.raises(NotImplementedError, match="ROADMAP|Queue"):

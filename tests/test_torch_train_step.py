@@ -1,0 +1,288 @@
+"""The port's sparse-label train step (engine/trainer.py, engine/optim.py,
+the train-mode model) against the JAX package's, at the same weights and
+batches: three steps of the whole DeepLab at width 0.5, 48x64, batch 4,
+with ``fused_ir`` off and on (the port's fused blocks run the kernels'
+plain versions on the CPU; the JAX ones their Pallas kernels in interpret
+mode). The JAX side builds ``DeepLab(fused_ir=True)`` directly: its
+``get_model`` refuses ``--fused_ir`` under the 8 virtual devices that
+tests/conftest.py forces.
+
+Dropout is off on both sides (flax's ``Dropout`` patched to the identity for
+the test, the port's dropout modules at p = 0): the two frameworks draw
+different masks. The optimizer is SGD, whose update is linear in the
+gradient, so the parameters of both sides stay as close as their gradients.
+
+The weights are chosen so that f32 rounding cannot move either side across
+a kink or through a cancellation. At random BatchNorm parameters and noise
+images the train-mode gradient of this small model is chaotic: a ReLU6 input
+within rounding of 0 or 6 takes the other branch under another summation
+order, and the fast variance E[x^2] - E[x]^2 cancels where the batch barely
+varies. The port against itself with the batch permuted then differs by 10%
+in some leaves. So here every BatchNorm has scale in [0.3, 0.6] and bias in
+[2.5, 3.5] (its output is more than 4 sigma from 0 and 6; the test checks
+that no ReLU input comes within 1e-4 of a kink), every conv's taps sum to
+zero over its inputs (a conv of those positive activations is centred), and
+the images differ in content (so ASPP's pooled branch varies across the
+batch). Measured then: losses within 4e-7, and leaves within 2e-4 of their
+own largest |value|.
+
+Tolerances: the loss of each step 1e-5 relative; the confusion matrices
+exactly; every parameter gradient of every step within 1e-4 of its own
+largest |value| plus 1e-6 of the largest |gradient| of the step (the floor
+holds the leaves whose true gradient is zero, a BatchNorm scale or bias whose
+output reaches another train-mode BatchNorm through linear maps only, to
+their rounding noise); the parameters after three steps within 1e-4 of their
+largest three-step move plus 1e-6 of their largest |value|; running
+statistics 1e-4 of their largest |value| (at least 1).
+"""
+
+from types import SimpleNamespace
+
+import flax.linen
+import numpy as np
+import jax
+import jax.numpy as jnp
+import optax
+import pytest
+import torch
+
+from pixelpick_tpu.engine import optim as jax_optim
+from pixelpick_tpu.engine import trainer as jax_trainer
+from pixelpick_tpu.models.deeplab import DeepLab as JaxDeepLab
+from pixelpick_tpu_torch.config import default_args
+from pixelpick_tpu_torch.engine import optim, trainer
+from pixelpick_tpu_torch.models import layers
+from pixelpick_tpu_torch.models.convert import state_dict_from_jax
+from pixelpick_tpu_torch.models.deeplab import DeepLab
+from pixelpick_tpu_torch.ops import fused_ir
+from torch_helpers import jax_deeplab_variables
+
+N_CLASSES, WIDTH, HW, BS, K = 11, 0.5, (48, 64), 4, 12
+MEAN, STD = (0.41, 0.43, 0.44), (0.28, 0.29, 0.29)
+ITERS = 5
+
+
+def _batches(n, seed=0):
+    """Random picks on images of distinct content: an 8x8-pixel random
+    mosaic per image, plus noise."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        valid = rng.random((BS, K)) < 0.8
+        valid[:, 0] = True
+        mosaic = np.kron(rng.uniform(0, 255, (BS, HW[0] // 8, HW[1] // 8, 3)),
+                         np.ones((1, 8, 8, 1)))
+        x = mosaic + rng.normal(0, 20, (BS, *HW, 3))
+        out.append({
+            "x": np.clip(x, 0, 255).astype(np.uint8),
+            "coords": np.stack([rng.integers(0, HW[0], (BS, K)),
+                                rng.integers(0, HW[1], (BS, K))],
+                               -1).astype(np.int32),
+            "labels": rng.integers(0, N_CLASSES, (BS, K)).astype(np.int32),
+            "valid": valid,
+        })
+    return out
+
+
+def _opt_args():
+    """SGD (the table's rates: backbone 1e-3, heads 1e-2; momentum 0.9,
+    coupled weight decay 5e-4) under the MultiStep schedule."""
+    return SimpleNamespace(
+        optimizer_type="SGD", lr_scheduler_type="MultiStepLR", n_epochs=50,
+        optimizer_params={"lr": 5e-4}, dataset_name="cv",
+        network_name="deeplab")
+
+
+def _well_conditioned(tree, rng):
+    """BatchNorm scale in [0.3, 0.6] and bias in [2.5, 3.5]; every conv
+    kernel (HWIO) minus its mean over its inputs."""
+    if "scale" in tree and "bias" in tree:
+        c = tree["scale"].shape[0]
+        return {"scale": rng.uniform(0.3, 0.6, c).astype(np.float32),
+                "bias": rng.uniform(2.5, 3.5, c).astype(np.float32)}
+    out = {k: _well_conditioned(v, rng) if isinstance(v, dict) else v
+           for k, v in tree.items()}
+    if "kernel" in out and out["kernel"].ndim == 4:
+        k = out["kernel"]
+        out["kernel"] = (k - k.mean((0, 1, 2), keepdims=True)) \
+            .astype(np.float32)
+    return out
+
+
+@pytest.fixture(scope="module")
+def variables():
+    return jax_deeplab_variables(N_CLASSES, WIDTH, HW, seed=2)
+
+
+def _run_jax(params, stats, batches, fused, monkeypatch):
+    """The JAX step (``make_train_step``'s loss closure, its gradient and
+    the optax update, as ``_jit_step``), keeping each step's gradients."""
+    monkeypatch.setattr(flax.linen.Dropout, "__call__",
+                        lambda self, x, *a, **k: x)
+    model = JaxDeepLab(n_classes=N_CLASSES, width_mult=WIDTH, fused_ir=fused)
+    params = jax.tree.map(jnp.asarray, params)
+    stats = jax.tree.map(jnp.asarray, stats)
+    tx = jax_optim.make_optimizer(_opt_args(), params, ITERS)
+    loss_fn = jax_trainer._sparse_loss_fn(
+        model, n_classes=N_CLASSES, mean=MEAN, std=STD, normalize=True,
+        gather_impl="matmul")
+    grad_fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+
+    @jax.jit
+    def update(params, opt_state, grads):
+        updates, opt_state = tx.update(grads, opt_state, params)
+        return optax.apply_updates(params, updates), opt_state
+
+    opt_state = tx.init(params)
+    steps = []
+    for b in batches:
+        (loss, (stats, hist)), grads = grad_fn(
+            params, stats, jax.tree.map(jnp.asarray, b),
+            jax.random.PRNGKey(0))
+        steps.append((float(loss), np.asarray(hist), state_dict_from_jax(
+            jax.tree.map(np.asarray, grads), jax.tree.map(np.asarray, stats))))
+        params, opt_state = update(params, opt_state, grads)
+    return steps, state_dict_from_jax(jax.tree.map(np.asarray, params),
+                                      jax.tree.map(np.asarray, stats))
+
+
+def _port_model(params, stats, fused):
+    model = DeepLab(N_CLASSES, width_mult=WIDTH, fused_ir=fused)
+    model.load_state_dict(state_dict_from_jax(params, stats))
+    for m in model.modules():
+        if isinstance(m, layers.Dropout):
+            m.p = 0.0
+    return model.to(memory_format=torch.channels_last)
+
+
+def _record_kink_margins(monkeypatch):
+    """Record, for every train-mode BatchNorm output of the port (the
+    inputs of its ReLUs and ReLU6s), the least distance to 0 or 6."""
+    margins = []
+
+    def margin(y):
+        y = y.detach().float()
+        margins.append(float(torch.minimum(y.abs(), (y - 6).abs()).min()))
+
+    bn_train, fused_bn = layers.ghost_bn_train, fused_ir._bn
+
+    def bn_recorded(*a):
+        out = bn_train(*a)
+        margin(out[0])
+        return out
+
+    def fused_bn_recorded(*a):
+        out = fused_bn(*a)
+        margin(out)
+        return out
+
+    monkeypatch.setattr(layers, "ghost_bn_train", bn_recorded)
+    monkeypatch.setattr(fused_ir, "_bn", fused_bn_recorded)
+    return margins
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_three_train_steps_match_jax(variables, fused, monkeypatch):
+    params, stats = variables
+    params = _well_conditioned(params, np.random.default_rng(102))
+    batches = _batches(3)
+    steps_j, final_j = _run_jax(params, stats, batches, fused, monkeypatch)
+
+    model = _port_model(params, stats, fused)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    args = default_args(device="cpu")
+    args.optimizer_type = "SGD"
+    args.optimizer_params = _opt_args().optimizer_params
+    opt = optim.make_optimizer(args, model, ITERS)
+    step = trainer.make_train_step(model, opt, n_classes=N_CLASSES,
+                                   mean=MEAN, std=STD)
+    margins = _record_kink_margins(monkeypatch)
+    for i, (b, (loss_j, hist_j, grads_j)) in enumerate(zip(batches, steps_j)):
+        margins.clear()
+        loss, hist = step(trainer.batch_to_device(b, "cpu"))
+        assert min(margins) > 1e-4, f"step {i}: a ReLU input is near a kink"
+        assert abs(float(loss) - loss_j) <= 1e-5 * abs(loss_j), i
+        np.testing.assert_array_equal(hist.numpy(), hist_j)
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        gmax = max(float(grads_j[n].abs().max()) for n in grads)
+        for n, g in grads.items():
+            ref = grads_j[n]
+            got = torch.zeros_like(ref) if g is None else g.float()
+            err = float((got - ref).abs().max())
+            tol = 1e-4 * float(ref.abs().max()) + 1e-6 * gmax
+            assert err <= tol, f"step {i} grad {n}: {err} > {tol}"
+    assert sum(isinstance(m, fused_ir_block_type()) for m in model.modules()) \
+        == (13 if fused else 0)
+
+    sd = model.state_dict()
+    for k, ref in final_j.items():
+        got = sd[k].float()
+        if k.endswith("num_batches_tracked"):
+            assert int(got) == 3, k
+            continue
+        if k.endswith(("running_mean", "running_var")):
+            tol = 1e-4 * max(float(ref.abs().max()), 1.0)
+        else:
+            moved = float((ref - start[k]).abs().max())
+            tol = 1e-4 * moved + 1e-6 * float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        assert err <= tol, f"{k}: {err} > {tol}"
+
+
+def fused_ir_block_type():
+    from pixelpick_tpu_torch.models.fused_block import FusedIRBlock
+    return FusedIRBlock
+
+
+@pytest.mark.parametrize("gather_impl", ["matmul", "gather"])
+def test_sparse_ce_and_hist_matches_jax(gather_impl):
+    rng = np.random.default_rng(3)
+    logits = rng.standard_normal((BS, 12, 16, N_CLASSES)).astype(np.float32)
+    b = _batches(1, seed=4)[0]
+    b["labels"][:, 1] = 11  # void picks: kept, not valid
+    b["valid"][:, 1] = False
+    loss_j, hist_j = jax_trainer.sparse_ce_and_hist(
+        jnp.asarray(logits), jnp.asarray(b["coords"]),
+        jnp.asarray(b["labels"]), jnp.asarray(b["valid"]), HW, N_CLASSES,
+        gather_impl=gather_impl)
+    lt = torch.from_numpy(logits).requires_grad_()
+    loss, hist = trainer.sparse_ce_and_hist(
+        lt, torch.from_numpy(b["coords"]), torch.from_numpy(b["labels"]),
+        torch.from_numpy(b["valid"]), HW, N_CLASSES, gather_impl=gather_impl)
+    assert abs(float(loss) - float(loss_j)) <= 1e-6 * abs(float(loss_j))
+    np.testing.assert_array_equal(hist.numpy(), np.asarray(hist_j))
+    # and its gradient, which the train step takes
+    g_j = jax.grad(lambda t: jax_trainer.sparse_ce_and_hist(
+        t, jnp.asarray(b["coords"]), jnp.asarray(b["labels"]),
+        jnp.asarray(b["valid"]), HW, N_CLASSES, gather_impl=gather_impl)[0])(
+        jnp.asarray(logits))
+    loss.backward()
+    np.testing.assert_allclose(lt.grad.numpy(), np.asarray(g_j), rtol=0,
+                               atol=1e-6 * float(np.abs(g_j).max()))
+
+
+def test_eval_step_matches_jax(variables):
+    """Full-resolution argmax and confusion matrix of a val batch, and the
+    visualisation maps of image 0."""
+    params, stats = variables
+    rng = np.random.default_rng(5)
+    batch = {"x": rng.integers(0, 256, (2, *HW, 3), dtype=np.uint8),
+             "y": rng.integers(0, N_CLASSES + 1, (2, *HW)).astype(np.int32)}
+    model = JaxDeepLab(n_classes=N_CLASSES, width_mult=WIDTH)
+    step_j = jax_trainer.make_eval_step(model, n_classes=N_CLASSES,
+                                        mean=MEAN, std=STD)
+    hist_j, pred_j, vis_j = step_j(
+        jax.tree.map(jnp.asarray, params), jax.tree.map(jnp.asarray, stats),
+        jax.tree.map(jnp.asarray, batch))
+    port = _port_model(params, stats, False)
+    step = trainer.make_eval_step(port, n_classes=N_CLASSES, mean=MEAN,
+                                  std=STD)
+    hist, pred, vis = step(trainer.batch_to_device(batch, "cpu"))
+    assert not port.training
+    np.testing.assert_array_equal(pred.numpy(), np.asarray(pred_j))
+    np.testing.assert_array_equal(hist.numpy(), np.asarray(hist_j))
+    for k, v in vis_j.items():
+        v = np.asarray(v, np.float32)
+        np.testing.assert_allclose(vis[k].float().numpy(), v, rtol=0,
+                                   atol=1e-4 * max(np.abs(v).max(), 1.0),
+                                   err_msg=k)
