@@ -30,15 +30,18 @@ exits nonzero:
    one ghost-BN group) and at the remainder batch of 3, in f32 and bf16,
    plus ragged shapes (two groups, odd sizes, channels not a multiple of
    the tiles), held against their plain versions gradient by gradient, two
-   calls bit-equal, and controls (dx zeroed, a gradient 5% off) refused;
-   the kernels', the plain versions' and the library-built block's times,
-   and the bounds;
+   calls bit-equal, the backward (which reads the forward's saved state)
+   leaving that state's bytes unchanged, and controls (dx zeroed, a
+   gradient 5% off) refused; the kernels', the plain versions' and the
+   library-built block's times (its backward alone, from a graph built
+   beforehand), and the bounds;
 6. train step: the full-width model at 360x480, batch 4, f32, dropout off
    for this check, at well-conditioned weights: the loss and every
    parameter gradient with the kernels (``--fused_ir --pallas_dw``) against
    the library path, leaf by leaf, and a planted 5% fault refused; the
    launches per step (13 fused forward, 13 fused backward, 1 + 1
-   depthwise); the median step time of both paths;
+   depthwise); the median step time and the peak device memory of both
+   paths;
 7. AL campaign: ``pixelpick_tpu_torch.cli.main_al.main`` on a synthetic
    367-train / 101-val CamVid at 360x480 with ``--fused_ir --pallas_dw
    --n_pixels_by_us 10 --max_budget 20`` and 2 epochs per round (a dataset
@@ -748,11 +751,16 @@ def measure_fused(shape, group: int, dtype, seed: int, timed: bool) -> dict:
     x, weights, dy = fused_inputs(b, h, w, cin, cout, dtype, seed)
     use_res = cin == cout
     args = (group, d, use_res)
-    y, stats = fused_ir.fused_fwd_kernel(x, weights, *args)
-    grads = fused_ir.fused_bwd_kernel(x, dy, weights, *args)
-    y2, stats2 = fused_ir.fused_fwd_kernel(x, weights, *args)
-    grads2 = fused_ir.fused_bwd_kernel(x, dy, weights, *args)
+    y, stats, state = fused_ir.fused_fwd_kernel(x, weights, *args)
+    saved = state.work.clone()
+    grads = fused_ir.fused_bwd_kernel(x, dy, weights, *args, state=state)
+    y2, stats2, _ = fused_ir.fused_fwd_kernel(x, weights, *args)
+    # the backward only reads the saved state: a second call on it gives
+    # the same bits and leaves its bytes as they were
+    grads2 = fused_ir.fused_bwd_kernel(x, dy, weights, *args, state=state)
     torch.cuda.synchronize()
+    state_kept = torch.equal(saved, state.work)
+    del saved
     bit_equal = (torch.equal(y, y2)
                  and all(torch.equal(a, c) for a, c in zip(stats, stats2))
                  and all(torch.equal(a, c) for a, c in zip(grads, grads2)))
@@ -800,14 +808,19 @@ def measure_fused(shape, group: int, dtype, seed: int, timed: bool) -> dict:
     controls_fail = not any(grads_pass(c) for c in controls)
     ok = (y_err <= FUSED_TOL[name] * y_scale
           and stat_rel <= FUSED_STATS_TOL[name]
-          and grads_pass(grads) and bit_equal and controls_fail)
+          and grads_pass(grads) and bit_equal and state_kept
+          and controls_fail)
     item = x.element_size()
     fwd_flops, bwd_flops = fused_ir.block_flops(b, h, w, cin, 6 * cin, cout,
                                                 d)
     wbytes = sum(t.numel() * t.element_size() for t in weights)
     fwd_bytes = (x.numel() + y.numel()) * item + wbytes \
         + sum(t.numel() * 4 for t in stats)
-    bwd_bytes = (2 * x.numel() + dy.numel()) * item + wbytes \
+    # the backward reads x, dy, the weights and the forward's saved h1
+    # (padded), h2 and h3, and writes dx and the nine gradients
+    saved_elems = b * (h + 2 * d) * (w + 2 * d) * 6 * cin \
+        + b * h * w * (6 * cin + cout)
+    bwd_bytes = (2 * x.numel() + dy.numel() + saved_elems) * item + wbytes \
         + sum(t.numel() * 4 for t in weights)
     peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
     r = {"shape": list(shape), "group": group, "dtype": name,
@@ -821,7 +834,7 @@ def measure_fused(shape, group: int, dtype, seed: int, timed: bool) -> dict:
              grad_errs[n] / grad_tol[n] for n in GRAD_NAMES),
          "plain_bf16_drift": bf16_drift, "controls_fail": controls_fail,
          "relu6_inputs_near_kinks": kinks,
-         "bit_equal": bit_equal, "ok": ok,
+         "bit_equal": bit_equal, "state_unchanged": state_kept, "ok": ok,
          "fwd_flops": fwd_flops, "bwd_flops": bwd_flops,
          "fwd_bytes": fwd_bytes, "bwd_bytes": bwd_bytes}
     for k, fl, by in (("fwd", fwd_flops, fwd_bytes),
@@ -832,13 +845,22 @@ def measure_fused(shape, group: int, dtype, seed: int, timed: bool) -> dict:
         r[f"{k}_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     if not timed:
         return r
-    inputs = [(xc,) for xc in cold_copies(x)]
+    copies = cold_copies(x)
     r["fwd_ms"] = time_ms(
-        lambda a: fused_ir.fused_fwd_kernel(a, weights, *args), inputs)
+        lambda a: fused_ir.fused_fwd_kernel(a, weights, *args),
+        [(xc,) for xc in copies])
+    del state
+    # each copy of x with the state its own forward left, so that the
+    # backward reads the saved tensors from device memory too
+    inputs = [(xc, fused_ir.fused_fwd_kernel(xc, weights, *args)[2])
+              for xc in copies]
     r["bwd_ms"] = time_ms(
-        lambda a: fused_ir.fused_bwd_kernel(a, dy, weights, *args), inputs)
+        lambda a, st: fused_ir.fused_bwd_kernel(a, dy, weights, *args,
+                                                state=st), inputs)
+    del inputs
     if dtype != torch.float32:
         return r
+    inputs = [(xc,) for xc in copies]
     r["plain_fwd_ms"] = time_ms(
         lambda a: fused_ir.fused_fwd_plain(a, weights, *args), inputs,
         reps=3, warmup=1)
@@ -846,25 +868,30 @@ def measure_fused(shape, group: int, dtype, seed: int, timed: bool) -> dict:
         lambda a: fused_ir.fused_bwd_plain(a, dy, weights, *args), inputs,
         reps=3, warmup=1)
     if group == b:
-        leaves = [t.detach().requires_grad_() for t in weights]
-        dyc = dy.permute(0, 3, 1, 2)
-
-        def fwd_bwd(a):
-            a = a.detach().requires_grad_()
-            out = library_block(a, leaves, d, use_res)
-            torch.autograd.grad(out, [a, *leaves], dyc)
-
         with torch.no_grad():
             r["library_fwd_ms"] = time_ms(
                 lambda a: library_block(a, weights, d, use_res), inputs)
-        # the backward kernel's function, from x and dy to the gradients,
-        # recomputes the forward; so does its library yardstick
-        r["library_bwd_ms"] = time_ms(fwd_bwd, inputs)
+        # like for like: the backward kernel's function starts from the
+        # forward's saved state, so the library's backward is timed alone,
+        # on graphs built beforehand, one per copy of x
+        leaves = [t.detach().requires_grad_() for t in weights]
+        dyc = dy.permute(0, 3, 1, 2)
+        graphs = []
+        for xc in copies:
+            a = xc.detach().requires_grad_()
+            graphs.append((library_block(a, leaves, d, use_res), a))
+        r["library_bwd_ms"] = time_ms(
+            lambda out, a: torch.autograd.grad(out, [a, *leaves], dyc,
+                                               retain_graph=True), graphs)
     return r
 
 
 def phase_fused_kernels() -> dict:
     import torch
+
+    # the library-built block's convolutions in strict f32, as the kernels
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     results = {"float32": [], "bfloat16": [], "remainder": [], "ragged": []}
     failures = []  # every shape is measured before the phase fails
@@ -886,7 +913,8 @@ def phase_fused_kernels() -> dict:
                   f"gradient at {r['grad_worst']:.3g} of its tolerance, "
                   f"ReLU6 inputs near a kink {r['relu6_inputs_near_kinks']}, "
                   f"controls refused {r['controls_fail']}, "
-                  f"bit-equal {r['bit_equal']}; fwd {r['fwd_ms']:.4f} ms "
+                  f"bit-equal {r['bit_equal']}, saved state unchanged "
+                  f"{r['state_unchanged']}; fwd {r['fwd_ms']:.4f} ms "
                   f"(bound {r['fwd_bound_ms']:.4f}, plain "
                   f"{r.get('plain_fwd_ms', float('nan')):.3f}, library "
                   f"{r.get('library_fwd_ms', float('nan')):.4f}), bwd "
@@ -1093,12 +1121,14 @@ def phase_train_step(args_cv) -> dict:
     # whole steps (forward, loss, backward, Adam), each synchronised after
     # it, kernels and library in turns
     step_ms = {"kernels": [], "library": []}
-    torch.cuda.reset_peak_memory_stats()
+    peak_gb = {}
     for name in ("kernels", "library", "library", "kernels"):
         m = models[name]
         step = make_train_step(m, make_optimizer(args_cv, m, 92),
                                n_classes=N_CLASSES, mean=args_cv.mean,
                                std=args_cv.std)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         step(batch)
         torch.cuda.synchronize()
         for _ in range(5):
@@ -1106,11 +1136,16 @@ def phase_train_step(args_cv) -> dict:
             step(batch)
             torch.cuda.synchronize()
             step_ms[name].append((time.perf_counter() - t0) * 1e3)
+        peak_gb[name] = max(peak_gb.get(name, 0.0),
+                            torch.cuda.max_memory_allocated() / 1e9)
+        del step
     med = {k: statistics.median(v) for k, v in step_ms.items()}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"[6] train step at batch {TRAIN_BATCH} (median of 10): "
           f"{med['kernels']:.2f} ms with the kernels, {med['library']:.2f} ms "
-          f"with the library path; peak device memory {peak_gb:.2f} GB")
+          f"with the library path; peak device memory in a step "
+          f"{peak_gb['kernels']:.3f} GB with the kernels, "
+          f"{peak_gb['library']:.3f} GB with the library path (both models "
+          f"resident)")
     return {"launches_per_step": counts, "loss_kernels": loss_k,
             "loss_library": loss_l, "loss_rel_err": loss_err,
             "kink_margin": min(margins), "grad_worst": worst,

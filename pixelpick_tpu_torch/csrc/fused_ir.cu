@@ -16,39 +16,63 @@
 //
 // T is the compute dtype (float or bfloat16); sums and moments are f32;
 // moments use the fast variance max(0, E[h^2] - E[h]^2); bn(h) = (h - mu) *
-// (rsqrt(var + eps) * gamma) + beta. The backward recomputes h1, h2, h3 from
-// x and walks the vector-Jacobian product stage by stage, as _staged_vjp
-// does, with JAX's gradient rules at ties: relu6 = min(max(u, 0), 6) passes
-// 0.5 of the gradient at exactly 0 and exactly 6, and max(0, z) of the
-// variance 0.5 at z == 0.
+// (rsqrt(var + eps) * gamma) + beta. The backward walks the vector-Jacobian
+// product stage by stage, as _staged_vjp does, with JAX's gradient rules at
+// ties: relu6 = min(max(u, 0), 6) passes 0.5 of the gradient at exactly 0
+// and exactly 6, and max(0, z) of the variance 0.5 at z == 0.
 //
-// The TPU design holds one whole group in VMEM (~100 MB). A Hopper SM has
-// 228 KB of shared memory and the group's hidden tensor is tens of MB, so
-// the design here is a fixed sequence of phases, each a grid over (pixel
-// tile x channel tile) of the whole batch: 64x64-output GEMM tiles from
-// 16-deep shared-memory slabs, and 64-pixel x 32-channel tiles for the
-// depthwise and elementwise phases. Each BatchNorm needs its group's moments
-// before it can normalise, so each one is a phase boundary: every tile
-// writes its per-(group, channel) partial sums, and one small kernel reduces
-// them in a fixed order. The weight gradients are reductions over every
-// pixel of the batch; they are split into 512-row chunks per group, and the
-// chunks' partial products are summed in a fixed order. Nothing uses float
-// atomics, so two calls give bit-equal results.
+// The TPU design holds one whole group in VMEM (~100 MB) and, because a
+// group's hidden tensors do not fit there twice, recomputes the forward in
+// the backward. A Hopper SM has 228 KB of shared memory and the group's
+// hidden tensor is tens of MB, so the design here is a fixed sequence of
+// phases, each a grid over (pixel tile x channel tile) of the whole batch,
+// with h1, h2, h3 in device memory. Each BatchNorm needs its group's
+// moments before it can normalise, so each one is a phase boundary: every
+// tile writes its per-(group, channel) partial sums, and one small kernel
+// reduces them in a fixed order. Nothing uses float atomics, so two calls
+// give bit-equal results.
+//
+// Forward (7 launches): 64x64-output GEMM tiles from 16-deep shared-memory
+// slabs for the 1x1 products, 64-pixel x 32-channel tiles for the depthwise
+// and elementwise phases. Its workspace keeps h1 (padded), h2, h3 and each
+// stage's BatchNorm mul and tie factor.
+//
+// Backward (16 launches, 17 where dx splits over its depth): it reads the
+// forward's workspace and six moments, read only, and recomputes nothing.
+// Its BatchNorm finishes reduce their tile sums with 16 lanes per channel
+// in a fixed order. Its four matrix products (da2 = dh3 Wp^T with the
+// ReLU6-gradient epilogue, dx = dh1 We^T (+ dy), dWp = a2^T dh3, dWe = x^T
+// dh1) run on a register-tiled core (bwd_rows, bwd_wgrad): 128-row CTA
+// tiles whose thin side is 32, 64 or 128 wide, chosen per product to pad
+// the least (the 24- and 32-channel blocks take 32); 8x4 or 8x8 outputs
+// per thread read as float4s; 16-deep slabs double-buffered with cp.async,
+// widened to f32 once per element with the row maps and a2's BN + ReLU6
+// applied there, the weights read row by row and transposed in shared
+// memory. The weight products walk runs of pixels sized to give about one
+// wave of CTAs, and dx splits its depth where its grid is small; the
+// splits are summed in a fixed order. The three BatchNorm-input gradients
+// dh3, dh2, dh1 are written by one elementwise pass each (bn_grad_apply):
+// forming them where they are read instead was measured slower, as the
+// products' loaders then carry a second operand.
 //
 // Arithmetic: CUDA-core f32 FMA from shared-memory tiles in both dtypes
 // (f32 is "highest" precision, no TF32; bf16 products are exact in f32), and
 // the elementwise BatchNorm math in separately rounded multiply and add, as
 // the plain PyTorch version computes it. What bounds the block on this card:
-// the flops, about 2 * pixels * (Cin * Ch + Ch * Cout) + 18 * pixels * Ch
-// forward, at 67 TFLOP/s f32, against the thin tensors at 3.35 TB/s. This
-// first version stores h1, h2, h3 (and in the backward the gradients of the
-// hidden tensors) in device memory, from scratch the caller allocates;
-// recomputing instead of storing, wgmma and TMA are later work.
+// the flops, 2 * pixels * (Cin * Ch + Ch * Cout) + 18 * pixels * Ch forward
+// and twice that backward, at 67 TFLOP/s f32, against the bytes of the thin
+// tensors and (backward) the saved h1, h2, h3 at 3.35 TB/s: operations at
+// the wide blocks, bytes at the 24-channel block. Still in the backward's
+// way: the depthwise backward (one thread per pixel and channel, nine taps
+// read from device memory), the products' share of the f32 rate, the three
+// bn_grad_apply passes, and the launches; wgmma and TMA are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -57,7 +81,7 @@ constexpr int BM = 64, BN = 64, BK = 16, GEMM_THREADS = 256;
 constexpr int TP = 64;   // pixels per tile of the depthwise/elementwise phases
 constexpr int CW = 32;   // channels per CTA there
 constexpr int PY = 8;    // pixel lanes per CTA there (block = CW x PY)
-constexpr int SPLIT_ROWS = 512;  // pixels per chunk of a weight gradient
+constexpr int SPLIT_ROWS = 256;  // pixels per chunk of the depthwise weight gradient
 constexpr int EW_THREADS = 256;
 
 static_assert(TP == BM, "GEMM and depthwise tiles share one partial layout");
@@ -133,14 +157,11 @@ __device__ __forceinline__ int64_t row_offset(int map, int64_t r, Geo g,
 }
 
 // ---------------------------------------------------------------------------
-// Row GEMM: C[r, n] = sum_k A(r, k) * B(k, n) over the rows of each group,
-// 64x64 outputs per CTA, each thread 4x4. A may be a BatchNorm + ReLU6 of a
-// stored pre-BN tensor, applied as it is loaded. The epilogue rounds to T and
-// either stores with per-tile column sums of (v, v^2) (EPI_MOMENTS), applies
-// the ReLU6 gradient mask of a BatchNormed tensor and sums (g, g*(h - mu))
-// (EPI_RELU6_GRAD), or adds a residual (EPI_PLUS).
-
-enum Epi { EPI_MOMENTS = 0, EPI_RELU6_GRAD = 1, EPI_PLUS = 2 };
+// The forward's row GEMM: C[r, n] = sum_k A(r, k) * B(k, n) over the rows of
+// each group, B (K, N) row-major, 64x64 outputs per CTA, each thread 4x4. A
+// may be a BatchNorm + ReLU6 of a stored pre-BN tensor, applied as it is
+// loaded. The epilogue rounds to T and stores, with per-tile column sums of
+// (v, v^2) for the moments.
 
 struct RowGemm {
   const void* a;
@@ -150,18 +171,12 @@ struct RowGemm {
   const float* a_mul;   // (ngroups, K)
   const float* a_beta;  // (K)
   const void* b;
-  int b_trans;  // B(k, n) = b[n * K + k] when set, else b[k * N + n]
   int N;
   int64_t rows_per_group;
   int ngroups, tiles;  // tiles of BM rows per group
   Geo geo;
-  int epi;
   void* c;      // (rows, N), T
   float* part;  // (2, ngroups, tiles, N) column sums, or null
-  const void* e_src;     // EPI_RELU6_GRAD: pre-BN h (rows, N); EPI_PLUS: residual or null
-  const float* e_mean;   // EPI_RELU6_GRAD: BN of h, (ngroups, N)
-  const float* e_mul;
-  const float* e_beta;   // (N)
 };
 
 template <typename T>
@@ -213,9 +228,7 @@ __global__ void __launch_bounds__(GEMM_THREADS) row_gemm(RowGemm p) {
       const int e = tid + l * GEMM_THREADS;
       const int kk = e / BN, nn = e % BN, k = k0 + kk, n = n0 + nn;
       float v = 0.f;
-      if (k < p.K && n < p.N)
-        v = to_float(p.b_trans ? Bm[(int64_t)n * p.K + k]
-                               : Bm[(int64_t)k * p.N + n]);
+      if (k < p.K && n < p.N) v = to_float(Bm[(int64_t)k * p.N + n]);
       Bs[kk][nn] = v;
     }
     __syncthreads();
@@ -235,7 +248,6 @@ __global__ void __launch_bounds__(GEMM_THREADS) row_gemm(RowGemm p) {
   }
 
   T* C = static_cast<T*>(p.c);
-  const T* E = static_cast<const T*>(p.e_src);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -244,23 +256,10 @@ __global__ void __launch_bounds__(GEMM_THREADS) row_gemm(RowGemm p) {
       const int n = n0 + tx * 4 + j;
       float s1 = 0.f, s2 = 0.f;
       if (m < p.rows_per_group && n < p.N) {
-        const int64_t idx = (base + m) * p.N + n;
-        float v = round_to<T>(acc[i][j]);
-        if (p.epi == EPI_MOMENTS) {
-          s1 = v;
-          s2 = __fmul_rn(v, v);
-        } else if (p.epi == EPI_RELU6_GRAD) {
-          const int64_t gi = (int64_t)g * p.N + n;
-          const float h = to_float(E[idx]);
-          const float u =
-              round_to<T>(bn_apply(h, p.e_mean[gi], p.e_mul[gi], p.e_beta[n]));
-          v = __fmul_rn(v, relu6_grad(u));
-          s1 = v;
-          s2 = __fmul_rn(v, __fsub_rn(h, p.e_mean[gi]));
-        } else if (E) {
-          v = round_to<T>(__fadd_rn(v, to_float(E[idx])));
-        }
-        C[idx] = from_float<T>(v);
+        const float v = round_to<T>(acc[i][j]);
+        s1 = v;
+        s2 = __fmul_rn(v, v);
+        C[(base + m) * p.N + n] = from_float<T>(v);
       }
       red[0][ty * 4 + i][tx * 4 + j] = s1;
       red[1][ty * 4 + i][tx * 4 + j] = s2;
@@ -278,108 +277,609 @@ __global__ void __launch_bounds__(GEMM_THREADS) row_gemm(RowGemm p) {
 }
 
 // ---------------------------------------------------------------------------
-// Weight gradient, split over pixel chunks: part[s, i, j] = sum over the
-// chunk's pixels p of A(p, i) * D(p, j), A optionally BN + ReLU6 of a stored
-// tensor. The chunks (SPLIT_ROWS pixels, never across a group) are summed by
-// sum_splits in a fixed order.
+// Fixed-order finishes. A CTA of (32 columns x FY lanes) reduces 32
+// consecutive columns of a (rows, len) array: lane y adds rows y, y + FY,
+// ... in order, then lane 0 adds the FY lane sums in order. The rows of one
+// column are read by FY lanes at once, 32 columns to a coalesced line, and
+// the order depends on the shapes alone, so repeats are bit-equal.
 
-struct WGrad {
-  const void* a;
-  int a_map;
-  int I;
-  const float* a_mean;  // (ngroups, I) or null
-  const float* a_mul;
-  const float* a_beta;
-  const void* d;
-  int d_map;
-  int J;
-  int64_t rows_per_group;
-  int ngroups, splits;  // splits per group
-  Geo geo;
-  float* part;  // (ngroups * splits, I, J)
-};
+constexpr int FX = 32, FY = 16;
 
-template <typename T>
-__global__ void __launch_bounds__(GEMM_THREADS) wgrad_partial(WGrad p) {
-  __shared__ float As[BK][BM];
-  __shared__ float Ds[BK][BN];
-  __shared__ int64_t arow[BK], drow[BK];
-
-  const int g = blockIdx.x / p.splits, s = blockIdx.x % p.splits;
-  const int i0 = blockIdx.y * BM, j0 = blockIdx.z * BN;
-  const int64_t base = (int64_t)g * p.rows_per_group;
-  const int64_t r_begin = (int64_t)s * SPLIT_ROWS;
-  const int64_t r_end = min(r_begin + SPLIT_ROWS, p.rows_per_group);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const T* A = static_cast<const T*>(p.a);
-  const T* D = static_cast<const T*>(p.d);
-  const float* mean = p.a_mean ? p.a_mean + (int64_t)g * p.I : nullptr;
-  const float* mul = p.a_mean ? p.a_mul + (int64_t)g * p.I : nullptr;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int64_t r0 = r_begin; r0 < r_end; r0 += BK) {
-    if (tid < BK) {
-      const int64_t r = r0 + tid;
-      arow[tid] = r < r_end ? row_offset(p.a_map, base + r, p.geo, p.I) : -1;
-    } else if (tid < 2 * BK) {
-      const int64_t r = r0 + tid - BK;
-      drow[tid - BK] =
-          r < r_end ? row_offset(p.d_map, base + r, p.geo, p.J) : -1;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int l = 0; l < (BK * BM) / GEMM_THREADS; ++l) {
-      const int e = tid + l * GEMM_THREADS;
-      const int pp = e / BM, ii = e % BM, i = i0 + ii, j = j0 + ii;
-      float v = 0.f;
-      const int64_t ao = arow[pp];
-      if (ao >= 0 && i < p.I) {
-        v = to_float(A[ao + i]);
-        if (mean) v = bn_relu6<T>(v, mean[i], mul[i], p.a_beta[i]);
-      }
-      As[pp][ii] = v;
-      float w = 0.f;
-      const int64_t dof = drow[pp];
-      if (dof >= 0 && j < p.J) w = to_float(D[dof + j]);
-      Ds[pp][ii] = w;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int pp = 0; pp < BK; ++pp) {
-      float av[4], dv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = As[pp][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dv[j] = Ds[pp][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], dv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int ii = i0 + ty * 4 + i, jj = j0 + tx * 4 + j;
-      if (ii < p.I && jj < p.J)
-        p.part[((int64_t)blockIdx.x * p.I + ii) * p.J + jj] = acc[i][j];
-    }
+// out[l] = sum over k of part[k][l]: the weight-gradient chunks. The
+// CTA's FY rows of threads form FY / lanes column groups of `lanes` lanes
+// (a power of two the host picks for the number of chunks), lane y adding
+// k = y, y + lanes, ... in order.
+__global__ void __launch_bounds__(FX * FY)
+    sum_splits(const float* __restrict__ part, int64_t n_splits, int64_t len,
+               int lanes, float* __restrict__ out) {
+  __shared__ float red[FY][FX];
+  const int grp = threadIdx.y / lanes, lane = threadIdx.y % lanes;
+  const int64_t l =
+      ((int64_t)blockIdx.x * (FY / lanes) + grp) * FX + threadIdx.x;
+  float v = 0.f;
+  if (l < len)
+    for (int64_t k = lane; k < n_splits; k += lanes) v += part[k * len + l];
+  red[threadIdx.y][threadIdx.x] = v;
+  __syncthreads();
+  if (lane == 0 && l < len) {
+    float sum = 0.f;
+    for (int y = 0; y < lanes; ++y) sum += red[threadIdx.y + y][threadIdx.x];
+    out[l] = sum;
   }
 }
 
-__global__ void sum_splits(const float* __restrict__ part, int64_t n_splits,
-                           int64_t len, float* __restrict__ out) {
-  const int64_t l = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= len) return;
-  float s = 0.f;
-  for (int64_t k = 0; k < n_splits; ++k) s += part[k * len + l];
-  out[l] = s;
+inline unsigned finish_blocks(int64_t len) {
+  return (unsigned)((len + FX - 1) / FX);
+}
+
+// ---------------------------------------------------------------------------
+// The backward's four matrix products: register-tiled f32 FMA.
+//
+// A CTA computes a GM x TW output tile: GM = 128 pixel rows in the data
+// products (da2, dx), 128 hidden channels in the weight products (dWp,
+// dWe); TW, the width of the thin side, is 32, 64 or 128, chosen by the
+// host per product to pad the least. Each thread holds an 8 x TN piece
+// (TN = 4, or 8 at TW = 128), rows {4ty..4ty+3, 64+4ty..64+4ty+3} and
+// columns {4tx..4tx+3 (, TW/2+4tx..)}, read from shared memory as float4s.
+// The operands go through GK-deep slabs. cp.async copies 16-byte chunks of
+// the sources, in the compute dtype, into one of two raw buffers, so slab
+// s + 1 is in flight while slab s is multiplied. Each thread then widens the
+// chunks it copied to f32, once per element: zero where the row map gives a
+// border or the slab runs past the data, BN + ReLU6 for a2. It writes them
+// into one of two f32 buffers in the layout the FMAs read, transposed for
+// the data products, whose operands are pixel-major (the weights too: W is
+// read row by row, coalesced, and transposed in shared memory). One
+// barrier per slab.
+
+constexpr int GM = 128, GK = 16;
+
+template <int TW>
+struct GemmShape {
+  static constexpr int TN = TW == 128 ? 8 : 4;
+  static constexpr int TX = TW / TN;       // threads along the thin side
+  static constexpr int THREADS = 16 * TX;  // 128, 256, 256
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Stages elements [k, k + CH) of the source row at `off` (or nothing where
+// off < 0) into dst: one cp.async where `vec` says the source rows are
+// 16-byte aligned and their length a multiple of CH, else element by
+// element. The elements staged are those stage_valid accepts.
+template <typename T>
+__device__ __forceinline__ void stage(T* dst, const T* src, int64_t off,
+                                      int k, int len, bool vec) {
+  constexpr int CH = 16 / sizeof(T);
+  if (off < 0) return;
+  if (vec) {
+    if (k < len) cp_async16(dst, src + off + k);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < CH; ++e)
+    if (k + e < len) dst[e] = src[off + k + e];
+}
+
+__device__ __forceinline__ bool stage_valid(int64_t off, int k, int len) {
+  return off >= 0 && k < len;
+}
+
+// Four consecutive elements of T, 16- (float) or 8-byte (bfloat16) aligned,
+// as floats, and back.
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&t);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) v[k] = __bfloat162float(h[k]);
+}
+__device__ __forceinline__ void store4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
+  uint2 t;
+  __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&t);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) h[k] = __float2bfloat16(v[k]);
+  *reinterpret_cast<uint2*>(p) = t;
+}
+
+// A staged 16-byte chunk (4 floats or 8 bfloat16) widened to floats, and
+// CH floats stored as float4s.
+__device__ __forceinline__ void load_chunk(const float* p, float (&v)[4]) {
+  load4(p, v);
+}
+__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p,
+                                           float (&v)[8]) {
+  const uint4 t = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&t);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] = __bfloat162float(h[k]);
+}
+template <int CH>
+__device__ __forceinline__ void store_f32(float* p, const float (&v)[CH]) {
+#pragma unroll
+  for (int q = 0; q < CH / 4; ++q)
+    *reinterpret_cast<float4*>(p + 4 * q) =
+        make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+}
+
+// The source row of row r (a pixel of the domain `map` reads from), or -1
+// for a zero border: row_offset without the channel stride, in 32 bits
+// (every row index of a block fits).
+__device__ __forceinline__ int source_row(int map, int r, Geo g) {
+  if (map == ROW_DIRECT) return r;
+  const int hp = g.H + 2 * g.d, wp = g.W + 2 * g.d;
+  if (map == ROW_PAD_FROM_X) {
+    const int plane = hp * wp;
+    const int b = r / plane, rem = r - b * plane;
+    const int y = rem / wp - g.d, x = rem % wp - g.d;
+    if (y < 0 || y >= g.H || x < 0 || x >= g.W) return -1;
+    return (b * g.H + y) * g.W + x;
+  }
+  const int plane = g.H * g.W;
+  const int b = r / plane, rem = r - b * plane;
+  const int y = rem / g.W, x = rem % g.W;
+  return (b * hp + y + g.d) * wp + x + g.d;
+}
+
+template <int TN, int TW>
+__device__ __forceinline__ void fma_slab(const float* a, int lda,
+                                         const float* b, int ldb, int ty,
+                                         int tx, float (&acc)[8][TN]) {
+#pragma unroll
+  for (int kk = 0; kk < GK; ++kk) {
+    float av[8], bv[TN];
+    *reinterpret_cast<float4*>(av) =
+        *reinterpret_cast<const float4*>(a + kk * lda + ty * 4);
+    *reinterpret_cast<float4*>(av + 4) =
+        *reinterpret_cast<const float4*>(a + kk * lda + 64 + ty * 4);
+#pragma unroll
+    for (int q = 0; q < TN / 4; ++q)
+      *reinterpret_cast<float4*>(bv + 4 * q) =
+          *reinterpret_cast<const float4*>(b + kk * ldb + q * (TW / 2) +
+                                           tx * 4);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+__device__ __forceinline__ int tile_row(int ty, int i) {
+  return (i < 4 ? 0 : 64) + ty * 4 + (i & 3);
+}
+template <int TW>
+__device__ __forceinline__ int tile_col(int tx, int j) {
+  return (j >> 2) * (TW / 2) + tx * 4 + (j & 3);
+}
+
+// Data product C = A W^T over the rows of each group: A (rows, K) through
+// a row map, W (N, K) row-major. Epilogue EPI_RELU6_GRAD (da2: the ReLU6
+// gradient mask of bn2(h2) and per-tile column sums of (g, g * (h2 -
+// mu2))) or EPI_PLUS (dx: plus a residual or not).
+enum Epi { EPI_RELU6_GRAD = 1, EPI_PLUS = 2 };
+
+struct BwdRows {
+  const void* a;
+  int a_map;
+  int K;
+  const void* w;
+  int N;
+  int64_t rows_per_group;
+  int ngroups, tiles;  // tiles of GM rows per group
+  Geo geo;
+  int epi;
+  void* c;      // (rows, N), T
+  float* part;  // EPI_RELU6_GRAD: (2, ngroups, tiles, N)
+  const void* e_src;    // EPI_RELU6_GRAD: h2; EPI_PLUS: residual or null
+  const float* e_mean;  // (ngroups, N)
+  const float* e_mul;
+  const float* e_beta;  // (N)
+  int vec_a, vec_w;
+  int vec_c;  // c, e_src and the e_ vectors take 4-wide accesses
+  // split over K: CTA z takes k in [z * k_len, (z + 1) * k_len) and, where
+  // k_part is set (EPI_PLUS only), writes its f32 sums to k_part[z] for
+  // rows_sum to add in order
+  int k_len;
+  float* k_part;  // (splits, rows, N) or null
+};
+
+template <typename T, int TW>
+size_t rows_smem() {
+  return 2 * (size_t)(GM + TW) * GK * sizeof(T) +
+         2 * (size_t)GK * (GM + 4 + TW + 4) * sizeof(float);
+}
+
+template <typename T, int TW>
+__global__ void __launch_bounds__(GemmShape<TW>::THREADS)
+    bwd_rows(BwdRows p) {
+  using S = GemmShape<TW>;
+  constexpr int TN = S::TN, NT = S::THREADS;
+  constexpr int CH = 16 / sizeof(T), KC = GK / CH;  // chunks per slab row
+  constexpr int A_CH = GM * KC / NT;
+  constexpr int W_CH = (TW * KC + NT - 1) / NT;
+  constexpr int LDA = GM + 4, LDW = TW + 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* rawA = reinterpret_cast<T*>(smem);  // [2][GM][GK]
+  T* rawW = rawA + 2 * GM * GK;          // [2][TW][GK]
+  float* As = reinterpret_cast<float*>(rawW + 2 * TW * GK);  // [2][GK][LDA]
+  float* Ws = As + 2 * GK * LDA;                             // [2][GK][LDW]
+
+  const int g = blockIdx.x / p.tiles, tile = blockIdx.x % p.tiles;
+  const int m0 = tile * GM, n0 = blockIdx.y * TW;
+  const int tid = threadIdx.x, tx = tid % S::TX, ty = tid / S::TX;
+  const int64_t base = (int64_t)g * p.rows_per_group;
+  const int k_begin = blockIdx.z * p.k_len;
+  const int k_end = min(p.K, k_begin + p.k_len);
+  const T* A = static_cast<const T*>(p.a);
+  const T* W = static_cast<const T*>(p.w);
+
+  int64_t a_off[A_CH], w_off[W_CH];
+#pragma unroll
+  for (int l = 0; l < A_CH; ++l) {
+    const int m = m0 + (tid + l * NT) / KC;
+    const int r =
+        m < p.rows_per_group ? source_row(p.a_map, (int)(base + m), p.geo) : -1;
+    a_off[l] = r < 0 ? -1 : (int64_t)r * p.K;
+  }
+#pragma unroll
+  for (int l = 0; l < W_CH; ++l) {
+    const int c = tid + l * NT, n = n0 + c / KC;
+    w_off[l] = c < TW * KC && n < p.N ? (int64_t)n * p.K : -1;
+  }
+
+  auto issue = [&](int k0, int buf) {
+#pragma unroll
+    for (int l = 0; l < A_CH; ++l) {
+      const int c = tid + l * NT;
+      stage(rawA + (buf * GM + c / KC) * GK + (c % KC) * CH, A, a_off[l],
+            k0 + (c % KC) * CH, k_end, p.vec_a);
+    }
+#pragma unroll
+    for (int l = 0; l < W_CH; ++l) {
+      const int c = tid + l * NT;
+      if (c < TW * KC)
+        stage(rawW + (buf * TW + c / KC) * GK + (c % KC) * CH, W, w_off[l],
+              k0 + (c % KC) * CH, k_end, p.vec_w);
+    }
+    cp_async_commit();
+  };
+  // widen, zero what is not data, transpose to [k][row]
+  auto convert = [&](int k0, int buf) {
+#pragma unroll
+    for (int l = 0; l < A_CH; ++l) {
+      const int c = tid + l * NT, m = c / KC, kc = (c % KC) * CH;
+      float v[CH];
+      load_chunk(rawA + (buf * GM + m) * GK + kc, v);
+#pragma unroll
+      for (int e = 0; e < CH; ++e)
+        As[(buf * GK + kc + e) * LDA + m] =
+            stage_valid(a_off[l], k0 + kc + e, k_end) ? v[e] : 0.f;
+    }
+#pragma unroll
+    for (int l = 0; l < W_CH; ++l) {
+      const int c = tid + l * NT;
+      if (c >= TW * KC) continue;
+      const int n = c / KC, kc = (c % KC) * CH;
+      float v[CH];
+      load_chunk(rawW + (buf * TW + n) * GK + kc, v);
+#pragma unroll
+      for (int e = 0; e < CH; ++e)
+        Ws[(buf * GK + kc + e) * LDW + n] =
+            stage_valid(w_off[l], k0 + kc + e, k_end) ? v[e] : 0.f;
+    }
+  };
+
+  float acc[8][TN];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  const int slabs = (k_end - k_begin + GK - 1) / GK;
+  if (slabs > 0) issue(k_begin, 0);
+  for (int s = 0; s < slabs; ++s) {
+    const int buf = s & 1;
+    if (s + 1 < slabs) {
+      issue(k_begin + (s + 1) * GK, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    convert(k_begin + s * GK, buf);
+    __syncthreads();
+    fma_slab<TN, TW>(As + buf * GK * LDA, LDA, Ws + buf * GK * LDW, LDW, ty,
+                     tx, acc);
+  }
+
+  if (p.k_part) {  // this split's sums, for rows_sum
+    float* out = p.k_part + (int64_t)blockIdx.z * p.ngroups *
+                                p.rows_per_group * p.N;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int64_t m = m0 + tile_row(ty, i);
+      if (m >= p.rows_per_group) continue;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int n = n0 + tile_col<TW>(tx, j);
+        if (n < p.N) out[(base + m) * p.N + n] = acc[i][j];
+      }
+    }
+    return;
+  }
+  T* C = static_cast<T*>(p.c);
+  const T* E = static_cast<const T*>(p.e_src);
+  float cs1[TN], cs2[TN];
+#pragma unroll
+  for (int j = 0; j < TN; ++j) cs1[j] = cs2[j] = 0.f;
+  // one output: round, then the ReLU6-gradient mask and its sums, or the
+  // residual
+  auto finish = [&](float a, float h, float mean, float mul, float beta,
+                    int j) {
+    float v = round_to<T>(a);
+    if (p.epi == EPI_RELU6_GRAD) {
+      v = __fmul_rn(v, relu6_grad(round_to<T>(bn_apply(h, mean, mul, beta))));
+      cs1[j] += v;
+      cs2[j] += __fmul_rn(v, __fsub_rn(h, mean));
+    } else if (E) {
+      v = round_to<T>(__fadd_rn(v, h));
+    }
+    return v;
+  };
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int64_t m = m0 + tile_row(ty, i);
+    if (m >= p.rows_per_group) continue;
+    const int64_t row = (base + m) * p.N;
+#pragma unroll
+    for (int q = 0; q < TN / 4; ++q) {
+      const int nq = n0 + tile_col<TW>(tx, 4 * q);
+      const int64_t gq = (int64_t)g * p.N + nq;
+      if (p.vec_c && nq + 3 < p.N) {  // four columns at once
+        float v[4], h[4] = {}, mean[4] = {}, mul[4] = {}, beta[4] = {};
+        if (E) load4(E + row + nq, h);
+        if (p.epi == EPI_RELU6_GRAD) {
+          load4(p.e_mean + gq, mean);
+          load4(p.e_mul + gq, mul);
+          load4(p.e_beta + nq, beta);
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          v[k] = finish(acc[i][4 * q + k], h[k], mean[k], mul[k], beta[k],
+                        4 * q + k);
+        store4(C + row + nq, v);
+        continue;
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int n = nq + k;
+        if (n >= p.N) continue;
+        const bool bn = p.epi == EPI_RELU6_GRAD;
+        const float v =
+            finish(acc[i][4 * q + k], E ? to_float(E[row + n]) : 0.f,
+                   bn ? p.e_mean[gq + k] : 0.f, bn ? p.e_mul[gq + k] : 0.f,
+                   bn ? p.e_beta[n] : 0.f, 4 * q + k);
+        C[row + n] = from_float<T>(v);
+      }
+    }
+  }
+  if (p.epi != EPI_RELU6_GRAD) return;
+  // column sums over the tile's rows: each thread's 8 rows, then the 16
+  // row groups in order (As is free: every thread is past its last FMA)
+  __syncthreads();
+  float* red = As;  // [2][16][TW]
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    red[(0 * 16 + ty) * TW + tile_col<TW>(tx, j)] = cs1[j];
+    red[(1 * 16 + ty) * TW + tile_col<TW>(tx, j)] = cs2[j];
+  }
+  __syncthreads();
+  if (tid < 2 * TW) {
+    const int which = tid / TW, nn = tid % TW, n = n0 + nn;
+    float sum = 0.f;
+    for (int t = 0; t < 16; ++t) sum += red[(which * 16 + t) * TW + nn];
+    if (n < p.N)
+      p.part[(((int64_t)which * p.ngroups + g) * p.tiles + tile) * p.N + n] =
+          sum;
+  }
+}
+
+// The data product's splits over K added in order, then its epilogue
+// (EPI_PLUS): c = T(T(sum) + residual) or T(sum).
+template <typename T>
+__global__ void rows_sum(const float* __restrict__ part, int splits,
+                         int64_t total, const T* __restrict__ res,
+                         T* __restrict__ c) {
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  float v = 0.f;
+  for (int z = 0; z < splits; ++z) v += part[z * total + idx];
+  v = round_to<T>(v);
+  if (res) v = round_to<T>(__fadd_rn(v, to_float(res[idx])));
+  c[idx] = from_float<T>(v);
+}
+
+// Weight product, split over pixel chunks: part[s][m * ld_m + n * ld_n] =
+// sum over the chunk's pixels r of Am(r, m) * An(r, n). The GM-wide side m
+// is the hidden width (a2 for dWp, BN2 + ReLU6 of h2 on load; dh1 for
+// dWe), the TW-wide side n the thin tensor (dh3; x). Each chunk is a run of
+// `chunk` pixels of one group; sum_splits adds the chunks in order.
+struct BwdWgrad {
+  const void* am;
+  int am_map;
+  int M;
+  const float* m_mean;  // (ngroups, M): BN + ReLU6 on load when non-null
+  const float* m_mul;
+  const float* m_beta;  // (M)
+  const void* an;
+  int an_map;
+  int N;
+  int64_t rows_per_group;
+  int ngroups, splits, chunk;
+  Geo geo;
+  int64_t ld_m, ld_n;
+  float* part;  // (ngroups * splits, M * N)
+  int vec_m, vec_n;
+};
+
+template <typename T, int TW>
+size_t wgrad_smem() {
+  return 2 * (size_t)GK * (GM + TW) * (sizeof(T) + sizeof(float));
+}
+
+template <typename T, int TW>
+__global__ void __launch_bounds__(GemmShape<TW>::THREADS)
+    bwd_wgrad(BwdWgrad p) {
+  using S = GemmShape<TW>;
+  constexpr int TN = S::TN, NT = S::THREADS;
+  constexpr int CH = 16 / sizeof(T);
+  constexpr int TPR = NT / GK;  // threads per pixel row of a slab
+  constexpr int M_CH = GM / CH / TPR;
+  constexpr int N_CH = (TW / CH + TPR - 1) / TPR;
+  static_assert(M_CH * TPR * CH == GM, "a slab row splits evenly");
+  const bool relu6 = p.m_mean != nullptr;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* rawM = reinterpret_cast<T*>(smem);  // [2][GK][GM]
+  T* rawN = rawM + 2 * GK * GM;          // [2][GK][TW]
+  float* Ms = reinterpret_cast<float*>(rawN + 2 * GK * TW);  // [2][GK][GM]
+  float* Ns = Ms + 2 * GK * GM;                              // [2][GK][TW]
+
+  const int g = blockIdx.x / p.splits, sp = blockIdx.x % p.splits;
+  const int m0 = blockIdx.y * GM, n0 = blockIdx.z * TW;
+  const int tid = threadIdx.x, tx = tid % S::TX, ty = tid / S::TX;
+  const int pr = tid / TPR, lane = tid % TPR;  // this thread's slab row
+  const int64_t base = (int64_t)g * p.rows_per_group;
+  const int64_t r_begin = (int64_t)sp * p.chunk;
+  const int64_t r_end = min(r_begin + p.chunk, p.rows_per_group);
+  const T* Am = static_cast<const T*>(p.am);
+  const T* An = static_cast<const T*>(p.an);
+  // a2's BatchNorm of this CTA's channels, for the conversion
+  __shared__ __align__(16) float bn_mean[GM], bn_mul[GM], bn_beta[GM];
+  if (relu6 && tid < GM && m0 + tid < p.M) {
+    bn_mean[tid] = p.m_mean[(int64_t)g * p.M + m0 + tid];
+    bn_mul[tid] = p.m_mul[(int64_t)g * p.M + m0 + tid];
+    bn_beta[tid] = p.m_beta[m0 + tid];
+  }
+  if (relu6) __syncthreads();
+
+  // the source offsets of this thread's row of a slab
+  auto offsets = [&](int64_t r0, int64_t& om, int64_t& on) {
+    const int64_t r = r0 + pr;
+    om = on = -1;
+    if (r >= r_end) return;
+    const int rm = source_row(p.am_map, (int)(base + r), p.geo);
+    const int rn = source_row(p.an_map, (int)(base + r), p.geo);
+    om = rm < 0 ? -1 : (int64_t)rm * p.M;
+    on = rn < 0 ? -1 : (int64_t)rn * p.N;
+  };
+  auto issue = [&](int64_t om, int64_t on, int buf) {
+#pragma unroll
+    for (int l = 0; l < M_CH; ++l) {
+      const int mc = (lane + l * TPR) * CH;
+      stage(rawM + (buf * GK + pr) * GM + mc, Am, om, m0 + mc, p.M, p.vec_m);
+    }
+#pragma unroll
+    for (int l = 0; l < N_CH; ++l) {
+      const int nc = (lane + l * TPR) * CH;
+      if (nc < TW)
+        stage(rawN + (buf * GK + pr) * TW + nc, An, on, n0 + nc, p.N,
+              p.vec_n);
+    }
+    cp_async_commit();
+  };
+  auto convert = [&](int64_t om, int64_t on, int buf) {
+#pragma unroll
+    for (int l = 0; l < M_CH; ++l) {
+      const int mc = (lane + l * TPR) * CH;
+      const int at = (buf * GK + pr) * GM + mc;
+      float v[CH], mean[CH], mul[CH], beta[CH];
+      load_chunk(rawM + at, v);
+      if (relu6) {
+#pragma unroll
+        for (int q = 0; q < CH / 4; ++q) {
+          load4(bn_mean + mc + 4 * q, mean + 4 * q);
+          load4(bn_mul + mc + 4 * q, mul + 4 * q);
+          load4(bn_beta + mc + 4 * q, beta + 4 * q);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < CH; ++e) {
+        if (!stage_valid(om, m0 + mc + e, p.M))
+          v[e] = 0.f;
+        else if (relu6)
+          v[e] = bn_relu6<T>(v[e], mean[e], mul[e], beta[e]);
+      }
+      store_f32<CH>(Ms + at, v);
+    }
+#pragma unroll
+    for (int l = 0; l < N_CH; ++l) {
+      const int nc = (lane + l * TPR) * CH;
+      if (nc >= TW) continue;
+      const int at = (buf * GK + pr) * TW + nc;
+      float v[CH];
+      load_chunk(rawN + at, v);
+#pragma unroll
+      for (int e = 0; e < CH; ++e)
+        if (!stage_valid(on, n0 + nc + e, p.N)) v[e] = 0.f;
+      store_f32<CH>(Ns + at, v);
+    }
+  };
+
+  float acc[8][TN];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  const int slabs = (int)((r_end - r_begin + GK - 1) / GK);
+  int64_t om = -1, on = -1, om_next = -1, on_next = -1;
+  if (slabs > 0) {
+    offsets(r_begin, om, on);
+    issue(om, on, 0);
+  }
+  for (int s = 0; s < slabs; ++s) {
+    const int buf = s & 1;
+    if (s + 1 < slabs) {
+      offsets(r_begin + (int64_t)(s + 1) * GK, om_next, on_next);
+      issue(om_next, on_next, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    convert(om, on, buf);
+    __syncthreads();
+    fma_slab<TN, TW>(Ms + buf * GK * GM, GM, Ns + buf * GK * TW, TW, ty, tx,
+                     acc);
+    om = om_next;
+    on = on_next;
+  }
+
+  float* out = p.part + (int64_t)blockIdx.x * p.M * p.N;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + tile_row(ty, i);
+    if (m >= p.M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int n = n0 + tile_col<TW>(tx, j);
+      if (n < p.N) out[m * p.ld_m + n * p.ld_n] = acc[i][j];
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -483,13 +983,15 @@ __global__ void __launch_bounds__(CW * PY) dw_backward_data(DwArgs p) {
     for (int t = 0; t < 9; ++t) w[t] = to_float(wd[t * p.C + c]);
     const int64_t gi = (int64_t)g * p.C + c;
     const float mu = p.mean1[gi], mul = p.mul1[gi], beta = p.beta1[c];
-    const int64_t plane = (int64_t)hp * wp;
-    for (int q = threadIdx.y; q < TP; q += PY) {
-      const int64_t m = (int64_t)tile * TP + q;
-      if (m >= p.rows_per_group) break;
-      const int64_t r = (int64_t)g * p.rows_per_group + m;
-      const int64_t b = r / plane;
-      const int rem = (int)(r - b * plane);
+    // 32-bit index arithmetic (every row index of a block fits), and the
+    // tile's rows unrolled so that their loads are in flight together
+    const int plane = hp * wp;
+#pragma unroll
+    for (int k = 0; k < TP / PY; ++k) {
+      const int m = tile * TP + threadIdx.y + k * PY;
+      if (m >= p.rows_per_group) continue;
+      const int r = g * (int)p.rows_per_group + m;
+      const int b = r / plane, rem = r - b * plane;
       const int yq = rem / wp, xq = rem % wp;
       float acc = 0.f;
 #pragma unroll
@@ -504,14 +1006,15 @@ __global__ void __launch_bounds__(CW * PY) dw_backward_data(DwArgs p) {
           // JAX VJP does (per-slice casts, then adds in the compute dtype)
           acc = round_to<T>(__fadd_rn(
               acc, round_to<T>(__fmul_rn(
-                       to_float(dh2[((b * H + yo) * W + xo) * p.C + c]),
+                       to_float(dh2[((int64_t)(b * H + yo) * W + xo) * p.C +
+                                    c]),
                        w[ky * 3 + kx]))));
         }
       }
-      const float h = to_float(h1[r * p.C + c]);
+      const float h = to_float(h1[(int64_t)r * p.C + c]);
       const float u = round_to<T>(bn_apply(h, mu, mul, beta));
       const float v = __fmul_rn(acc, relu6_grad(u));
-      g1[r * p.C + c] = from_float<T>(v);
+      g1[(int64_t)r * p.C + c] = from_float<T>(v);
       s1 += v;
       s2 += __fmul_rn(v, __fsub_rn(h, mu));
     }
@@ -536,16 +1039,16 @@ __global__ void __launch_bounds__(CW * PY) dw_backward_weight(DwArgs p,
     const T* dh2 = static_cast<const T*>(p.dh2);
     const int64_t gi = (int64_t)g * p.C + c;
     const float mu = p.mean1[gi], mul = p.mul1[gi], beta = p.beta1[c];
-    const int64_t plane = (int64_t)H * W;
-    const int64_t r_end = min((int64_t)(s + 1) * SPLIT_ROWS, p.rows_per_group);
-    for (int64_t m = (int64_t)s * SPLIT_ROWS + threadIdx.y; m < r_end;
-         m += PY) {
-      const int64_t r = (int64_t)g * p.rows_per_group + m;
-      const int64_t b = r / plane;
-      const int rem = (int)(r - b * plane);
+    const int plane = H * W;
+    const int r_end = min((s + 1) * SPLIT_ROWS, (int)p.rows_per_group);
+    // 32-bit index arithmetic, four pixels' loads in flight at once
+#pragma unroll 4
+    for (int m = s * SPLIT_ROWS + threadIdx.y; m < r_end; m += PY) {
+      const int r = g * (int)p.rows_per_group + m;
+      const int b = r / plane, rem = r - b * plane;
       const int y = rem / W, x = rem % W;
-      const float gv = to_float(dh2[r * p.C + c]);
-      const T* src = h1 + ((b * hp + y) * wp + x) * p.C + c;
+      const float gv = to_float(dh2[(int64_t)r * p.C + c]);
+      const T* src = h1 + ((int64_t)(b * hp + y) * wp + x) * p.C + c;
 #pragma unroll
       for (int ky = 0; ky < 3; ++ky)
 #pragma unroll
@@ -631,35 +1134,49 @@ __global__ void moments_finish(const float* __restrict__ part, int ngroups,
 
 // From the gradient tile sums S1 = sum g, S2 = sum g (h - mu): dgamma,
 // dbeta (summed over groups in order) and per (group, channel) the
-// coefficients of dh = mul * (g - S1 / n) + coef * (h - mu).
-__global__ void bn_grad_finish(const float* __restrict__ part, int ngroups,
-                               int tiles, int C, float count,
-                               const float* __restrict__ var,
-                               const float* __restrict__ tie,
-                               const float* __restrict__ gamma,
-                               float* __restrict__ mean_g,
-                               float* __restrict__ coef,
-                               float* __restrict__ dgamma,
-                               float* __restrict__ dbeta) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
+// coefficients of dh = mul * (g - S1 / n) + coef * (h - mu). A CTA of
+// (FX channels x FY lanes) per 32 channels; per group, lane y adds the
+// tiles y, y + FY, ... in order and lane 0 adds the lanes in order.
+__global__ void __launch_bounds__(FX * FY)
+    bn_grad_finish(const float* __restrict__ part, int ngroups, int tiles,
+                   int C, float count, const float* __restrict__ var,
+                   const float* __restrict__ tie,
+                   const float* __restrict__ gamma,
+                   float* __restrict__ mean_g, float* __restrict__ coef,
+                   float* __restrict__ dgamma, float* __restrict__ dbeta) {
+  __shared__ float red[2][FY][FX];
+  const int c = blockIdx.x * FX + threadIdx.x;
   float dg = 0.f, db = 0.f;
   for (int g = 0; g < ngroups; ++g) {
     float s1 = 0.f, s2 = 0.f;
-    for (int t = 0; t < tiles; ++t) {
-      s1 += part[((int64_t)g * tiles + t) * C + c];
-      s2 += part[(((int64_t)ngroups + g) * tiles + t) * C + c];
+    if (c < C)
+      for (int t = threadIdx.y; t < tiles; t += FY) {
+        s1 += part[((int64_t)g * tiles + t) * C + c];
+        s2 += part[(((int64_t)ngroups + g) * tiles + t) * C + c];
+      }
+    red[0][threadIdx.y][threadIdx.x] = s1;
+    red[1][threadIdx.y][threadIdx.x] = s2;
+    __syncthreads();
+    if (threadIdx.y == 0 && c < C) {
+      s1 = s2 = 0.f;
+      for (int y = 0; y < FY; ++y) {
+        s1 += red[0][y][threadIdx.x];
+        s2 += red[1][y][threadIdx.x];
+      }
+      const int64_t gi = (int64_t)g * C + c;
+      const float r = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var[gi], kEps)));
+      dg += s2 * r;
+      db += s1;
+      const float dz = -0.5f * r * r * r * gamma[c] * s2 * tie[gi];
+      mean_g[gi] = __fdiv_rn(s1, count);
+      coef[gi] = __fdiv_rn(2.f * dz, count);
     }
-    const int64_t gi = (int64_t)g * C + c;
-    const float r = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var[gi], kEps)));
-    dg += s2 * r;
-    db += s1;
-    const float dz = -0.5f * r * r * r * gamma[c] * s2 * tie[gi];
-    mean_g[gi] = __fdiv_rn(s1, count);
-    coef[gi] = __fdiv_rn(2.f * dz, count);
+    __syncthreads();
   }
-  dgamma[c] = dg;
-  dbeta[c] = db;
+  if (threadIdx.y == 0 && c < C) {
+    dgamma[c] = dg;
+    dbeta[c] = db;
+  }
 }
 
 // out = T(mul * (g - mean_g) + coef * (h - mu)); out may alias gsrc.
@@ -731,16 +1248,16 @@ struct Stage {
   float *part, *mean, *var, *mul, *tie;
 };
 
+// What the forward keeps in its workspace: the pre-BN hidden tensors and,
+// per stage, the tile sums, mul and tie (mean and var are the caller's six
+// moment outputs). The backward reads it and never writes it.
 struct Work {
   void *h1, *h2, *h3;
   Stage s1, s2, s3;
-  // backward only
-  void *dh3, *g2, *g1;
-  float *mg1, *cf1, *mg2, *cf2, *mg3, *cf3, *wpart;
 };
 
-Work carve(Carver& cv, const Dims& D, size_t item, bool backward,
-           float* fwd_stats[6]) {
+Work carve_forward(Carver& cv, const Dims& D, size_t item,
+                   float* const stats[6]) {
   Work w{};
   const int ng = D.ng();
   w.h1 = cv.take<char>((int64_t)D.B * D.hp() * D.wp() * D.Ch, item);
@@ -751,17 +1268,107 @@ Work carve(Carver& cv, const Dims& D, size_t item, bool backward,
   Stage* st[3] = {&w.s1, &w.s2, &w.s3};
   for (int k = 0; k < 3; ++k) {
     st[k]->part = cv.take<float>(2LL * ng * ts[k] * cs[k]);
-    if (backward) {
-      st[k]->mean = cv.take<float>((int64_t)ng * cs[k]);
-      st[k]->var = cv.take<float>((int64_t)ng * cs[k]);
-    } else {
-      st[k]->mean = fwd_stats[2 * k];
-      st[k]->var = fwd_stats[2 * k + 1];
-    }
+    st[k]->mean = stats[2 * k];
+    st[k]->var = stats[2 * k + 1];
     st[k]->mul = cv.take<float>((int64_t)ng * cs[k]);
     st[k]->tie = cv.take<float>((int64_t)ng * cs[k]);
   }
-  if (!backward) return w;
+  return w;
+}
+
+// The tile width of a product's thin side: the one of 32, 64, 128 that pads
+// `n` the least, the wider on a tie.
+int pick_width(int n) {
+  int best = 128;
+  int64_t waste = (int64_t)(n + 127) / 128 * 128 - n;
+  for (int w : {64, 32}) {
+    const int64_t x = (int64_t)(n + w - 1) / w * w - n;
+    if (x < waste) {
+      best = w;
+      waste = x;
+    }
+  }
+  return best;
+}
+
+int tiles_of(int64_t rows) { return (int)((rows + GM - 1) / GM); }
+
+// One wave of a product's CTAs: the H100's 132 SMs times the CTAs of that
+// tile width an SM holds at once (by their registers and shared memory:
+// 128 threads at ~80 registers, 5; 256 at ~80, 3; 256 at ~127, 2). The
+// splits below aim at one wave, for enough warps per SM to cover the
+// slabs' load latency. Constants, not the card's counts, so that the fixed
+// order of the sums depends on the shapes alone.
+int wave_ctas(int tw) { return 132 * (tw == 32 ? 5 : tw == 64 ? 3 : 2); }
+
+// A weight product's split: chunks of `chunk` pixels per group, as many as
+// give the (groups x M-tiles x N-tiles x chunks) grid about one wave, each
+// chunk at least 4 slabs.
+
+struct WgradPlan {
+  int tw, splits, chunk;
+};
+
+WgradPlan wgrad_plan(const Dims& D, int m, int n) {
+  WgradPlan w{};
+  w.tw = pick_width(n);
+  const int64_t tiles =
+      (int64_t)D.ng() * ((m + GM - 1) / GM) * ((n + w.tw - 1) / w.tw);
+  const int64_t rows = D.rpg();
+  int64_t splits = (wave_ctas(w.tw) + tiles - 1) / tiles;
+  const int64_t most = (rows + 4 * GK - 1) / (4 * GK);
+  if (splits > most) splits = most;
+  if (splits < 1) splits = 1;
+  int64_t chunk = (rows + splits - 1) / splits;
+  chunk = (chunk + GK - 1) / GK * GK;
+  w.chunk = (int)chunk;
+  w.splits = (int)((rows + chunk - 1) / chunk);
+  return w;
+}
+
+// A data product's plan. Its tile width: of the widths that pad N the
+// least, the widest whose grid still gives every SM a CTA, else the
+// narrowest. Where its CTAs would not fill half a wave, a split over K
+// into runs of at least 4 slabs, summed in order.
+struct RowsPlan {
+  int tw, splits, k_len;
+};
+
+RowsPlan rows_plan(const Dims& D, int K, int N, bool may_split) {
+  const int64_t row_tiles = (int64_t)D.ng() * tiles_of(D.rpg());
+  const int least = (N + pick_width(N) - 1) / pick_width(N) * pick_width(N);
+  RowsPlan r{0, 1, K};
+  for (int w : {128, 64, 32}) {
+    if ((N + w - 1) / w * w != least) continue;
+    r.tw = w;
+    if (row_tiles * ((N + w - 1) / w) >= 132) break;
+  }
+  const int64_t ctas = row_tiles * ((N + r.tw - 1) / r.tw);
+  const int wave = wave_ctas(r.tw);
+  if (!may_split || ctas >= wave / 2) return r;
+  const int64_t splits =
+      std::min<int64_t>((wave + ctas - 1) / ctas, K / (4 * GK));
+  if (splits <= 1) return r;
+  r.k_len = (int)(((K + splits - 1) / splits + GK - 1) / GK * GK);
+  r.splits = (K + r.k_len - 1) / r.k_len;
+  return r;
+}
+
+// The backward's own scratch: per stage the gradient tile sums and the
+// coefficients of the BatchNorm gradient, the hidden gradients, and the
+// weight-gradient partial products.
+struct Back {
+  float *part1, *part2, *part3;
+  void *dh3, *g2, *g1;
+  float *mg1, *cf1, *mg2, *cf2, *mg3, *cf3, *wpart;
+};
+
+Back carve_backward(Carver& cv, const Dims& D, size_t item) {
+  Back w{};
+  const int ng = D.ng();
+  w.part1 = cv.take<float>(2LL * ng * D.tiles1() * D.Ch);
+  w.part2 = cv.take<float>(2LL * ng * tiles_of(D.rpg()) * D.Ch);
+  w.part3 = cv.take<float>(2LL * ng * D.tiles() * D.Cout);
   w.dh3 = cv.take<char>((int64_t)D.B * D.H * D.W * D.Cout, item);
   w.g2 = cv.take<char>((int64_t)D.B * D.H * D.W * D.Ch, item);
   w.g1 = cv.take<char>((int64_t)D.B * D.hp() * D.wp() * D.Ch, item);
@@ -771,10 +1378,14 @@ Work carve(Carver& cv, const Dims& D, size_t item, bool backward,
   w.cf2 = cv.take<float>((int64_t)ng * D.Ch);
   w.mg3 = cv.take<float>((int64_t)ng * D.Cout);
   w.cf3 = cv.take<float>((int64_t)ng * D.Cout);
-  int64_t wmax = (int64_t)D.Ch * D.Cout;
-  if ((int64_t)D.Cin * D.Ch > wmax) wmax = (int64_t)D.Cin * D.Ch;
-  if (9LL * D.Ch > wmax) wmax = 9LL * D.Ch;
-  w.wpart = cv.take<float>((int64_t)ng * D.splits() * wmax);
+  // partial products of dWp, dwd, dWe and dx in turn
+  const RowsPlan dxp = rows_plan(D, D.Ch, D.Cin, true);
+  const int64_t need[4] = {
+      (int64_t)ng * wgrad_plan(D, D.Ch, D.Cout).splits * D.Ch * D.Cout,
+      (int64_t)ng * D.splits() * 9 * D.Ch,
+      (int64_t)ng * wgrad_plan(D, D.Ch, D.Cin).splits * D.Cin * D.Ch,
+      dxp.splits > 1 ? (int64_t)dxp.splits * D.B * D.H * D.W * D.Cin : 0};
+  w.wpart = cv.take<float>(*std::max_element(need, need + 4));
   return w;
 }
 
@@ -788,6 +1399,90 @@ inline unsigned blocks_for(int64_t n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
 
+// Whether a cp.async of 16 bytes can carry every chunk of a source whose
+// rows hold `ld` elements of `item` bytes.
+int vec_ok(const void* p, int ld, size_t item) {
+  return (reinterpret_cast<uintptr_t>(p) % 16 == 0) && (ld * item) % 16 == 0;
+}
+
+// Whether a data product's epilogue can read and write four columns at
+// once: N a multiple of 4 and every pointer it touches aligned to that.
+int vec_out(const BwdRows& p, size_t item) {
+  auto at = [](const void* q, size_t n) {
+    return q == nullptr || reinterpret_cast<uintptr_t>(q) % n == 0;
+  };
+  return p.N % 4 == 0 && at(p.c, 4 * item) && at(p.e_src, 4 * item) &&
+         at(p.e_mean, 16) && at(p.e_mul, 16) && at(p.e_beta, 16);
+}
+
+template <typename T, int TW>
+cudaError_t launch_rows(const BwdRows& p, int splits, cudaStream_t st) {
+  const size_t smem = rows_smem<T, TW>();
+  PP_CHECK(cudaFuncSetAttribute(bwd_rows<T, TW>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem));
+  bwd_rows<T, TW><<<dim3(p.ngroups * p.tiles, (p.N + TW - 1) / TW, splits),
+                    GemmShape<TW>::THREADS, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
+// The data product as `plan` says; a split over K goes through `scratch`
+// and rows_sum.
+template <typename T>
+cudaError_t data_product(BwdRows p, const RowsPlan& plan, float* scratch,
+                         cudaStream_t st) {
+  p.tiles = (int)((p.rows_per_group + GM - 1) / GM);
+  p.k_len = plan.k_len;
+  p.k_part = plan.splits > 1 ? scratch : nullptr;
+  switch (plan.tw) {
+    case 32: PP_CHECK((launch_rows<T, 32>(p, plan.splits, st))); break;
+    case 64: PP_CHECK((launch_rows<T, 64>(p, plan.splits, st))); break;
+    default: PP_CHECK((launch_rows<T, 128>(p, plan.splits, st))); break;
+  }
+  if (plan.splits == 1) return cudaSuccess;
+  const int64_t total = (int64_t)p.ngroups * p.rows_per_group * p.N;
+  rows_sum<T><<<blocks_for(total, EW_THREADS), EW_THREADS, 0, st>>>(
+      scratch, plan.splits, total, static_cast<const T*>(p.e_src),
+      static_cast<T*>(p.c));
+  return cudaGetLastError();
+}
+
+template <typename T, int TW>
+cudaError_t launch_wgrad(const BwdWgrad& p, cudaStream_t st) {
+  const size_t smem = wgrad_smem<T, TW>();
+  PP_CHECK(cudaFuncSetAttribute(bwd_wgrad<T, TW>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem));
+  bwd_wgrad<T, TW><<<dim3(p.ngroups * p.splits, (p.M + GM - 1) / GM,
+                          (p.N + TW - 1) / TW),
+                     GemmShape<TW>::THREADS, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
+// sum_splits with about 4 chunks per lane, at most FY lanes per column.
+cudaError_t sum_chunks(const float* part, int64_t n_splits, int64_t len,
+                       float* out, cudaStream_t st) {
+  int lanes = 1;
+  while (lanes < FY && 8 * lanes <= n_splits) lanes *= 2;
+  const int64_t cols = (int64_t)FX * (FY / lanes);
+  sum_splits<<<(unsigned)((len + cols - 1) / cols), dim3(FX, FY), 0, st>>>(
+      part, n_splits, len, lanes, out);
+  return cudaGetLastError();
+}
+
+// The weight product and the fixed-order sum of its chunks into `out`.
+template <typename T>
+cudaError_t weight_product(const BwdWgrad& p, int tw, float* out,
+                           cudaStream_t st) {
+  switch (tw) {
+    case 32: PP_CHECK((launch_wgrad<T, 32>(p, st))); break;
+    case 64: PP_CHECK((launch_wgrad<T, 64>(p, st))); break;
+    default: PP_CHECK((launch_wgrad<T, 128>(p, st))); break;
+  }
+  return sum_chunks(p.part, (int64_t)p.ngroups * p.splits,
+                    (int64_t)p.M * p.N, out, st);
+}
+
 cudaError_t finish_moments(const Stage& s, int ng, int tiles, int C,
                            int64_t count, const float* gamma,
                            cudaStream_t st) {
@@ -796,7 +1491,7 @@ cudaError_t finish_moments(const Stage& s, int ng, int tiles, int C,
   return cudaGetLastError();
 }
 
-// The forward phases up to h3 and its moments (shared by both entries).
+// The forward phases up to h3 and its moments.
 template <typename T>
 cudaError_t forward_phases(const Dims& D, const Work& w, const void* x,
                            const void* we, const void* wd, const void* wp,
@@ -806,9 +1501,9 @@ cudaError_t forward_phases(const Dims& D, const Work& w, const void* x,
   // 1. expand over the padded domain
   RowGemm e{};
   e.a = x; e.a_map = ROW_PAD_FROM_X; e.K = D.Cin;
-  e.b = we; e.b_trans = 0; e.N = D.Ch;
+  e.b = we; e.N = D.Ch;
   e.rows_per_group = D.rpg1(); e.ngroups = ng; e.tiles = D.tiles1();
-  e.geo = D.geo(); e.epi = EPI_MOMENTS; e.c = w.h1; e.part = w.s1.part;
+  e.geo = D.geo(); e.c = w.h1; e.part = w.s1.part;
   row_gemm<T><<<dim3(ng * D.tiles1(), (D.Ch + BN - 1) / BN), GEMM_THREADS,
                 0, st>>>(e);
   PP_CHECK(cudaGetLastError());
@@ -827,9 +1522,9 @@ cudaError_t forward_phases(const Dims& D, const Work& w, const void* x,
   RowGemm pj{};
   pj.a = w.h2; pj.a_map = ROW_DIRECT; pj.K = D.Ch;
   pj.a_mean = w.s2.mean; pj.a_mul = w.s2.mul; pj.a_beta = b2;
-  pj.b = wp; pj.b_trans = 0; pj.N = D.Cout;
+  pj.b = wp; pj.N = D.Cout;
   pj.rows_per_group = D.rpg(); pj.ngroups = ng; pj.tiles = D.tiles();
-  pj.geo = D.geo(); pj.epi = EPI_MOMENTS; pj.c = w.h3; pj.part = w.s3.part;
+  pj.geo = D.geo(); pj.c = w.h3; pj.part = w.s3.part;
   row_gemm<T><<<dim3(ng * D.tiles(), (D.Cout + BN - 1) / BN), GEMM_THREADS,
                 0, st>>>(pj);
   PP_CHECK(cudaGetLastError());
@@ -841,7 +1536,7 @@ cudaError_t run_forward(const void* const* P, const Dims& D, cudaStream_t st) {
   float* stats[6];
   for (int k = 0; k < 6; ++k) stats[k] = (float*)P[11 + k];
   Carver cv{(char*)P[17]};
-  const Work w = carve(cv, D, sizeof(T), false, stats);
+  const Work w = carve_forward(cv, D, sizeof(T), stats);
   PP_CHECK(forward_phases<T>(D, w, P[0], P[1], P[2], P[3], (const float*)P[4],
                              (const float*)P[5], (const float*)P[6],
                              (const float*)P[7], (const float*)P[8], st));
@@ -863,69 +1558,69 @@ cudaError_t run_backward(const void* const* P, const Dims& D,
   float *dwe = (float*)P[12], *dwd = (float*)P[13], *dwp = (float*)P[14];
   float *dg1 = (float*)P[15], *db1 = (float*)P[16], *dg2 = (float*)P[17],
         *db2 = (float*)P[18], *dg3 = (float*)P[19], *db3 = (float*)P[20];
-  Carver cv{(char*)P[21]};
-  const Work w = carve(cv, D, sizeof(T), true, nullptr);
+  float* stats[6];
+  for (int k = 0; k < 6; ++k) stats[k] = (float*)P[21 + k];
+  Carver fv{(char*)P[27]};
+  const Work f = carve_forward(fv, D, sizeof(T), stats);  // read only
+  Carver cv{(char*)P[28]};
+  const Back w = carve_backward(cv, D, sizeof(T));
   const int ng = D.ng();
-  PP_CHECK(forward_phases<T>(D, w, x, we, wd, wp, g1, b1, g2, b2, g3, st));
 
   // BN3: sums of dy, dy * (h3 - mu3); dgamma3, dbeta3; dh3
   bn_grad_sums<T><<<dim3(ng * D.tiles(), (D.Cout + CW - 1) / CW),
-                    dim3(CW, PY), 0, st>>>((const T*)dy, (const T*)w.h3,
-                                           w.s3.mean, D.Cout, D.rpg(), ng,
-                                           D.tiles(), w.s3.part);
+                    dim3(CW, PY), 0, st>>>((const T*)dy, (const T*)f.h3,
+                                           f.s3.mean, D.Cout, D.rpg(), ng,
+                                           D.tiles(), w.part3);
   PP_CHECK(cudaGetLastError());
-  bn_grad_finish<<<blocks_for(D.Cout, 128), 128, 0, st>>>(
-      w.s3.part, ng, D.tiles(), D.Cout, (float)D.rpg(), w.s3.var, w.s3.tie,
+  bn_grad_finish<<<finish_blocks(D.Cout), dim3(FX, FY), 0, st>>>(
+      w.part3, ng, D.tiles(), D.Cout, (float)D.rpg(), f.s3.var, f.s3.tie,
       g3, w.mg3, w.cf3, dg3, db3);
   PP_CHECK(cudaGetLastError());
   int64_t total = (int64_t)D.B * D.H * D.W * D.Cout;
   bn_grad_apply<T><<<blocks_for(total, EW_THREADS), EW_THREADS, 0, st>>>(
-      (const T*)dy, (const T*)w.h3, (T*)w.dh3, w.s3.mean, w.s3.mul, w.mg3,
+      (const T*)dy, (const T*)f.h3, (T*)w.dh3, f.s3.mean, f.s3.mul, w.mg3,
       w.cf3, D.Cout, D.rpg(), total);
   PP_CHECK(cudaGetLastError());
 
   // dWp = a2^T dh3
-  const int n_splits = ng * D.splits();
-  WGrad gp{};
-  gp.a = w.h2; gp.a_map = ROW_DIRECT; gp.I = D.Ch;
-  gp.a_mean = w.s2.mean; gp.a_mul = w.s2.mul; gp.a_beta = b2;
-  gp.d = w.dh3; gp.d_map = ROW_DIRECT; gp.J = D.Cout;
-  gp.rows_per_group = D.rpg(); gp.ngroups = ng; gp.splits = D.splits();
-  gp.geo = D.geo(); gp.part = w.wpart;
-  wgrad_partial<T><<<dim3(n_splits, (D.Ch + BM - 1) / BM,
-                          (D.Cout + BN - 1) / BN),
-                     GEMM_THREADS, 0, st>>>(gp);
-  PP_CHECK(cudaGetLastError());
-  int64_t len = (int64_t)D.Ch * D.Cout;
-  sum_splits<<<blocks_for(len, EW_THREADS), EW_THREADS, 0, st>>>(
-      w.wpart, n_splits, len, dwp);
-  PP_CHECK(cudaGetLastError());
+  const size_t item = sizeof(T);
+  const WgradPlan pp = wgrad_plan(D, D.Ch, D.Cout);
+  BwdWgrad gp{};
+  gp.am = f.h2; gp.am_map = ROW_DIRECT; gp.M = D.Ch;
+  gp.m_mean = f.s2.mean; gp.m_mul = f.s2.mul; gp.m_beta = b2;
+  gp.an = w.dh3; gp.an_map = ROW_DIRECT; gp.N = D.Cout;
+  gp.rows_per_group = D.rpg(); gp.ngroups = ng; gp.splits = pp.splits;
+  gp.chunk = pp.chunk; gp.geo = D.geo(); gp.ld_m = D.Cout; gp.ld_n = 1;
+  gp.part = w.wpart;
+  gp.vec_m = vec_ok(f.h2, D.Ch, item); gp.vec_n = vec_ok(w.dh3, D.Cout, item);
+  PP_CHECK(weight_product<T>(gp, pp.tw, dwp, st));
 
   // da2 = dh3 Wp^T, masked by relu6'(T(bn2(h2))), with BN2's gradient sums
-  RowGemm da{};
+  BwdRows da{};
   da.a = w.dh3; da.a_map = ROW_DIRECT; da.K = D.Cout;
-  da.b = wp; da.b_trans = 1; da.N = D.Ch;
-  da.rows_per_group = D.rpg(); da.ngroups = ng; da.tiles = D.tiles();
-  da.geo = D.geo(); da.epi = EPI_RELU6_GRAD; da.c = w.g2; da.part = w.s2.part;
-  da.e_src = w.h2; da.e_mean = w.s2.mean; da.e_mul = w.s2.mul;
+  da.w = wp; da.N = D.Ch;
+  da.rows_per_group = D.rpg(); da.ngroups = ng;
+  da.geo = D.geo(); da.epi = EPI_RELU6_GRAD; da.c = w.g2; da.part = w.part2;
+  da.e_src = f.h2; da.e_mean = f.s2.mean; da.e_mul = f.s2.mul;
   da.e_beta = b2;
-  row_gemm<T><<<dim3(ng * D.tiles(), (D.Ch + BN - 1) / BN), GEMM_THREADS,
-                0, st>>>(da);
-  PP_CHECK(cudaGetLastError());
-  bn_grad_finish<<<blocks_for(D.Ch, 128), 128, 0, st>>>(
-      w.s2.part, ng, D.tiles(), D.Ch, (float)D.rpg(), w.s2.var, w.s2.tie, g2,
-      w.mg2, w.cf2, dg2, db2);
+  da.vec_a = vec_ok(w.dh3, D.Cout, item); da.vec_w = vec_ok(wp, D.Cout, item);
+  da.vec_c = vec_out(da, item);
+  PP_CHECK(data_product<T>(da, rows_plan(D, D.Cout, D.Ch, false), nullptr,
+                           st));
+  bn_grad_finish<<<finish_blocks(D.Ch), dim3(FX, FY), 0, st>>>(
+      w.part2, ng, tiles_of(D.rpg()), D.Ch, (float)D.rpg(), f.s2.var,
+      f.s2.tie, g2, w.mg2, w.cf2, dg2, db2);
   PP_CHECK(cudaGetLastError());
   total = (int64_t)D.B * D.H * D.W * D.Ch;
   bn_grad_apply<T><<<blocks_for(total, EW_THREADS), EW_THREADS, 0, st>>>(
-      (const T*)w.g2, (const T*)w.h2, (T*)w.g2, w.s2.mean, w.s2.mul, w.mg2,
+      (const T*)w.g2, (const T*)f.h2, (T*)w.g2, f.s2.mean, f.s2.mul, w.mg2,
       w.cf2, D.Ch, D.rpg(), total);  // g2 now holds dh2
   PP_CHECK(cudaGetLastError());
 
   // depthwise backward: g1 over the padded domain, and dwd
   DwArgs a{};
-  a.h1 = w.h1; a.wd = wd; a.mean1 = w.s1.mean; a.mul1 = w.s1.mul;
-  a.beta1 = b1; a.dh2 = w.g2; a.out = w.g1; a.part = w.s1.part; a.C = D.Ch;
+  a.h1 = f.h1; a.wd = wd; a.mean1 = f.s1.mean; a.mul1 = f.s1.mul;
+  a.beta1 = b1; a.dh2 = w.g2; a.out = w.g1; a.part = w.part1; a.C = D.Ch;
   a.rows_per_group = D.rpg1(); a.ngroups = ng; a.tiles = D.tiles1();
   a.geo = D.geo();
   dw_backward_data<T><<<dim3(ng * D.tiles1(), (D.Ch + CW - 1) / CW),
@@ -934,50 +1629,45 @@ cudaError_t run_backward(const void* const* P, const Dims& D,
   DwArgs aw = a;
   aw.rows_per_group = D.rpg();
   aw.part = w.wpart;
+  const int n_splits = ng * D.splits();
   dw_backward_weight<T><<<dim3(n_splits, (D.Ch + CW - 1) / CW), dim3(CW, PY),
                           0, st>>>(aw, D.splits());
   PP_CHECK(cudaGetLastError());
-  len = 9LL * D.Ch;
-  sum_splits<<<blocks_for(len, EW_THREADS), EW_THREADS, 0, st>>>(
-      w.wpart, n_splits, len, dwd);
-  PP_CHECK(cudaGetLastError());
+  PP_CHECK(sum_chunks(w.wpart, n_splits, 9LL * D.Ch, dwd, st));
 
   // BN1 over the padded domain, border included; g1 becomes dh1
-  bn_grad_finish<<<blocks_for(D.Ch, 128), 128, 0, st>>>(
-      w.s1.part, ng, D.tiles1(), D.Ch, (float)D.rpg1(), w.s1.var, w.s1.tie,
+  bn_grad_finish<<<finish_blocks(D.Ch), dim3(FX, FY), 0, st>>>(
+      w.part1, ng, D.tiles1(), D.Ch, (float)D.rpg1(), f.s1.var, f.s1.tie,
       g1, w.mg1, w.cf1, dg1, db1);
   PP_CHECK(cudaGetLastError());
   total = (int64_t)D.B * D.hp() * D.wp() * D.Ch;
   bn_grad_apply<T><<<blocks_for(total, EW_THREADS), EW_THREADS, 0, st>>>(
-      (const T*)w.g1, (const T*)w.h1, (T*)w.g1, w.s1.mean, w.s1.mul, w.mg1,
+      (const T*)w.g1, (const T*)f.h1, (T*)w.g1, f.s1.mean, f.s1.mul, w.mg1,
       w.cf1, D.Ch, D.rpg1(), total);
   PP_CHECK(cudaGetLastError());
 
-  // dWe = x^T dh1[interior]; the border rows of xp are zero
-  WGrad ge{};
-  ge.a = x; ge.a_map = ROW_DIRECT; ge.I = D.Cin;
-  ge.d = w.g1; ge.d_map = ROW_INTERIOR_TO_PAD; ge.J = D.Ch;
-  ge.rows_per_group = D.rpg(); ge.ngroups = ng; ge.splits = D.splits();
-  ge.geo = D.geo(); ge.part = w.wpart;
-  wgrad_partial<T><<<dim3(n_splits, (D.Cin + BM - 1) / BM,
-                          (D.Ch + BN - 1) / BN),
-                     GEMM_THREADS, 0, st>>>(ge);
-  PP_CHECK(cudaGetLastError());
-  len = (int64_t)D.Cin * D.Ch;
-  sum_splits<<<blocks_for(len, EW_THREADS), EW_THREADS, 0, st>>>(
-      w.wpart, n_splits, len, dwe);
-  PP_CHECK(cudaGetLastError());
+  // dWe = x^T dh1[interior]; the border rows of xp are zero. The hidden
+  // side is the wide one: M = dh1's channels, N = x's
+  const WgradPlan pe = wgrad_plan(D, D.Ch, D.Cin);
+  BwdWgrad ge{};
+  ge.am = w.g1; ge.am_map = ROW_INTERIOR_TO_PAD; ge.M = D.Ch;
+  ge.an = x; ge.an_map = ROW_DIRECT; ge.N = D.Cin;
+  ge.rows_per_group = D.rpg(); ge.ngroups = ng; ge.splits = pe.splits;
+  ge.chunk = pe.chunk; ge.geo = D.geo(); ge.ld_m = 1; ge.ld_n = D.Ch;
+  ge.part = w.wpart;
+  ge.vec_m = vec_ok(w.g1, D.Ch, item); ge.vec_n = vec_ok(x, D.Cin, item);
+  PP_CHECK(weight_product<T>(ge, pe.tw, dwe, st));
 
   // dx = dh1[interior] We^T (+ dy)
-  RowGemm dxg{};
+  BwdRows dxg{};
   dxg.a = w.g1; dxg.a_map = ROW_INTERIOR_TO_PAD; dxg.K = D.Ch;
-  dxg.b = we; dxg.b_trans = 1; dxg.N = D.Cin;
-  dxg.rows_per_group = D.rpg(); dxg.ngroups = ng; dxg.tiles = D.tiles();
-  dxg.geo = D.geo(); dxg.epi = EPI_PLUS; dxg.c = dx; dxg.part = nullptr;
-  dxg.e_src = D.use_res ? dy : nullptr;
-  row_gemm<T><<<dim3(ng * D.tiles(), (D.Cin + BN - 1) / BN), GEMM_THREADS,
-                0, st>>>(dxg);
-  return cudaGetLastError();
+  dxg.w = we; dxg.N = D.Cin;
+  dxg.rows_per_group = D.rpg(); dxg.ngroups = ng;
+  dxg.geo = D.geo(); dxg.epi = EPI_PLUS;
+  dxg.c = dx; dxg.e_src = D.use_res ? dy : nullptr;
+  dxg.vec_a = vec_ok(w.g1, D.Ch, item); dxg.vec_w = vec_ok(we, D.Ch, item);
+  dxg.vec_c = vec_out(dxg, item);
+  return data_product<T>(dxg, rows_plan(D, D.Ch, D.Cin, true), w.wpart, st);
 }
 
 bool read_dims(const int* v, int* dtype, Dims* D) {
@@ -993,14 +1683,19 @@ bool read_dims(const int* v, int* dtype, Dims* D) {
 }  // namespace
 
 // dims: {dtype (0 = float32, 1 = bfloat16), B, H, W, Cin, Ch, Cout, group,
-// dilation, use_res}. Bytes of scratch the entry needs, 0 for bad dims.
+// dilation, use_res}. Bytes of scratch the entry needs, 0 for bad dims: the
+// forward's workspace, which it leaves holding the state the backward
+// reads, or the backward's own.
 extern "C" size_t pp_fused_ir_workspace(const int* dims, int backward) {
   int dtype;
   Dims D;
   if (!read_dims(dims, &dtype, &D)) return 0;
   float* none[6] = {};
   Carver cv{nullptr};
-  carve(cv, D, dtype == 0 ? 4 : 2, backward != 0, none);
+  if (backward)
+    carve_backward(cv, D, dtype == 0 ? 4 : 2);
+  else
+    carve_forward(cv, D, dtype == 0 ? 4 : 2, none);
   return cv.used + 256;
 }
 
@@ -1020,8 +1715,11 @@ extern "C" int pp_fused_ir_fwd(const void* const* ptrs, const int* dims,
 }
 
 // ptrs: x, dy, we, wd, wp, g1, b1, g2, b2, g3, b3, dx, dwe, dwd, dwp, dg1,
-// db1, dg2, db2, dg3, db3, workspace. dy and dx in the compute dtype; the
-// nine gradients in f32, shaped like their weights.
+// db1, dg2, db2, dg3, db3, mu1, var1, mu2, var2, mu3, var3, the forward's
+// workspace, workspace. dy and dx in the compute dtype; the nine gradients
+// in f32, shaped like their weights. The six moments and the forward's
+// workspace are those a pp_fused_ir_fwd call on the same x and weights
+// left, and are only read.
 extern "C" int pp_fused_ir_bwd(const void* const* ptrs, const int* dims,
                                void* stream) {
   int dtype;

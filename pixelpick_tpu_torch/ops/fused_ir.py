@@ -17,10 +17,13 @@ the caller's running-stat EMA; their gradients are ignored.
   versions, over ONE group, op for op as the JAX functions (the compute
   dtype is ``we.dtype``; casts where JAX casts; ReLU6 as min/max, whose
   gradient is 0.5 at exactly 0 and 6, as JAX's).
-- :func:`fused_ir_block` is a ``torch.autograd.Function`` that saves x and
-  the weights only and recomputes in the backward, as the TPU kernel does.
-  A CPU tensor takes the plain versions; a CUDA tensor launches the kernels
-  or raises.
+- :func:`fused_ir_block` is a ``torch.autograd.Function``. On a CUDA
+  tensor it keeps what the forward kernel wrote (h1, h2, h3 and each
+  stage's statistics: :class:`FusedState`) and the backward kernel reads
+  it; the TPU kernel recomputes the forward instead, because a group's
+  hidden tensors do not fit twice in VMEM. A CPU tensor takes the plain
+  versions, whose backward recomputes from x; a CUDA tensor launches the
+  kernels or raises.
 
 The TPU package gates the fused path on a VMEM estimate
 (``vmem_estimate_bytes``). The port needs no gate: every phase of
@@ -32,10 +35,11 @@ that do not form a block (``_check``; ``pp_fused_ir_workspace`` returns 0).
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from pixelpick_tpu_torch.ops.build import load_library
 
@@ -258,15 +262,19 @@ def _check(x, weights, group, dilation, use_res):
             int(use_res)]
 
 
-def _call(fn_name: str, tensors, dims, backward: int) -> None:
-    lib = _library()
-    dims_c = (ctypes.c_int * len(dims))(*dims)
-    nbytes = lib.pp_fused_ir_workspace(dims_c, backward)
+def _workspace(dims, backward: int, device) -> torch.Tensor:
+    nbytes = _library().pp_fused_ir_workspace(
+        (ctypes.c_int * len(dims))(*dims), backward)
     if nbytes == 0:
         raise ValueError(f"the fused block kernels refuse dims {dims}")
+    return torch.empty(nbytes, dtype=torch.uint8, device=device)
+
+
+def _call(fn_name: str, tensors, dims) -> None:
+    lib = _library()
+    dims_c = (ctypes.c_int * len(dims))(*dims)
     device = tensors[0].device
-    work = torch.empty(nbytes, dtype=torch.uint8, device=device)
-    ptrs = [t.data_ptr() for t in tensors] + [work.data_ptr()]
+    ptrs = [t.data_ptr() for t in tensors]
     ptrs_c = (ctypes.c_void_p * len(ptrs))(*ptrs)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -276,32 +284,55 @@ def _call(fn_name: str, tensors, dims, backward: int) -> None:
                            f"dims {dims}")
 
 
+class FusedState(NamedTuple):
+    """What a forward kernel call leaves for the backward: its workspace
+    (h1 over the padded domain, h2 and h3 in the compute dtype, and each
+    stage's BatchNorm mul and tie factor), the six moments it returned, and
+    the dims it ran at. The backward only reads it."""
+    work: torch.Tensor
+    stats: Tuple[torch.Tensor, ...]
+    dims: list
+
+
 def fused_fwd_kernel(x, weights, group: int, dilation: int, use_res: bool):
-    """Launch ``pp_fused_ir_fwd``: y and the six moment arrays."""
+    """Launch ``pp_fused_ir_fwd``: y, the six moment arrays and the
+    :class:`FusedState` that the backward kernel reads. A caller that
+    takes no gradient drops the state, and its workspace is freed."""
     dims = _check(x, weights, group, dilation, use_res)
     b, h, w, _ = x.shape
     ch, cout = weights[0].shape[1], weights[2].shape[1]
     ng = b // group
     y = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
-    stats = [torch.empty((ng, c), dtype=torch.float32, device=x.device)
-             for c in (ch, ch, ch, ch, cout, cout)]
-    _call("pp_fused_ir_fwd", [x, *weights, y, *stats], dims, 0)
+    stats = tuple(torch.empty((ng, c), dtype=torch.float32, device=x.device)
+                  for c in (ch, ch, ch, ch, cout, cout))
+    work = _workspace(dims, 0, x.device)
+    _call("pp_fused_ir_fwd", [x, *weights, y, *stats, work], dims)
     launch_counts["fused_fwd"] += 1
-    return y, tuple(stats)
+    return y, stats, FusedState(work, stats, dims)
 
 
 def fused_bwd_kernel(x, dy, weights, group: int, dilation: int,
-                     use_res: bool):
-    """Launch ``pp_fused_ir_bwd``: dx and the nine gradients, the weight
-    gradients cast to their weights' dtype as ``_fused_ir_bwd`` does."""
+                     use_res: bool, state: FusedState = None):
+    """Launch ``pp_fused_ir_bwd`` on the ``state`` that the forward kernel
+    left for the same x and weights: dx and the nine gradients, the weight
+    gradients cast to their weights' dtype as ``_fused_ir_bwd`` does.
+    Raises without a state: the kernel never recomputes the forward."""
     dims = _check(x, weights, group, dilation, use_res)
     if dy.shape[:3] != x.shape[:3] or dy.dtype != x.dtype \
             or not dy.is_contiguous():
         raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not match")
+    if state is None:
+        raise ValueError("the backward kernel reads the saved state that "
+                         "fused_fwd_kernel returns; none was given")
+    if state.dims != dims or state.work.device != x.device:
+        raise ValueError(f"the saved state is of dims {state.dims}, the "
+                         f"backward's are {dims}")
     dx = torch.empty_like(x)
     grads = [torch.empty(t.shape, dtype=torch.float32, device=x.device)
              for t in weights]
-    _call("pp_fused_ir_bwd", [x, dy, *weights, dx, *grads], dims, 1)
+    work = _workspace(dims, 1, x.device)
+    _call("pp_fused_ir_bwd", [x, dy, *weights, dx, *grads, *state.stats,
+                              state.work, work], dims)
     launch_counts["fused_bwd"] += 1
     return (dx,) + tuple(g.to(w.dtype) for g, w in zip(grads, weights))
 
@@ -314,25 +345,34 @@ class _FusedIR(torch.autograd.Function):
                                                   g3, b3))
         x = x.contiguous()
         _check_config(x, wp.shape[1], group, dilation, use_res)
+        work = dims = None
         if x.device.type == "cpu":
             with torch.no_grad():
                 y, stats = fused_fwd_plain(x, weights, group, dilation,
                                            use_res)
         else:
-            y, stats = fused_fwd_kernel(x, weights, group, dilation, use_res)
-        ctx.save_for_backward(x, *weights)
+            y, stats, (work, _, dims) = fused_fwd_kernel(
+                x, weights, group, dilation, use_res)
+        # Autograd drops what is saved when no gradient can be taken, and
+        # the workspace is then freed on return.
+        ctx.save_for_backward(x, *weights, *stats, work)
         ctx.cfg = (group, dilation, use_res)
+        ctx.dims = dims
         ctx.mark_non_differentiable(*stats)
         return (y, *stats)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, dy, *_stat_cotangents):
-        x, *weights = ctx.saved_tensors
+        saved = ctx.saved_tensors
+        x, weights, stats, work = saved[0], saved[1:10], saved[10:16], \
+            saved[16]
         dy = dy.contiguous()
         if x.device.type == "cpu":
             grads = fused_bwd_plain(x, dy, weights, *ctx.cfg)
         else:
-            grads = fused_bwd_kernel(x, dy, weights, *ctx.cfg)
+            grads = fused_bwd_kernel(x, dy, weights, *ctx.cfg,
+                                     state=FusedState(work, stats, ctx.dims))
         return (*grads, None, None, None)
 
 
@@ -340,7 +380,9 @@ def fused_ir_block(x, we, wd, wp, g1, b1, g2, b2, g3, b3, group: int,
                    dilation: int, use_res: bool):
     """Fused block, NHWC. x: (B, H, W, Cin) with B % group == 0; weights in
     the compute dtype, BN vectors f32. Returns (y, (mu1, var1, mu2, var2,
-    mu3, var3)), the moments (B // group, C) f32 and not differentiable."""
+    mu3, var3)), the moments (B // group, C) f32 and not differentiable.
+    On a CUDA tensor the forward kernel's state is kept for the backward
+    while a gradient can be taken, and freed on return otherwise."""
     y, *stats = _FusedIR.apply(x, we, wd, wp, g1, b1, g2, b2, g3, b3, group,
                                dilation, use_res)
     return y, tuple(stats)
@@ -349,9 +391,11 @@ def fused_ir_block(x, we, wd, wp, g1, b1, g2, b2, g3, b3, group: int,
 def block_flops(b: int, h: int, w: int, cin: int, ch: int, cout: int,
                 dilation: int) -> Tuple[int, int]:
     """(forward, backward) operations of one block call: the expand over
-    the padded domain, 9 multiply-adds per hidden value, the project; the
-    backward recomputes the forward and does about twice its work again."""
+    the padded domain, 9 multiply-adds per hidden value, the project. The
+    backward reads h1, h2 and h3 from the forward's saved state instead of
+    recomputing them, and does twice the forward's work: each product's
+    data gradient and weight gradient, the depthwise's two."""
     hp, wp = h + 2 * dilation, w + 2 * dilation
     fwd = 2 * b * hp * wp * cin * ch + 18 * b * h * w * ch \
         + 2 * b * h * w * ch * cout
-    return fwd, 3 * fwd
+    return fwd, 2 * fwd

@@ -295,3 +295,16 @@ def test_bridge_loads_a_fused_jax_deeplab():
     port.load_state_dict(sd)
     for k, t in port.state_dict().items():
         assert torch.equal(t, sd[k]), k
+
+
+@pytest.mark.parametrize("shape", [(4, 90, 120, 24, 144, 24, 1),
+                                   (4, 23, 30, 160, 960, 320, 2)])
+def test_block_flops_counts_no_recompute(shape):
+    """The backward kernel reads the forward's saved h1, h2, h3, so its
+    operations are twice the forward's (each product's data and weight
+    gradients, the depthwise's two), with no recomputed forward on top."""
+    b, h, w, cin, ch, cout, d = shape
+    fwd, bwd = fused_ir.block_flops(*shape)
+    assert fwd == 2 * b * (h + 2 * d) * (w + 2 * d) * cin * ch \
+        + 18 * b * h * w * ch + 2 * b * h * w * ch * cout
+    assert bwd == 2 * fwd

@@ -28,9 +28,15 @@ from pixelpick_tpu_torch.ops import fused_ir
 SHAPES = [  # (B, H, W, Cin, Cout, dilation, group)
     (4, 9, 10, 16, 16, 1, 4),
     (3, 11, 13, 16, 24, 1, 3),     # remainder batch, Cin != Cout
-    (8, 7, 9, 24, 24, 2, 4),       # two groups, dilation 2
-    (2, 23, 30, 64, 64, 1, 2),
+    (8, 7, 9, 24, 24, 2, 4),       # two groups, dilation 2; hidden 144
+    (2, 23, 30, 64, 64, 1, 2),     # hidden 384: 128-wide tiles
     (48, 5, 6, 16, 16, 1, 4),      # 12 groups whose gradients add up
+    # widths that reach each tile width the backward's products choose
+    # (32, 64, 128), ragged ones among them
+    (2, 7, 9, 20, 28, 1, 2),       # hidden 120
+    (2, 6, 7, 40, 200, 1, 1),      # hidden 240, 200 out
+    (1, 5, 6, 200, 40, 2, 1),      # hidden 1200
+    (2, 5, 6, 160, 160, 1, 2),     # hidden 960
 ]
 
 
@@ -42,9 +48,14 @@ def _inputs(b, h, w, cin, cout, dtype, seed=0):
         return torch.from_numpy(np.asarray(a, np.float32)).to("cuda", dt)
 
     x = t(rng.standard_normal((b, h, w, cin)))
+    # the depthwise taps and the projection's columns sum to zero, so that
+    # their products of the positive ReLU6 outputs stay centred and the
+    # fast variances of h2 and h3 do not cancel in f32 (at 960 hidden
+    # channels they otherwise lose their last digits)
+    wd = rng.standard_normal((3, 3, ch)) / 3
+    wp = rng.standard_normal((ch, cout)) / np.sqrt(ch)
     weights = [t(rng.standard_normal((cin, ch)) / np.sqrt(cin)),
-               t(rng.standard_normal((3, 3, ch)) / 3),
-               t(rng.standard_normal((ch, cout)) / np.sqrt(ch))]
+               t(wd - wd.mean((0, 1))), t(wp - wp.mean(0))]
     for c, bias in ((ch, rng.uniform(1, 2, ch)), (ch, rng.uniform(1, 2, ch)),
                     (cout, 0.1 * rng.standard_normal(cout))):
         weights += [t(rng.uniform(0.5, 1.5, c), torch.float32),
@@ -98,8 +109,9 @@ def test_kernels_match_plain_versions_on_card(shape, dtype, tol):
     x, weights, dy = _inputs(b, h, w, cin, cout, dtype)
     use_res = cin == cout
     fused_ir.reset_launch_counts()
-    y, stats = fused_ir.fused_fwd_kernel(x, weights, g, d, use_res)
-    grads = fused_ir.fused_bwd_kernel(x, dy, weights, g, d, use_res)
+    y, stats, state = fused_ir.fused_fwd_kernel(x, weights, g, d, use_res)
+    grads = fused_ir.fused_bwd_kernel(x, dy, weights, g, d, use_res,
+                                      state=state)
     torch.cuda.synchronize()
     assert fused_ir.launch_counts["fused_fwd"] == 1
     assert fused_ir.launch_counts["fused_bwd"] == 1
@@ -111,8 +123,9 @@ def test_kernels_match_plain_versions_on_card(shape, dtype, tol):
     _check_grads(grads, grads_ref, _grad_tolerances(
         x, dy, weights, (g, d, use_res), grads_ref, tol))
     # two calls give bit-equal results: no float atomics
-    y2, _ = fused_ir.fused_fwd_kernel(x, weights, g, d, use_res)
-    grads2 = fused_ir.fused_bwd_kernel(x, dy, weights, g, d, use_res)
+    y2, _, _ = fused_ir.fused_fwd_kernel(x, weights, g, d, use_res)
+    grads2 = fused_ir.fused_bwd_kernel(x, dy, weights, g, d, use_res,
+                                       state=state)
     assert torch.equal(y, y2)
     assert all(torch.equal(a, b2) for a, b2 in zip(grads, grads2))
 
@@ -149,8 +162,9 @@ def test_kernels_take_half_the_gradient_at_ties(dtype, tol):
     x, dy = x.to(dtype), dy.to(dtype)
     weights = (we.to(dtype), wd.to(dtype), wp.to(dtype), g1, b1, g2, b2, g3,
                b3)
-    y, stats = fused_ir.fused_fwd_kernel(x, weights, g, 1, True)
-    grads = fused_ir.fused_bwd_kernel(x, dy, weights, g, 1, True)
+    y, stats, state = fused_ir.fused_fwd_kernel(x, weights, g, 1, True)
+    grads = fused_ir.fused_bwd_kernel(x, dy, weights, g, 1, True,
+                                      state=state)
     y_ref, stats_ref = fused_ir.fused_fwd_plain(x, weights, g, 1, True)
     grads_ref = fused_ir.fused_bwd_plain(x, dy, weights, g, 1, True)
     assert float(stats_ref[3][:, 2:4].abs().max()) == 0.0
@@ -174,3 +188,64 @@ def test_kernels_refuse_what_they_do_not_take():
         fused_ir.fused_fwd_kernel(x.transpose(1, 2).contiguous()
                                   .transpose(1, 2), weights, 4, 1, True)
     assert fused_ir.launch_counts["fused_fwd"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_leaves_the_saved_state_unchanged(dtype):
+    """The backward only reads what the forward left: the workspace's and
+    the moments' bytes are the same after two backward calls, and the two
+    calls give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, weights, dy = _inputs(8, 11, 13, 24, 24, dtype, seed=3)
+    _, stats, state = fused_ir.fused_fwd_kernel(x, weights, 4, 2, True)
+    work = state.work.clone()
+    moments = [t.clone() for t in stats]
+    grads = fused_ir.fused_bwd_kernel(x, dy, weights, 4, 2, True,
+                                      state=state)
+    grads2 = fused_ir.fused_bwd_kernel(x, dy, weights, 4, 2, True,
+                                       state=state)
+    torch.cuda.synchronize()
+    assert torch.equal(work, state.work)
+    assert all(torch.equal(a, b) for a, b in zip(moments, state.stats))
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
+
+
+@pytest.mark.cuda
+def test_backward_kernel_needs_the_saved_state():
+    """Without the forward's state the backward raises: it never
+    recomputes the forward behind the caller's back. A state of other
+    dims is refused too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, weights, dy = _inputs(4, 5, 6, 16, 16, torch.float32)
+    fused_ir.reset_launch_counts()
+    with pytest.raises(ValueError, match="saved state"):
+        fused_ir.fused_bwd_kernel(x, dy, weights, 4, 1, True)
+    _, _, other = fused_ir.fused_fwd_kernel(x, weights, 2, 1, True)
+    with pytest.raises(ValueError, match="saved state"):
+        fused_ir.fused_bwd_kernel(x, dy, weights, 4, 1, True, state=other)
+    assert fused_ir.launch_counts["fused_bwd"] == 0
+
+
+@pytest.mark.cuda
+def test_autograd_keeps_the_state_only_for_a_gradient():
+    """``fused_ir_block`` keeps the forward's workspace for the backward
+    when a gradient can be taken, and its gradients match the kernels
+    called directly; under ``torch.no_grad()`` nothing is kept."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, weights, dy = _inputs(4, 9, 10, 16, 16, torch.float32, seed=2)
+    leaves = [t.clone().requires_grad_() for t in (x, *weights)]
+    y, _ = fused_ir.fused_ir_block(*leaves, 4, 1, True)
+    (y * dy).sum().backward()
+    _, _, state = fused_ir.fused_fwd_kernel(x, weights, 4, 1, True)
+    ref = fused_ir.fused_bwd_kernel(x, dy, weights, 4, 1, True, state=state)
+    assert all(torch.equal(t.grad, r) for t, r in zip(leaves, ref))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        y, stats = fused_ir.fused_ir_block(*leaves, 4, 1, True)
+    held = y.numel() * 4 + sum(t.numel() * 4 for t in stats)
+    assert torch.cuda.memory_allocated() - before <= held + 4096
