@@ -32,28 +32,38 @@
 // reduces them in a fixed order. Nothing uses float atomics, so two calls
 // give bit-equal results.
 //
-// Forward (7 launches): 64x64-output GEMM tiles from 16-deep shared-memory
-// slabs for the 1x1 products, 64-pixel x 32-channel tiles for the depthwise
-// and elementwise phases. Its workspace keeps h1 (padded), h2, h3 and each
-// stage's BatchNorm mul and tie factor.
+// Both passes run their matrix products on one register-tiled core
+// (data_gemm for the products over pixel rows, bwd_wgrad for the
+// backward's weight gradients): 128-row CTA tiles whose thin side is 32,
+// 64 or 128 wide, chosen by the host per product to pad the least (the
+// 24- and 32-channel blocks take 32); 8x4 or 8x8 outputs per thread read
+// as float4s; 16-deep slabs double-buffered with cp.async, widened to f32
+// once per element with the row maps and a2's BN + ReLU6 applied there.
+// Where a product's grid would leave the card half idle (the 23x30
+// blocks), it splits its depth, and the splits are summed in a fixed
+// order by a pass that also finishes the product's epilogue.
+//
+// Forward (7 launches, 8 where the project splits): the expand h1 = xp We
+// over the padded domain (data_gemm, the weights (K, N) as stored) with
+// its tile sums; BN1's finish; the depthwise, which stages relu6(T(bn1(h1)))
+// of an 8x16-pixel tile and its halo in shared memory once per element and
+// takes the nine taps from there, with its tile sums; BN2's finish; the
+// project h3 = a2 Wp (data_gemm, BN2 + ReLU6 of h2 applied as each slab is
+// widened) with its tile sums; BN3's finish; y. The BatchNorm finishes
+// reduce their tile sums with 16 lanes per channel in a fixed order. The
+// workspace keeps h1 (padded), h2, h3 and each stage's BatchNorm mul and
+// tie factor for the backward.
 //
 // Backward (16 launches, 17 where dx splits over its depth): it reads the
 // forward's workspace and six moments, read only, and recomputes nothing.
-// Its BatchNorm finishes reduce their tile sums with 16 lanes per channel
-// in a fixed order. Its four matrix products (da2 = dh3 Wp^T with the
-// ReLU6-gradient epilogue, dx = dh1 We^T (+ dy), dWp = a2^T dh3, dWe = x^T
-// dh1) run on a register-tiled core (bwd_rows, bwd_wgrad): 128-row CTA
-// tiles whose thin side is 32, 64 or 128 wide, chosen per product to pad
-// the least (the 24- and 32-channel blocks take 32); 8x4 or 8x8 outputs
-// per thread read as float4s; 16-deep slabs double-buffered with cp.async,
-// widened to f32 once per element with the row maps and a2's BN + ReLU6
-// applied there, the weights read row by row and transposed in shared
-// memory. The weight products walk runs of pixels sized to give about one
-// wave of CTAs, and dx splits its depth where its grid is small; the
-// splits are summed in a fixed order. The three BatchNorm-input gradients
-// dh3, dh2, dh1 are written by one elementwise pass each (bn_grad_apply):
-// forming them where they are read instead was measured slower, as the
-// products' loaders then carry a second operand.
+// Its BatchNorm finishes reduce like the forward's. Its four matrix
+// products (da2 = dh3 Wp^T with the ReLU6-gradient epilogue, dx = dh1 We^T
+// (+ dy), dWp = a2^T dh3, dWe = x^T dh1) run on the core, the weights read
+// row by row and transposed in shared memory. The weight products walk
+// runs of pixels sized to give about one wave of CTAs. The three
+// BatchNorm-input gradients dh3, dh2, dh1 are written by one elementwise
+// pass each (bn_grad_apply): forming them where they are read instead was
+// measured slower, as the products' loaders then carry a second operand.
 //
 // Arithmetic: CUDA-core f32 FMA from shared-memory tiles in both dtypes
 // (f32 is "highest" precision, no TF32; bf16 products are exact in f32), and
@@ -61,11 +71,16 @@
 // the plain PyTorch version computes it. What bounds the block on this card:
 // the flops, 2 * pixels * (Cin * Ch + Ch * Cout) + 18 * pixels * Ch forward
 // and twice that backward, at 67 TFLOP/s f32, against the bytes of the thin
-// tensors and (backward) the saved h1, h2, h3 at 3.35 TB/s: operations at
-// the wide blocks, bytes at the 24-channel block. Still in the backward's
-// way: the depthwise backward (one thread per pixel and channel, nine taps
-// read from device memory), the products' share of the f32 rate, the three
-// bn_grad_apply passes, and the launches; wgmma and TMA are later work.
+// tensors and the hidden h1, h2, h3 (which the forward must write for the
+// backward, and the backward reads) at 3.35 TB/s: operations at the wide
+// blocks, bytes at the 24-channel block. What holds the forward above that:
+// at the 23x30 blocks its launches are a few microseconds of work each, so
+// launch gaps, the project's split sum and the products' short grids weigh;
+// at the wide blocks the products' share of the f32 rate. In the
+// backward's way: the depthwise backward (one thread per pixel and
+// channel, nine taps read from device memory), the products' share of the
+// f32 rate, the three bn_grad_apply passes, and the launches; wgmma and
+// TMA are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,14 +92,15 @@
 namespace {
 
 constexpr float kEps = 1e-5f;
-constexpr int BM = 64, BN = 64, BK = 16, GEMM_THREADS = 256;
-constexpr int TP = 64;   // pixels per tile of the depthwise/elementwise phases
-constexpr int CW = 32;   // channels per CTA there
-constexpr int PY = 8;    // pixel lanes per CTA there (block = CW x PY)
+constexpr int kMaxDilation = 15, kMaxHidden = 8192;  // read_dims
+constexpr int TP = 64;  // pixels per tile of the backward's depthwise and
+                        // elementwise phases
+constexpr int CW = 32;  // channels per CTA of the depthwise and tile-sum phases
+constexpr int PY = 8;   // pixel lanes per CTA there (block = CW x PY)
+// the depthwise forward's tile of output pixels: a row per lane
+constexpr int DF_ROWS = PY, DF_COLS = 16, DF_LOADS = 4;
 constexpr int SPLIT_ROWS = 256;  // pixels per chunk of the depthwise weight gradient
 constexpr int EW_THREADS = 256;
-
-static_assert(TP == BM, "GEMM and depthwise tiles share one partial layout");
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -132,150 +148,6 @@ struct Geo {
 
 enum RowMap { ROW_DIRECT = 0, ROW_PAD_FROM_X = 1, ROW_INTERIOR_TO_PAD = 2 };
 
-// Element offset of row r's first element in a row-major source with `ld`
-// columns, or -1 where the row is a zero border.
-// ROW_DIRECT: r indexes the source's own rows.
-// ROW_PAD_FROM_X: r is a padded-domain pixel, the source is unpadded.
-// ROW_INTERIOR_TO_PAD: r is an unpadded pixel, the source is padded.
-__device__ __forceinline__ int64_t row_offset(int map, int64_t r, Geo g,
-                                              int ld) {
-  if (map == ROW_DIRECT) return r * ld;
-  const int hp = g.H + 2 * g.d, wp = g.W + 2 * g.d;
-  if (map == ROW_PAD_FROM_X) {
-    const int64_t plane = (int64_t)hp * wp;
-    const int64_t b = r / plane;
-    const int rem = (int)(r - b * plane);
-    const int y = rem / wp - g.d, x = rem % wp - g.d;
-    if (y < 0 || y >= g.H || x < 0 || x >= g.W) return -1;
-    return ((b * g.H + y) * g.W + x) * ld;
-  }
-  const int64_t plane = (int64_t)g.H * g.W;
-  const int64_t b = r / plane;
-  const int rem = (int)(r - b * plane);
-  const int y = rem / g.W, x = rem % g.W;
-  return ((b * hp + y + g.d) * wp + x + g.d) * ld;
-}
-
-// ---------------------------------------------------------------------------
-// The forward's row GEMM: C[r, n] = sum_k A(r, k) * B(k, n) over the rows of
-// each group, B (K, N) row-major, 64x64 outputs per CTA, each thread 4x4. A
-// may be a BatchNorm + ReLU6 of a stored pre-BN tensor, applied as it is
-// loaded. The epilogue rounds to T and stores, with per-tile column sums of
-// (v, v^2) for the moments.
-
-struct RowGemm {
-  const void* a;
-  int a_map;
-  int K;
-  const float* a_mean;  // (ngroups, K); BN + ReLU6 on load when non-null
-  const float* a_mul;   // (ngroups, K)
-  const float* a_beta;  // (K)
-  const void* b;
-  int N;
-  int64_t rows_per_group;
-  int ngroups, tiles;  // tiles of BM rows per group
-  Geo geo;
-  void* c;      // (rows, N), T
-  float* part;  // (2, ngroups, tiles, N) column sums, or null
-};
-
-template <typename T>
-__global__ void __launch_bounds__(GEMM_THREADS) row_gemm(RowGemm p) {
-  __shared__ float As[BK][BM];
-  __shared__ float Bs[BK][BN];
-  __shared__ int64_t rows[BM];
-  __shared__ float red[2][BM][BN + 1];
-
-  const int g = blockIdx.x / p.tiles, tile = blockIdx.x % p.tiles;
-  const int64_t m0 = (int64_t)tile * BM;
-  const int n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x;
-  const int64_t base = (int64_t)g * p.rows_per_group;
-  if (tid < BM) {
-    const int64_t m = m0 + tid;
-    rows[tid] = m < p.rows_per_group
-                    ? row_offset(p.a_map, base + m, p.geo, p.K)
-                    : -1;
-  }
-  __syncthreads();
-
-  const T* A = static_cast<const T*>(p.a);
-  const T* Bm = static_cast<const T*>(p.b);
-  const float* mean = p.a_mean ? p.a_mean + (int64_t)g * p.K : nullptr;
-  const float* mul = p.a_mean ? p.a_mul + (int64_t)g * p.K : nullptr;
-  const int tx = tid % 16, ty = tid / 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < p.K; k0 += BK) {
-#pragma unroll
-    for (int l = 0; l < (BM * BK) / GEMM_THREADS; ++l) {
-      const int e = tid + l * GEMM_THREADS;
-      const int mm = e / BK, kk = e % BK, k = k0 + kk;
-      const int64_t off = rows[mm];
-      float v = 0.f;
-      if (off >= 0 && k < p.K) {
-        v = to_float(A[off + k]);
-        if (mean) v = bn_relu6<T>(v, mean[k], mul[k], p.a_beta[k]);
-      }
-      As[kk][mm] = v;
-    }
-#pragma unroll
-    for (int l = 0; l < (BK * BN) / GEMM_THREADS; ++l) {
-      const int e = tid + l * GEMM_THREADS;
-      const int kk = e / BN, nn = e % BN, k = k0 + kk, n = n0 + nn;
-      float v = 0.f;
-      if (k < p.K && n < p.N) v = to_float(Bm[(int64_t)k * p.N + n]);
-      Bs[kk][nn] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  T* C = static_cast<T*>(p.c);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int64_t m = m0 + ty * 4 + i;
-      const int n = n0 + tx * 4 + j;
-      float s1 = 0.f, s2 = 0.f;
-      if (m < p.rows_per_group && n < p.N) {
-        const float v = round_to<T>(acc[i][j]);
-        s1 = v;
-        s2 = __fmul_rn(v, v);
-        C[(base + m) * p.N + n] = from_float<T>(v);
-      }
-      red[0][ty * 4 + i][tx * 4 + j] = s1;
-      red[1][ty * 4 + i][tx * 4 + j] = s2;
-    }
-  }
-  if (p.part == nullptr) return;
-  __syncthreads();
-  if (tid < 2 * BN) {
-    const int which = tid / BN, nn = tid % BN, n = n0 + nn;
-    float s = 0.f;
-    for (int mm = 0; mm < BM; ++mm) s += red[which][mm][nn];
-    if (n < p.N)
-      p.part[(((int64_t)which * p.ngroups + g) * p.tiles + tile) * p.N + n] = s;
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Fixed-order finishes. A CTA of (32 columns x FY lanes) reduces 32
 // consecutive columns of a (rows, len) array: lane y adds rows y, y + FY,
@@ -313,22 +185,25 @@ inline unsigned finish_blocks(int64_t len) {
 }
 
 // ---------------------------------------------------------------------------
-// The backward's four matrix products: register-tiled f32 FMA.
+// The block's matrix products, forward and backward: register-tiled f32
+// FMA.
 //
 // A CTA computes a GM x TW output tile: GM = 128 pixel rows in the data
-// products (da2, dx), 128 hidden channels in the weight products (dWp,
-// dWe); TW, the width of the thin side, is 32, 64 or 128, chosen by the
-// host per product to pad the least. Each thread holds an 8 x TN piece
-// (TN = 4, or 8 at TW = 128), rows {4ty..4ty+3, 64+4ty..64+4ty+3} and
-// columns {4tx..4tx+3 (, TW/2+4tx..)}, read from shared memory as float4s.
+// products (forward: h1, h3; backward: da2, dx), 128 hidden channels in
+// the backward's weight products (dWp, dWe); TW, the width of the thin
+// side, is 32, 64 or 128, chosen by the host per product to pad the
+// least. Each thread holds an 8 x TN piece (TN = 4, or 8 at TW = 128), rows
+// {4ty..4ty+3, 64+4ty..64+4ty+3} and columns {4tx..4tx+3 (, TW/2+4tx..)},
+// read from shared memory as float4s.
 // The operands go through GK-deep slabs. cp.async copies 16-byte chunks of
 // the sources, in the compute dtype, into one of two raw buffers, so slab
 // s + 1 is in flight while slab s is multiplied. Each thread then widens the
 // chunks it copied to f32, once per element: zero where the row map gives a
 // border or the slab runs past the data, BN + ReLU6 for a2. It writes them
 // into one of two f32 buffers in the layout the FMAs read, transposed for
-// the data products, whose operands are pixel-major (the weights too: W is
-// read row by row, coalesced, and transposed in shared memory). One
+// the data products, whose operands are pixel-major. Their weights are
+// read row by row, coalesced: the forward's are (K, N) and go in as they
+// are, the backward's are (N, K) and are transposed in shared memory. One
 // barrier per slab.
 
 constexpr int GM = 128, GK = 16;
@@ -468,16 +343,23 @@ __device__ __forceinline__ int tile_col(int tx, int j) {
   return (j >> 2) * (TW / 2) + tx * 4 + (j & 3);
 }
 
-// Data product C = A W^T over the rows of each group: A (rows, K) through
-// a row map, W (N, K) row-major. Epilogue EPI_RELU6_GRAD (da2: the ReLU6
-// gradient mask of bn2(h2) and per-tile column sums of (g, g * (h2 -
-// mu2))) or EPI_PLUS (dx: plus a residual or not).
-enum Epi { EPI_RELU6_GRAD = 1, EPI_PLUS = 2 };
+// Data product C = A W over the rows of each group, A (rows, K) through a
+// row map. KN: W is (K, N) row-major, the forward's expand and project;
+// A may be BN + ReLU6 of a stored pre-BN tensor (a2), applied as the slab
+// is widened; epilogue EPI_MOMENTS (round to T, store, per-tile column
+// sums of (v, v^2)). Else W is (N, K) row-major (C = A W^T), the
+// backward's da2 and dx; epilogue EPI_RELU6_GRAD (da2: the ReLU6 gradient
+// mask of bn2(h2) and per-tile column sums of (g, g * (h2 - mu2))) or
+// EPI_PLUS (dx: plus a residual or not).
+enum Epi { EPI_RELU6_GRAD = 1, EPI_PLUS = 2, EPI_MOMENTS = 3 };
 
-struct BwdRows {
+struct DataGemm {
   const void* a;
   int a_map;
   int K;
+  const float* a_mean;  // KN: (ngroups, K), BN + ReLU6 on load when set
+  const float* a_mul;
+  const float* a_beta;  // (K)
   const void* w;
   int N;
   int64_t rows_per_group;
@@ -485,7 +367,7 @@ struct BwdRows {
   Geo geo;
   int epi;
   void* c;      // (rows, N), T
-  float* part;  // EPI_RELU6_GRAD: (2, ngroups, tiles, N)
+  float* part;  // EPI_RELU6_GRAD, EPI_MOMENTS: (2, ngroups, tiles, N)
   const void* e_src;    // EPI_RELU6_GRAD: h2; EPI_PLUS: residual or null
   const float* e_mean;  // (ngroups, N)
   const float* e_mul;
@@ -493,32 +375,36 @@ struct BwdRows {
   int vec_a, vec_w;
   int vec_c;  // c, e_src and the e_ vectors take 4-wide accesses
   // split over K: CTA z takes k in [z * k_len, (z + 1) * k_len) and, where
-  // k_part is set (EPI_PLUS only), writes its f32 sums to k_part[z] for
-  // rows_sum to add in order
+  // k_part is set, writes its f32 sums to k_part[z] for rows_sum (EPI_PLUS)
+  // or rows_sum_moments (EPI_MOMENTS) to add in order and finish
   int k_len;
   float* k_part;  // (splits, rows, N) or null
 };
 
+// The tiles' shared memory; launch_rows adds, for KN with A's BatchNorm,
+// its k_len means, muls and betas.
 template <typename T, int TW>
 size_t rows_smem() {
   return 2 * (size_t)(GM + TW) * GK * sizeof(T) +
          2 * (size_t)GK * (GM + 4 + TW + 4) * sizeof(float);
 }
 
-template <typename T, int TW>
+template <typename T, int TW, bool KN>
 __global__ void __launch_bounds__(GemmShape<TW>::THREADS)
-    bwd_rows(BwdRows p) {
+    data_gemm(DataGemm p) {
   using S = GemmShape<TW>;
   constexpr int TN = S::TN, NT = S::THREADS;
   constexpr int CH = 16 / sizeof(T), KC = GK / CH;  // chunks per slab row
   constexpr int A_CH = GM * KC / NT;
-  constexpr int W_CH = (TW * KC + NT - 1) / NT;
+  constexpr int W_CH = (TW * KC + NT - 1) / NT;  // both layouts: TW x GK
+  constexpr int WC = TW / CH;  // KN: chunks per slab row of W
   constexpr int LDA = GM + 4, LDW = TW + 4;
   extern __shared__ __align__(16) unsigned char smem[];
   T* rawA = reinterpret_cast<T*>(smem);  // [2][GM][GK]
-  T* rawW = rawA + 2 * GM * GK;          // [2][TW][GK]
+  T* rawW = rawA + 2 * GM * GK;  // [2][TW][GK]; KN [2][GK][TW]
   float* As = reinterpret_cast<float*>(rawW + 2 * TW * GK);  // [2][GK][LDA]
   float* Ws = As + 2 * GK * LDA;                             // [2][GK][LDW]
+  float* bn = Ws + 2 * GK * LDW;  // KN with A's BN: [3][k_len]
 
   const int g = blockIdx.x / p.tiles, tile = blockIdx.x % p.tiles;
   const int m0 = tile * GM, n0 = blockIdx.y * TW;
@@ -528,6 +414,15 @@ __global__ void __launch_bounds__(GemmShape<TW>::THREADS)
   const int k_end = min(p.K, k_begin + p.k_len);
   const T* A = static_cast<const T*>(p.a);
   const T* W = static_cast<const T*>(p.w);
+  const bool bn_a = KN && p.a_mean != nullptr;
+  if (bn_a) {  // this split's channels of A's BatchNorm
+    for (int k = tid; k < k_end - k_begin; k += NT) {
+      bn[k] = p.a_mean[(int64_t)g * p.K + k_begin + k];
+      bn[p.k_len + k] = p.a_mul[(int64_t)g * p.K + k_begin + k];
+      bn[2 * p.k_len + k] = p.a_beta[k_begin + k];
+    }
+    __syncthreads();
+  }
 
   int64_t a_off[A_CH], w_off[W_CH];
 #pragma unroll
@@ -537,11 +432,15 @@ __global__ void __launch_bounds__(GemmShape<TW>::THREADS)
         m < p.rows_per_group ? source_row(p.a_map, (int)(base + m), p.geo) : -1;
     a_off[l] = r < 0 ? -1 : (int64_t)r * p.K;
   }
+  if (!KN) {
 #pragma unroll
-  for (int l = 0; l < W_CH; ++l) {
-    const int c = tid + l * NT, n = n0 + c / KC;
-    w_off[l] = c < TW * KC && n < p.N ? (int64_t)n * p.K : -1;
+    for (int l = 0; l < W_CH; ++l) {
+      const int c = tid + l * NT, n = n0 + c / KC;
+      w_off[l] = c < TW * KC && n < p.N ? (int64_t)n * p.K : -1;
+    }
   }
+  // KN: the offset of W's row k0 + kk, -1 past the split's end
+  auto kn_off = [&](int k) { return k < k_end ? (int64_t)k * p.N : -1; };
 
   auto issue = [&](int k0, int buf) {
 #pragma unroll
@@ -553,13 +452,20 @@ __global__ void __launch_bounds__(GemmShape<TW>::THREADS)
 #pragma unroll
     for (int l = 0; l < W_CH; ++l) {
       const int c = tid + l * NT;
-      if (c < TW * KC)
+      if (c >= TW * KC) continue;
+      if (KN) {
+        const int kk = c / WC, nc = (c % WC) * CH;
+        stage(rawW + (buf * GK + kk) * TW + nc, W, kn_off(k0 + kk), n0 + nc,
+              p.N, p.vec_w);
+      } else {
         stage(rawW + (buf * TW + c / KC) * GK + (c % KC) * CH, W, w_off[l],
               k0 + (c % KC) * CH, k_end, p.vec_w);
+      }
     }
     cp_async_commit();
   };
-  // widen, zero what is not data, transpose to [k][row]
+  // widen, zero what is not data, BN + ReLU6 where asked, transpose A (and
+  // the backward's W) to [k][row]
   auto convert = [&](int k0, int buf) {
 #pragma unroll
     for (int l = 0; l < A_CH; ++l) {
@@ -567,21 +473,38 @@ __global__ void __launch_bounds__(GemmShape<TW>::THREADS)
       float v[CH];
       load_chunk(rawA + (buf * GM + m) * GK + kc, v);
 #pragma unroll
-      for (int e = 0; e < CH; ++e)
-        As[(buf * GK + kc + e) * LDA + m] =
-            stage_valid(a_off[l], k0 + kc + e, k_end) ? v[e] : 0.f;
+      for (int e = 0; e < CH; ++e) {
+        const int k = k0 + kc + e, j = k - k_begin;
+        float u = 0.f;
+        if (stage_valid(a_off[l], k, k_end))
+          u = bn_a ? bn_relu6<T>(v[e], bn[j], bn[p.k_len + j],
+                                 bn[2 * p.k_len + j])
+                   : v[e];
+        As[(buf * GK + kc + e) * LDA + m] = u;
+      }
     }
 #pragma unroll
     for (int l = 0; l < W_CH; ++l) {
       const int c = tid + l * NT;
       if (c >= TW * KC) continue;
-      const int n = c / KC, kc = (c % KC) * CH;
       float v[CH];
-      load_chunk(rawW + (buf * TW + n) * GK + kc, v);
+      if (KN) {
+        const int kk = c / WC, nc = (c % WC) * CH;
+        const int64_t off = kn_off(k0 + kk);
+        const int at = (buf * GK + kk) * TW + nc;
+        load_chunk(rawW + at, v);
 #pragma unroll
-      for (int e = 0; e < CH; ++e)
-        Ws[(buf * GK + kc + e) * LDW + n] =
-            stage_valid(w_off[l], k0 + kc + e, k_end) ? v[e] : 0.f;
+        for (int e = 0; e < CH; ++e)
+          if (!stage_valid(off, n0 + nc + e, p.N)) v[e] = 0.f;
+        store_f32<CH>(Ws + (buf * GK + kk) * LDW + nc, v);
+      } else {
+        const int n = c / KC, kc = (c % KC) * CH;
+        load_chunk(rawW + (buf * TW + n) * GK + kc, v);
+#pragma unroll
+        for (int e = 0; e < CH; ++e)
+          Ws[(buf * GK + kc + e) * LDW + n] =
+              stage_valid(w_off[l], k0 + kc + e, k_end) ? v[e] : 0.f;
+      }
     }
   };
 
@@ -607,7 +530,7 @@ __global__ void __launch_bounds__(GemmShape<TW>::THREADS)
                      tx, acc);
   }
 
-  if (p.k_part) {  // this split's sums, for rows_sum
+  if (p.k_part) {  // this split's sums, for rows_sum or rows_sum_moments
     float* out = p.k_part + (int64_t)blockIdx.z * p.ngroups *
                                 p.rows_per_group * p.N;
 #pragma unroll
@@ -624,15 +547,19 @@ __global__ void __launch_bounds__(GemmShape<TW>::THREADS)
   }
   T* C = static_cast<T*>(p.c);
   const T* E = static_cast<const T*>(p.e_src);
+  const bool relu6_grad_epi = !KN && p.epi == EPI_RELU6_GRAD;
   float cs1[TN], cs2[TN];
 #pragma unroll
   for (int j = 0; j < TN; ++j) cs1[j] = cs2[j] = 0.f;
-  // one output: round, then the ReLU6-gradient mask and its sums, or the
-  // residual
+  // one output: round, then its moments' sums (KN), or the ReLU6-gradient
+  // mask and its sums, or the residual
   auto finish = [&](float a, float h, float mean, float mul, float beta,
                     int j) {
     float v = round_to<T>(a);
-    if (p.epi == EPI_RELU6_GRAD) {
+    if (KN) {
+      cs1[j] += v;
+      cs2[j] += __fmul_rn(v, v);
+    } else if (relu6_grad_epi) {
       v = __fmul_rn(v, relu6_grad(round_to<T>(bn_apply(h, mean, mul, beta))));
       cs1[j] += v;
       cs2[j] += __fmul_rn(v, __fsub_rn(h, mean));
@@ -652,8 +579,8 @@ __global__ void __launch_bounds__(GemmShape<TW>::THREADS)
       const int64_t gq = (int64_t)g * p.N + nq;
       if (p.vec_c && nq + 3 < p.N) {  // four columns at once
         float v[4], h[4] = {}, mean[4] = {}, mul[4] = {}, beta[4] = {};
-        if (E) load4(E + row + nq, h);
-        if (p.epi == EPI_RELU6_GRAD) {
+        if (!KN && E) load4(E + row + nq, h);
+        if (relu6_grad_epi) {
           load4(p.e_mean + gq, mean);
           load4(p.e_mul + gq, mul);
           load4(p.e_beta + nq, beta);
@@ -669,16 +596,16 @@ __global__ void __launch_bounds__(GemmShape<TW>::THREADS)
       for (int k = 0; k < 4; ++k) {
         const int n = nq + k;
         if (n >= p.N) continue;
-        const bool bn = p.epi == EPI_RELU6_GRAD;
         const float v =
-            finish(acc[i][4 * q + k], E ? to_float(E[row + n]) : 0.f,
-                   bn ? p.e_mean[gq + k] : 0.f, bn ? p.e_mul[gq + k] : 0.f,
-                   bn ? p.e_beta[n] : 0.f, 4 * q + k);
+            finish(acc[i][4 * q + k], !KN && E ? to_float(E[row + n]) : 0.f,
+                   relu6_grad_epi ? p.e_mean[gq + k] : 0.f,
+                   relu6_grad_epi ? p.e_mul[gq + k] : 0.f,
+                   relu6_grad_epi ? p.e_beta[n] : 0.f, 4 * q + k);
         C[row + n] = from_float<T>(v);
       }
     }
   }
-  if (p.epi != EPI_RELU6_GRAD) return;
+  if (!KN && !relu6_grad_epi) return;
   // column sums over the tile's rows: each thread's 8 rows, then the 16
   // row groups in order (As is free: every thread is past its last FMA)
   __syncthreads();
@@ -712,6 +639,44 @@ __global__ void rows_sum(const float* __restrict__ part, int splits,
   v = round_to<T>(v);
   if (res) v = round_to<T>(__fadd_rn(v, to_float(res[idx])));
   c[idx] = from_float<T>(v);
+}
+
+// The forward's data product split over K: the splits added in order, then
+// its epilogue (EPI_MOMENTS): c = T(sum) and the column sums of (v, v^2)
+// over tiles of FY rows (many small CTAs: the split's grids are the small
+// ones). A CTA of (FX columns x FY lanes) per tile and FX columns: lane y
+// takes the tile's row y, and lanes 0 and 1 add the FY lanes' sums in
+// order.
+template <typename T>
+__global__ void __launch_bounds__(FX * FY)
+    rows_sum_moments(const float* __restrict__ part, int splits,
+                     int64_t rows_per_group, int N, int ngroups, int tiles,
+                     T* __restrict__ c, float* __restrict__ tile_part) {
+  __shared__ float red[2][FY][FX];
+  const int g = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  const int n = blockIdx.y * FX + threadIdx.x;
+  const int64_t m = (int64_t)tile * FY + threadIdx.y;
+  const int64_t total = (int64_t)ngroups * rows_per_group * N;
+  float s1 = 0.f, s2 = 0.f;
+  if (n < N && m < rows_per_group) {
+    const int64_t idx = ((int64_t)g * rows_per_group + m) * N + n;
+    float v = 0.f;
+#pragma unroll 4
+    for (int z = 0; z < splits; ++z) v += part[z * total + idx];
+    v = round_to<T>(v);
+    c[idx] = from_float<T>(v);
+    s1 = v;
+    s2 = __fmul_rn(v, v);
+  }
+  red[0][threadIdx.y][threadIdx.x] = s1;
+  red[1][threadIdx.y][threadIdx.x] = s2;
+  __syncthreads();
+  if (threadIdx.y < 2 && n < N) {
+    float s = 0.f;
+    for (int y = 0; y < FY; ++y) s += red[threadIdx.y][y][threadIdx.x];
+    tile_part[(((int64_t)threadIdx.y * ngroups + g) * tiles + tile) * N + n] =
+        s;
+  }
 }
 
 // Weight product, split over pixel chunks: part[s][m * ld_m + n * ld_n] =
@@ -916,50 +881,98 @@ __device__ __forceinline__ void store_tile_sums(float (*red)[PY][CW], float s1,
   }
 }
 
-// h2 = T(sum over taps of relu6(T(bn1(h1))) * wd), with its tile sums
+// h2 = T(sum over taps of relu6(T(bn1(h1))) * wd), with its tile sums. A
+// CTA takes a DF_ROWS x DF_COLS tile of one image's pixels and CW channels
+// (tile = image in the group, then tile row, then tile column). It stages
+// a1 = relu6(T(bn1(h1))) of the tile and its d-wide halo, read from the
+// padded h1, in shared memory once per element; lane y then computes
+// output row y of the tile, its DF_COLS pixels in order, each from nine
+// taps there. The tile's sums: each lane's pixels in order, then the lanes
+// in order.
 template <typename T>
 __global__ void __launch_bounds__(CW * PY) dw_forward(DwArgs p) {
+  extern __shared__ float a1[];  // [DF_ROWS + 2d][DF_COLS + 2d][CW]
   __shared__ float red[2][PY][CW];
+  const int H = p.geo.H, W = p.geo.W, d = p.geo.d;
+  const int hp = H + 2 * d, wp = W + 2 * d;
+  const int tiles_x = (W + DF_COLS - 1) / DF_COLS;
+  const int per_image = (H + DF_ROWS - 1) / DF_ROWS * tiles_x;
   const int g = blockIdx.x / p.tiles, tile = blockIdx.x % p.tiles;
+  const int b = g * (int)(p.rows_per_group / (H * W)) + tile / per_image;
+  const int t = tile % per_image;
+  const int y0 = t / tiles_x * DF_ROWS, x0 = t % tiles_x * DF_COLS;
+  const int sw = DF_COLS + 2 * d, n_stage = (DF_ROWS + 2 * d) * sw;
   const int c = blockIdx.y * CW + threadIdx.x;
-  const int hp = p.geo.H + 2 * p.geo.d, wp = p.geo.W + 2 * p.geo.d;
-  const int d = p.geo.d;
+  const bool live = c < p.C;
+  const T* h1 = static_cast<const T*>(p.h1);
+  float mu = 0.f, mul = 0.f, beta = 0.f;
+  if (live) {
+    const int64_t gi = (int64_t)g * p.C + c;
+    mu = p.mean1[gi];
+    mul = p.mul1[gi];
+    beta = p.beta1[c];
+  }
+  // Lane y stages pixels y, y + PY, ... of the staged tile: (ry, rx)
+  // walks them without a division (PY < sw), DF_LOADS loads in flight
+  // before their conversions and stores; 32-bit pixel indices (every pixel
+  // index of a block fits).
+  int ry = threadIdx.y / sw, rx = threadIdx.y % sw;
+  for (int q0 = threadIdx.y; q0 < n_stage; q0 += DF_LOADS * PY) {
+    float h[DF_LOADS];
+    bool in[DF_LOADS];
+#pragma unroll
+    for (int u = 0; u < DF_LOADS; ++u) {
+      const int yy = y0 + ry, xx = x0 + rx;
+      in[u] = live && q0 + u * PY < n_stage && yy < hp && xx < wp;
+      h[u] = in[u] ? to_float(h1[(int64_t)((b * hp + yy) * wp + xx) * p.C +
+                                 c])
+                   : 0.f;
+      rx += PY;
+      if (rx >= sw) {
+        rx -= sw;
+        ++ry;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < DF_LOADS; ++u) {
+      const int q = q0 + u * PY;
+      if (q < n_stage)
+        a1[q * CW + threadIdx.x] =
+            in[u] ? bn_relu6<T>(h[u], mu, mul, beta) : 0.f;
+    }
+  }
+  __syncthreads();
   float s1 = 0.f, s2 = 0.f;
-  if (c < p.C) {
+  const int y = y0 + threadIdx.y;
+  if (live && y < H) {
     const T* wd = static_cast<const T*>(p.wd);
-    const T* h1 = static_cast<const T*>(p.h1);
     T* h2 = static_cast<T*>(p.out);
     float w[9];
 #pragma unroll
-    for (int t = 0; t < 9; ++t) w[t] = to_float(wd[t * p.C + c]);
-    const int64_t gi = (int64_t)g * p.C + c;
-    const float mu = p.mean1[gi], mul = p.mul1[gi], beta = p.beta1[c];
-    const int64_t plane = (int64_t)p.geo.H * p.geo.W;
-    for (int q = threadIdx.y; q < TP; q += PY) {
-      const int64_t m = (int64_t)tile * TP + q;
-      if (m >= p.rows_per_group) break;
-      const int64_t r = (int64_t)g * p.rows_per_group + m;
-      const int64_t b = r / plane;
-      const int rem = (int)(r - b * plane);
-      const int y = rem / p.geo.W, x = rem % p.geo.W;
-      const T* src = h1 + ((b * hp + y) * wp + x) * p.C + c;
+    for (int k = 0; k < 9; ++k) w[k] = to_float(wd[k * p.C + c]);
+    const float* row = a1 + threadIdx.y * sw * CW + threadIdx.x;
+#pragma unroll 4
+    for (int j = 0; j < DF_COLS; ++j) {
+      const int x = x0 + j;
+      if (x >= W) break;
       float acc = 0.f;
 #pragma unroll
       for (int ky = 0; ky < 3; ++ky)
 #pragma unroll
-        for (int kx = 0; kx < 3; ++kx) {
-          const float a = bn_relu6<T>(
-              to_float(src[((int64_t)ky * d * wp + kx * d) * p.C]), mu, mul,
-              beta);
-          acc = __fadd_rn(acc, __fmul_rn(a, w[ky * 3 + kx]));
-        }
+        for (int kx = 0; kx < 3; ++kx)
+          acc = __fadd_rn(acc, __fmul_rn(row[(ky * d * sw + j + kx * d) * CW],
+                                         w[ky * 3 + kx]));
       const float v = round_to<T>(acc);
-      h2[r * p.C + c] = from_float<T>(v);
+      h2[(int64_t)((b * H + y) * W + x) * p.C + c] = from_float<T>(v);
       s1 += v;
       s2 += __fmul_rn(v, v);
     }
   }
   store_tile_sums<T>(red, s1, s2, p, g, tile, c);
+}
+
+inline size_t dw_forward_smem(int d) {
+  return (size_t)(DF_ROWS + 2 * d) * (DF_COLS + 2 * d) * CW * sizeof(float);
 }
 
 // Over the padded domain: da1 = the sum of dh2 at the taps that read this
@@ -1107,21 +1120,33 @@ __global__ void __launch_bounds__(CW * PY)
 }
 
 // mean, var (fast variance), mul = rsqrt(var + eps) * gamma and the tie
-// factor of max(0, z) per (group, channel), from the tile sums in order.
-__global__ void moments_finish(const float* __restrict__ part, int ngroups,
-                               int tiles, int C, float count,
-                               const float* __restrict__ gamma,
-                               float* __restrict__ mean,
-                               float* __restrict__ var, float* __restrict__ mul,
-                               float* __restrict__ tie) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (int64_t)ngroups * C) return;
-  const int g = (int)(idx / C), c = (int)(idx % C);
+// factor of max(0, z) per (group, channel), from the tile sums in a fixed
+// order: a CTA of (FX channels x FY lanes) per 32 channels and group, lane
+// y adds the tiles y, y + FY, ... in order and lane 0 adds the lanes in
+// order.
+__global__ void __launch_bounds__(FX * FY)
+    moments_finish(const float* __restrict__ part, int ngroups, int tiles,
+                   int C, float count, const float* __restrict__ gamma,
+                   float* __restrict__ mean, float* __restrict__ var,
+                   float* __restrict__ mul, float* __restrict__ tie) {
+  __shared__ float red[2][FY][FX];
+  const int c = blockIdx.x * FX + threadIdx.x, g = blockIdx.y;
   float s1 = 0.f, s2 = 0.f;
-  for (int t = 0; t < tiles; ++t) {
-    s1 += part[((int64_t)g * tiles + t) * C + c];
-    s2 += part[(((int64_t)ngroups + g) * tiles + t) * C + c];
+  if (c < C)
+    for (int t = threadIdx.y; t < tiles; t += FY) {
+      s1 += part[((int64_t)g * tiles + t) * C + c];
+      s2 += part[(((int64_t)ngroups + g) * tiles + t) * C + c];
+    }
+  red[0][threadIdx.y][threadIdx.x] = s1;
+  red[1][threadIdx.y][threadIdx.x] = s2;
+  __syncthreads();
+  if (threadIdx.y != 0 || c >= C) return;
+  s1 = s2 = 0.f;
+  for (int y = 0; y < FY; ++y) {
+    s1 += red[0][y][threadIdx.x];
+    s2 += red[1][y][threadIdx.x];
   }
+  const int64_t idx = (int64_t)g * C + c;
   const float mu = __fdiv_rn(s1, count), m2 = __fdiv_rn(s2, count);
   const float z = __fsub_rn(m2, __fmul_rn(mu, mu));
   const float v = fmaxf(0.f, z);
@@ -1225,8 +1250,14 @@ struct Dims {
   int wp() const { return W + 2 * d; }
   int64_t rpg1() const { return (int64_t)group * hp() * wp(); }  // padded
   int64_t rpg() const { return (int64_t)group * H * W; }
-  int tiles1() const { return (int)((rpg1() + BM - 1) / BM); }
-  int tiles() const { return (int)((rpg() + BM - 1) / BM); }
+  // tiles of the backward's depthwise and elementwise phases
+  int tiles1() const { return (int)((rpg1() + TP - 1) / TP); }
+  int tiles() const { return (int)((rpg() + TP - 1) / TP); }
+  // the depthwise forward's DF_ROWS x DF_COLS tiles of a group
+  int dw_tiles() const {
+    return group * ((H + DF_ROWS - 1) / DF_ROWS) *
+           ((W + DF_COLS - 1) / DF_COLS);
+  }
   int splits() const { return (int)((rpg() + SPLIT_ROWS - 1) / SPLIT_ROWS); }
   Geo geo() const { return Geo{H, W, d}; }
 };
@@ -1249,32 +1280,15 @@ struct Stage {
 };
 
 // What the forward keeps in its workspace: the pre-BN hidden tensors and,
-// per stage, the tile sums, mul and tie (mean and var are the caller's six
-// moment outputs). The backward reads it and never writes it.
+// per stage, the tile sums (stages 1 and 3 over sum_tiles, stage 2 over
+// the depthwise's pixel tiles), mul and tie (mean and var are the caller's
+// six moment outputs). The backward reads it and never writes it.
 struct Work {
   void *h1, *h2, *h3;
   Stage s1, s2, s3;
 };
 
-Work carve_forward(Carver& cv, const Dims& D, size_t item,
-                   float* const stats[6]) {
-  Work w{};
-  const int ng = D.ng();
-  w.h1 = cv.take<char>((int64_t)D.B * D.hp() * D.wp() * D.Ch, item);
-  w.h2 = cv.take<char>((int64_t)D.B * D.H * D.W * D.Ch, item);
-  w.h3 = cv.take<char>((int64_t)D.B * D.H * D.W * D.Cout, item);
-  const int cs[3] = {D.Ch, D.Ch, D.Cout};
-  const int ts[3] = {D.tiles1(), D.tiles(), D.tiles()};
-  Stage* st[3] = {&w.s1, &w.s2, &w.s3};
-  for (int k = 0; k < 3; ++k) {
-    st[k]->part = cv.take<float>(2LL * ng * ts[k] * cs[k]);
-    st[k]->mean = stats[2 * k];
-    st[k]->var = stats[2 * k + 1];
-    st[k]->mul = cv.take<float>((int64_t)ng * cs[k]);
-    st[k]->tie = cv.take<float>((int64_t)ng * cs[k]);
-  }
-  return w;
-}
+int tiles_of(int64_t rows) { return (int)((rows + GM - 1) / GM); }
 
 // The tile width of a product's thin side: the one of 32, 64, 128 that pads
 // `n` the least, the wider on a tie.
@@ -1290,8 +1304,6 @@ int pick_width(int n) {
   }
   return best;
 }
-
-int tiles_of(int64_t rows) { return (int)((rows + GM - 1) / GM); }
 
 // One wave of a product's CTAs: the H100's 132 SMs times the CTAs of that
 // tile width an SM holds at once (by their registers and shared memory:
@@ -1326,16 +1338,16 @@ WgradPlan wgrad_plan(const Dims& D, int m, int n) {
   return w;
 }
 
-// A data product's plan. Its tile width: of the widths that pad N the
-// least, the widest whose grid still gives every SM a CTA, else the
-// narrowest. Where its CTAs would not fill half a wave, a split over K
-// into runs of at least 4 slabs, summed in order.
+// A data product's plan over `row_tiles` tiles of GM rows. Its tile
+// width: of the widths that pad N the least, the widest whose grid still
+// gives every SM a CTA, else the narrowest. Where its CTAs would not fill
+// half a wave, a split over K into runs of at least 4 slabs, summed in
+// order.
 struct RowsPlan {
   int tw, splits, k_len;
 };
 
-RowsPlan rows_plan(const Dims& D, int K, int N, bool may_split) {
-  const int64_t row_tiles = (int64_t)D.ng() * tiles_of(D.rpg());
+RowsPlan rows_plan(int64_t row_tiles, int K, int N, bool may_split) {
   const int least = (N + pick_width(N) - 1) / pick_width(N) * pick_width(N);
   RowsPlan r{0, 1, K};
   for (int w : {128, 64, 32}) {
@@ -1352,6 +1364,60 @@ RowsPlan rows_plan(const Dims& D, int K, int N, bool may_split) {
   r.k_len = (int)(((K + splits - 1) / splits + GK - 1) / GK * GK);
   r.splits = (K + r.k_len - 1) / r.k_len;
   return r;
+}
+
+// The backward's data products, over the image.
+RowsPlan da2_plan(const Dims& D) {
+  return rows_plan((int64_t)D.ng() * tiles_of(D.rpg()), D.Cout, D.Ch, false);
+}
+RowsPlan dx_plan(const Dims& D) {
+  return rows_plan((int64_t)D.ng() * tiles_of(D.rpg()), D.Ch, D.Cin, true);
+}
+
+// The forward's two products: the expand over the padded domain, the
+// project over the image.
+RowsPlan expand_plan(const Dims& D) {
+  return rows_plan((int64_t)D.ng() * tiles_of(D.rpg1()), D.Cin, D.Ch, true);
+}
+RowsPlan project_plan(const Dims& D) {
+  return rows_plan((int64_t)D.ng() * tiles_of(D.rpg()), D.Ch, D.Cout, true);
+}
+
+// The tiles of a forward product's tile sums: its GM-row tiles, or, split
+// over its depth, rows_sum_moments' FY-row tiles.
+int sum_tiles(const RowsPlan& r, int64_t rows) {
+  return r.splits > 1 ? (int)((rows + FY - 1) / FY) : tiles_of(rows);
+}
+
+Work carve_forward(Carver& cv, const Dims& D, size_t item,
+                   float* const stats[6]) {
+  Work w{};
+  const int ng = D.ng();
+  w.h1 = cv.take<char>((int64_t)D.B * D.hp() * D.wp() * D.Ch, item);
+  w.h2 = cv.take<char>((int64_t)D.B * D.H * D.W * D.Ch, item);
+  w.h3 = cv.take<char>((int64_t)D.B * D.H * D.W * D.Cout, item);
+  const int cs[3] = {D.Ch, D.Ch, D.Cout};
+  const int ts[3] = {sum_tiles(expand_plan(D), D.rpg1()), D.dw_tiles(),
+                     sum_tiles(project_plan(D), D.rpg())};
+  Stage* st[3] = {&w.s1, &w.s2, &w.s3};
+  for (int k = 0; k < 3; ++k) {
+    st[k]->part = cv.take<float>(2LL * ng * ts[k] * cs[k]);
+    st[k]->mean = stats[2 * k];
+    st[k]->var = stats[2 * k + 1];
+    st[k]->mul = cv.take<float>((int64_t)ng * cs[k]);
+    st[k]->tie = cv.take<float>((int64_t)ng * cs[k]);
+  }
+  return w;
+}
+
+// The forward's scratch, free again when the call returns: the f32 sums of
+// a product split over its depth.
+float* carve_forward_scratch(Carver& cv, const Dims& D) {
+  const RowsPlan e = expand_plan(D), p = project_plan(D);
+  const int64_t need[2] = {
+      e.splits > 1 ? (int64_t)e.splits * D.B * D.hp() * D.wp() * D.Ch : 0,
+      p.splits > 1 ? (int64_t)p.splits * D.B * D.H * D.W * D.Cout : 0};
+  return cv.take<float>(std::max(need[0], need[1]));
 }
 
 // The backward's own scratch: per stage the gradient tile sums and the
@@ -1379,7 +1445,7 @@ Back carve_backward(Carver& cv, const Dims& D, size_t item) {
   w.mg3 = cv.take<float>((int64_t)ng * D.Cout);
   w.cf3 = cv.take<float>((int64_t)ng * D.Cout);
   // partial products of dWp, dwd, dWe and dx in turn
-  const RowsPlan dxp = rows_plan(D, D.Ch, D.Cin, true);
+  const RowsPlan dxp = dx_plan(D);
   const int64_t need[4] = {
       (int64_t)ng * wgrad_plan(D, D.Ch, D.Cout).splits * D.Ch * D.Cout,
       (int64_t)ng * D.splits() * 9 * D.Ch,
@@ -1407,7 +1473,7 @@ int vec_ok(const void* p, int ld, size_t item) {
 
 // Whether a data product's epilogue can read and write four columns at
 // once: N a multiple of 4 and every pointer it touches aligned to that.
-int vec_out(const BwdRows& p, size_t item) {
+int vec_out(const DataGemm& p, size_t item) {
   auto at = [](const void* q, size_t n) {
     return q == nullptr || reinterpret_cast<uintptr_t>(q) % n == 0;
   };
@@ -1415,31 +1481,42 @@ int vec_out(const BwdRows& p, size_t item) {
          at(p.e_mean, 16) && at(p.e_mul, 16) && at(p.e_beta, 16);
 }
 
-template <typename T, int TW>
-cudaError_t launch_rows(const BwdRows& p, int splits, cudaStream_t st) {
-  const size_t smem = rows_smem<T, TW>();
-  PP_CHECK(cudaFuncSetAttribute(bwd_rows<T, TW>,
+template <typename T, int TW, bool KN>
+cudaError_t launch_rows(const DataGemm& p, int splits, cudaStream_t st) {
+  const size_t smem = rows_smem<T, TW>() +
+                      (KN && p.a_mean ? 3 * (size_t)p.k_len * sizeof(float)
+                                      : 0);
+  PP_CHECK(cudaFuncSetAttribute(data_gemm<T, TW, KN>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)smem));
-  bwd_rows<T, TW><<<dim3(p.ngroups * p.tiles, (p.N + TW - 1) / TW, splits),
-                    GemmShape<TW>::THREADS, smem, st>>>(p);
+  data_gemm<T, TW, KN>
+      <<<dim3(p.ngroups * p.tiles, (p.N + TW - 1) / TW, splits),
+         GemmShape<TW>::THREADS, smem, st>>>(p);
   return cudaGetLastError();
 }
 
-// The data product as `plan` says; a split over K goes through `scratch`
-// and rows_sum.
-template <typename T>
-cudaError_t data_product(BwdRows p, const RowsPlan& plan, float* scratch,
+// The data product as `plan` says (KN: the forward's, W (K, N)); a split
+// over K goes through `scratch` and rows_sum_moments (KN) or rows_sum.
+template <typename T, bool KN>
+cudaError_t data_product(DataGemm p, const RowsPlan& plan, float* scratch,
                          cudaStream_t st) {
-  p.tiles = (int)((p.rows_per_group + GM - 1) / GM);
+  p.tiles = tiles_of(p.rows_per_group);
   p.k_len = plan.k_len;
   p.k_part = plan.splits > 1 ? scratch : nullptr;
   switch (plan.tw) {
-    case 32: PP_CHECK((launch_rows<T, 32>(p, plan.splits, st))); break;
-    case 64: PP_CHECK((launch_rows<T, 64>(p, plan.splits, st))); break;
-    default: PP_CHECK((launch_rows<T, 128>(p, plan.splits, st))); break;
+    case 32: PP_CHECK((launch_rows<T, 32, KN>(p, plan.splits, st))); break;
+    case 64: PP_CHECK((launch_rows<T, 64, KN>(p, plan.splits, st))); break;
+    default: PP_CHECK((launch_rows<T, 128, KN>(p, plan.splits, st))); break;
   }
   if (plan.splits == 1) return cudaSuccess;
+  if (KN) {
+    const int tiles = sum_tiles(plan, p.rows_per_group);
+    rows_sum_moments<T><<<dim3(p.ngroups * tiles, finish_blocks(p.N)),
+                          dim3(FX, FY), 0, st>>>(
+        scratch, plan.splits, p.rows_per_group, p.N, p.ngroups, tiles,
+        static_cast<T*>(p.c), p.part);
+    return cudaGetLastError();
+  }
   const int64_t total = (int64_t)p.ngroups * p.rows_per_group * p.N;
   rows_sum<T><<<blocks_for(total, EW_THREADS), EW_THREADS, 0, st>>>(
       scratch, plan.splits, total, static_cast<const T*>(p.e_src),
@@ -1486,49 +1563,57 @@ cudaError_t weight_product(const BwdWgrad& p, int tw, float* out,
 cudaError_t finish_moments(const Stage& s, int ng, int tiles, int C,
                            int64_t count, const float* gamma,
                            cudaStream_t st) {
-  moments_finish<<<blocks_for((int64_t)ng * C, 128), 128, 0, st>>>(
+  moments_finish<<<dim3(finish_blocks(C), ng), dim3(FX, FY), 0, st>>>(
       s.part, ng, tiles, C, (float)count, gamma, s.mean, s.var, s.mul, s.tie);
   return cudaGetLastError();
 }
 
 // The forward phases up to h3 and its moments.
 template <typename T>
-cudaError_t forward_phases(const Dims& D, const Work& w, const void* x,
-                           const void* we, const void* wd, const void* wp,
-                           const float* g1, const float* b1, const float* g2,
-                           const float* b2, const float* g3, cudaStream_t st) {
+cudaError_t forward_phases(const Dims& D, const Work& w, float* scratch,
+                           const void* x, const void* we, const void* wd,
+                           const void* wp, const float* g1, const float* b1,
+                           const float* g2, const float* b2, const float* g3,
+                           cudaStream_t st) {
   const int ng = D.ng();
-  // 1. expand over the padded domain
-  RowGemm e{};
+  const size_t item = sizeof(T);
+  // 1. expand over the padded domain, with its tile sums
+  DataGemm e{};
   e.a = x; e.a_map = ROW_PAD_FROM_X; e.K = D.Cin;
-  e.b = we; e.N = D.Ch;
-  e.rows_per_group = D.rpg1(); e.ngroups = ng; e.tiles = D.tiles1();
-  e.geo = D.geo(); e.c = w.h1; e.part = w.s1.part;
-  row_gemm<T><<<dim3(ng * D.tiles1(), (D.Ch + BN - 1) / BN), GEMM_THREADS,
-                0, st>>>(e);
-  PP_CHECK(cudaGetLastError());
-  PP_CHECK(finish_moments(w.s1, ng, D.tiles1(), D.Ch, D.rpg1(), g1, st));
+  e.w = we; e.N = D.Ch;
+  e.rows_per_group = D.rpg1(); e.ngroups = ng; e.geo = D.geo();
+  e.epi = EPI_MOMENTS; e.c = w.h1; e.part = w.s1.part;
+  e.vec_a = vec_ok(x, D.Cin, item); e.vec_w = vec_ok(we, D.Ch, item);
+  e.vec_c = vec_out(e, item);
+  PP_CHECK((data_product<T, true>(e, expand_plan(D), scratch, st)));
+  PP_CHECK(finish_moments(w.s1, ng, sum_tiles(expand_plan(D), D.rpg1()), D.Ch,
+                          D.rpg1(), g1, st));
   // 2. depthwise with BN1 + ReLU6 on load
   DwArgs a{};
   a.h1 = w.h1; a.wd = wd; a.mean1 = w.s1.mean; a.mul1 = w.s1.mul;
   a.beta1 = b1; a.out = w.h2; a.part = w.s2.part; a.C = D.Ch;
-  a.rows_per_group = D.rpg(); a.ngroups = ng; a.tiles = D.tiles();
+  a.rows_per_group = D.rpg(); a.ngroups = ng; a.tiles = D.dw_tiles();
   a.geo = D.geo();
-  dw_forward<T><<<dim3(ng * D.tiles(), (D.Ch + CW - 1) / CW), dim3(CW, PY),
-                  0, st>>>(a);
+  const size_t smem = dw_forward_smem(D.d);
+  PP_CHECK(cudaFuncSetAttribute(dw_forward<T>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem));
+  dw_forward<T><<<dim3(ng * D.dw_tiles(), (D.Ch + CW - 1) / CW),
+                  dim3(CW, PY), smem, st>>>(a);
   PP_CHECK(cudaGetLastError());
-  PP_CHECK(finish_moments(w.s2, ng, D.tiles(), D.Ch, D.rpg(), g2, st));
-  // 3. project with BN2 + ReLU6 on load
-  RowGemm pj{};
+  PP_CHECK(finish_moments(w.s2, ng, D.dw_tiles(), D.Ch, D.rpg(), g2, st));
+  // 3. project with BN2 + ReLU6 on load, with its tile sums
+  DataGemm pj{};
   pj.a = w.h2; pj.a_map = ROW_DIRECT; pj.K = D.Ch;
   pj.a_mean = w.s2.mean; pj.a_mul = w.s2.mul; pj.a_beta = b2;
-  pj.b = wp; pj.N = D.Cout;
-  pj.rows_per_group = D.rpg(); pj.ngroups = ng; pj.tiles = D.tiles();
-  pj.geo = D.geo(); pj.c = w.h3; pj.part = w.s3.part;
-  row_gemm<T><<<dim3(ng * D.tiles(), (D.Cout + BN - 1) / BN), GEMM_THREADS,
-                0, st>>>(pj);
-  PP_CHECK(cudaGetLastError());
-  return finish_moments(w.s3, ng, D.tiles(), D.Cout, D.rpg(), g3, st);
+  pj.w = wp; pj.N = D.Cout;
+  pj.rows_per_group = D.rpg(); pj.ngroups = ng; pj.geo = D.geo();
+  pj.epi = EPI_MOMENTS; pj.c = w.h3; pj.part = w.s3.part;
+  pj.vec_a = vec_ok(w.h2, D.Ch, item); pj.vec_w = vec_ok(wp, D.Cout, item);
+  pj.vec_c = vec_out(pj, item);
+  PP_CHECK((data_product<T, true>(pj, project_plan(D), scratch, st)));
+  return finish_moments(w.s3, ng, sum_tiles(project_plan(D), D.rpg()), D.Cout,
+                        D.rpg(), g3, st);
 }
 
 template <typename T>
@@ -1537,9 +1622,12 @@ cudaError_t run_forward(const void* const* P, const Dims& D, cudaStream_t st) {
   for (int k = 0; k < 6; ++k) stats[k] = (float*)P[11 + k];
   Carver cv{(char*)P[17]};
   const Work w = carve_forward(cv, D, sizeof(T), stats);
-  PP_CHECK(forward_phases<T>(D, w, P[0], P[1], P[2], P[3], (const float*)P[4],
-                             (const float*)P[5], (const float*)P[6],
-                             (const float*)P[7], (const float*)P[8], st));
+  Carver sv{(char*)P[18]};
+  float* scratch = carve_forward_scratch(sv, D);
+  PP_CHECK(forward_phases<T>(D, w, scratch, P[0], P[1], P[2], P[3],
+                             (const float*)P[4], (const float*)P[5],
+                             (const float*)P[6], (const float*)P[7],
+                             (const float*)P[8], st));
   const int64_t total = (int64_t)D.B * D.H * D.W * D.Cout;
   bn_output<T><<<blocks_for(total, EW_THREADS), EW_THREADS, 0, st>>>(
       (const T*)w.h3, D.use_res ? (const T*)P[0] : nullptr, (T*)P[10],
@@ -1596,7 +1684,7 @@ cudaError_t run_backward(const void* const* P, const Dims& D,
   PP_CHECK(weight_product<T>(gp, pp.tw, dwp, st));
 
   // da2 = dh3 Wp^T, masked by relu6'(T(bn2(h2))), with BN2's gradient sums
-  BwdRows da{};
+  DataGemm da{};
   da.a = w.dh3; da.a_map = ROW_DIRECT; da.K = D.Cout;
   da.w = wp; da.N = D.Ch;
   da.rows_per_group = D.rpg(); da.ngroups = ng;
@@ -1605,8 +1693,7 @@ cudaError_t run_backward(const void* const* P, const Dims& D,
   da.e_beta = b2;
   da.vec_a = vec_ok(w.dh3, D.Cout, item); da.vec_w = vec_ok(wp, D.Cout, item);
   da.vec_c = vec_out(da, item);
-  PP_CHECK(data_product<T>(da, rows_plan(D, D.Cout, D.Ch, false), nullptr,
-                           st));
+  PP_CHECK((data_product<T, false>(da, da2_plan(D), nullptr, st)));
   bn_grad_finish<<<finish_blocks(D.Ch), dim3(FX, FY), 0, st>>>(
       w.part2, ng, tiles_of(D.rpg()), D.Ch, (float)D.rpg(), f.s2.var,
       f.s2.tie, g2, w.mg2, w.cf2, dg2, db2);
@@ -1659,7 +1746,7 @@ cudaError_t run_backward(const void* const* P, const Dims& D,
   PP_CHECK(weight_product<T>(ge, pe.tw, dwe, st));
 
   // dx = dh1[interior] We^T (+ dy)
-  BwdRows dxg{};
+  DataGemm dxg{};
   dxg.a = w.g1; dxg.a_map = ROW_INTERIOR_TO_PAD; dxg.K = D.Ch;
   dxg.w = we; dxg.N = D.Cin;
   dxg.rows_per_group = D.rpg(); dxg.ngroups = ng;
@@ -1667,7 +1754,7 @@ cudaError_t run_backward(const void* const* P, const Dims& D,
   dxg.c = dx; dxg.e_src = D.use_res ? dy : nullptr;
   dxg.vec_a = vec_ok(w.g1, D.Ch, item); dxg.vec_w = vec_ok(we, D.Ch, item);
   dxg.vec_c = vec_out(dxg, item);
-  return data_product<T>(dxg, rows_plan(D, D.Ch, D.Cin, true), w.wpart, st);
+  return data_product<T, false>(dxg, dx_plan(D), w.wpart, st);
 }
 
 bool read_dims(const int* v, int* dtype, Dims* D) {
@@ -1677,33 +1764,39 @@ bool read_dims(const int* v, int* dtype, Dims* D) {
       D->Cout <= 0 || D->group <= 0 || D->B % D->group != 0 || D->d < 1)
     return false;
   if (D->use_res && D->Cin != D->Cout) return false;
+  // shared memory: the depthwise forward's halo tile grows with d, the
+  // project's staged BatchNorm of a2 with the hidden width
+  if (D->d > kMaxDilation || D->Ch > kMaxHidden) return false;
   return *dtype == 0 || *dtype == 1;
 }
 
 }  // namespace
 
 // dims: {dtype (0 = float32, 1 = bfloat16), B, H, W, Cin, Ch, Cout, group,
-// dilation, use_res}. Bytes of scratch the entry needs, 0 for bad dims: the
-// forward's workspace, which it leaves holding the state the backward
-// reads, or the backward's own.
-extern "C" size_t pp_fused_ir_workspace(const int* dims, int backward) {
+// dilation, use_res}. Bytes of scratch the entry needs, 0 for bad dims:
+// which = 0, the forward's workspace, which it leaves holding the state the
+// backward reads; 1, the backward's own; 2, the forward's scratch, free
+// again when the forward returns.
+extern "C" size_t pp_fused_ir_workspace(const int* dims, int which) {
   int dtype;
   Dims D;
-  if (!read_dims(dims, &dtype, &D)) return 0;
+  if (!read_dims(dims, &dtype, &D) || which < 0 || which > 2) return 0;
   float* none[6] = {};
   Carver cv{nullptr};
-  if (backward)
+  if (which == 0)
+    carve_forward(cv, D, dtype == 0 ? 4 : 2, none);
+  else if (which == 1)
     carve_backward(cv, D, dtype == 0 ? 4 : 2);
   else
-    carve_forward(cv, D, dtype == 0 ? 4 : 2, none);
+    carve_forward_scratch(cv, D);
   return cv.used + 256;
 }
 
 // ptrs: x, we, wd, wp, g1, b1, g2, b2, g3, b3, y, mu1, var1, mu2, var2, mu3,
-// var3, workspace. x (B, H, W, Cin), we (Cin, Ch), wd (3, 3, Ch), wp (Ch,
-// Cout), y (B, H, W, Cout) in the compute dtype; the BatchNorm vectors and
-// the six (B / group, C) moment outputs in f32. Returns a cudaError_t code;
-// the launches are asynchronous on `stream`.
+// var3, workspace, scratch. x (B, H, W, Cin), we (Cin, Ch), wd (3, 3, Ch),
+// wp (Ch, Cout), y (B, H, W, Cout) in the compute dtype; the BatchNorm
+// vectors and the six (B / group, C) moment outputs in f32. Returns a
+// cudaError_t code; the launches are asynchronous on `stream`.
 extern "C" int pp_fused_ir_fwd(const void* const* ptrs, const int* dims,
                                void* stream) {
   int dtype;

@@ -27,9 +27,11 @@ the caller's running-stat EMA; their gradients are ignored.
 
 The TPU package gates the fused path on a VMEM estimate
 (``vmem_estimate_bytes``). The port needs no gate: every phase of
-``csrc/fused_ir.cu`` walks its operands through fixed shared-memory tiles,
-whatever the block's channels or size, and the kernels refuse only shapes
-that do not form a block (``_check``; ``pp_fused_ir_workspace`` returns 0).
+``csrc/fused_ir.cu`` walks its operands through shared-memory tiles of a
+fixed number of pixels, whatever the block's size, and the kernels refuse
+only shapes that do not form a block (``_check``), and dilations above 15
+or hidden widths above 8192, whose tiles would outgrow an SM's shared
+memory (``pp_fused_ir_workspace`` returns 0 for both).
 """
 
 from __future__ import annotations
@@ -262,9 +264,12 @@ def _check(x, weights, group, dilation, use_res):
             int(use_res)]
 
 
-def _workspace(dims, backward: int, device) -> torch.Tensor:
+def _workspace(dims, which: int, device) -> torch.Tensor:
+    """Scratch for a kernel call: ``which`` 0 is the forward's workspace
+    (the state it leaves for the backward), 1 the backward's, 2 the
+    forward's transient scratch (a product's depth-split sums)."""
     nbytes = _library().pp_fused_ir_workspace(
-        (ctypes.c_int * len(dims))(*dims), backward)
+        (ctypes.c_int * len(dims))(*dims), which)
     if nbytes == 0:
         raise ValueError(f"the fused block kernels refuse dims {dims}")
     return torch.empty(nbytes, dtype=torch.uint8, device=device)
@@ -306,7 +311,8 @@ def fused_fwd_kernel(x, weights, group: int, dilation: int, use_res: bool):
     stats = tuple(torch.empty((ng, c), dtype=torch.float32, device=x.device)
                   for c in (ch, ch, ch, ch, cout, cout))
     work = _workspace(dims, 0, x.device)
-    _call("pp_fused_ir_fwd", [x, *weights, y, *stats, work], dims)
+    scratch = _workspace(dims, 2, x.device)
+    _call("pp_fused_ir_fwd", [x, *weights, y, *stats, work, scratch], dims)
     launch_counts["fused_fwd"] += 1
     return y, stats, FusedState(work, stats, dims)
 

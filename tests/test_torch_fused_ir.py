@@ -308,3 +308,29 @@ def test_block_flops_counts_no_recompute(shape):
     assert fwd == 2 * b * (h + 2 * d) * (w + 2 * d) * cin * ch \
         + 18 * b * h * w * ch + 2 * b * h * w * ch * cout
     assert bwd == 2 * fwd
+
+
+@pytest.mark.parametrize("shape", [(4, 90, 120, 24, 24, 1),
+                                   (4, 23, 30, 160, 320, 2)])
+def test_forward_trace_counts_the_block_operations(shape):
+    """``scripts/torch_trace_fused_fwd.py`` divides each forward phase's
+    operations by its time; its expand (over the padded domain), depthwise
+    and project together are ``block_flops``' forward count. It loads
+    without a card, with the backward script's helpers."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "scripts" \
+        / "torch_trace_fused_fwd.py"
+    spec = importlib.util.spec_from_file_location("trace_fused_fwd", path)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    assert "torch_trace_fused_bwd" in sys.modules
+    b, h, w, cin, cout, d = shape
+    ops = [script.phase_work(role, shape)[0]
+           for role in ("expand", "depthwise (dw_forward)", "project")]
+    assert ops[0] == 2 * b * (h + 2 * d) * (w + 2 * d) * cin * 6 * cin
+    assert sum(ops) == fused_ir.block_flops(b, h, w, cin, 6 * cin, cout,
+                                            d)[0]
+    assert script.phase_work("BN1 finish (moments_finish)", shape) is None

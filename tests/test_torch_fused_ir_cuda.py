@@ -35,8 +35,15 @@ SHAPES = [  # (B, H, W, Cin, Cout, dilation, group)
     # (32, 64, 128), ragged ones among them
     (2, 7, 9, 20, 28, 1, 2),       # hidden 120
     (2, 6, 7, 40, 200, 1, 1),      # hidden 240, 200 out
-    (1, 5, 6, 200, 40, 2, 1),      # hidden 1200
-    (2, 5, 6, 160, 160, 1, 2),     # hidden 960
+    (1, 5, 6, 200, 40, 2, 1),      # hidden 1200; the expand splits its depth
+    (2, 5, 6, 160, 160, 1, 2),     # hidden 960; the expand splits its depth
+    # the forward's plans: the expand 128 wide; the project 64 and 128
+    # wide; the main path's 23x30 project, 32 wide and split six ways over
+    # its depth to fill the card
+    (4, 38, 38, 64, 128, 1, 4),
+    (4, 60, 80, 16, 64, 1, 4),
+    (4, 64, 70, 16, 128, 1, 4),
+    (4, 23, 30, 64, 64, 1, 4),
 ]
 
 
@@ -131,6 +138,33 @@ def test_kernels_match_plain_versions_on_card(shape, dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 23, 30, 64, 64, 1, 4),
+                                   (1, 5, 6, 200, 40, 2, 1)])
+def test_forward_repeats_bit_equal(shape, dtype, monkeypatch):
+    """Two forward calls give the same y, moments and saved state, bit for
+    bit: every sum is taken in a fixed order, with no float atomics. The
+    shapes split a product over its depth (the project; the expand). The
+    workspaces are zeroed first, so that the alignment gaps between the
+    state's pieces, which no kernel writes, compare equal too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    workspace = fused_ir._workspace
+    monkeypatch.setattr(fused_ir, "_workspace",
+                        lambda dims, which, device:
+                        workspace(dims, which, device).zero_())
+    b, h, w, cin, cout, d, g = shape
+    x, weights, _ = _inputs(b, h, w, cin, cout, dtype, seed=4)
+    (y, stats, state), (y2, stats2, state2) = [
+        fused_ir.fused_fwd_kernel(x, weights, g, d, cin == cout)
+        for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2)
+    assert all(torch.equal(a, b2) for a, b2 in zip(stats, stats2))
+    assert torch.equal(state.work, state2.work)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 4e-2)])
 def test_kernels_take_half_the_gradient_at_ties(dtype, tol):
@@ -187,6 +221,9 @@ def test_kernels_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         fused_ir.fused_fwd_kernel(x.transpose(1, 2).contiguous()
                                   .transpose(1, 2), weights, 4, 1, True)
+    # a dilation whose depthwise halo tile outgrows shared memory
+    with pytest.raises(ValueError, match="refuse"):
+        fused_ir.fused_fwd_kernel(x, weights, 4, 16, True)
     assert fused_ir.launch_counts["fused_fwd"] == 0
 
 
