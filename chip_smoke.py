@@ -8,8 +8,9 @@ for CUDA and the CUDA toolkit (nvcc):
 
 It builds the hand-written kernels from the sources in the checkout (one
 ``nvcc`` per source, started together) and drives the port's pool-scoring
-(query) path and its training round at full width, in phases; any failure
-exits nonzero:
+(query) path, its training round and its other round modes (micro-batch,
+dense, MC-dropout committee) at full width, in phases; any failure exits
+nonzero:
 
 1. card: name and power limit, torch and CUDA versions, the kernel builds;
 2. kernels vs plain: the depthwise 3x3 kernel at every shape one
@@ -48,11 +49,34 @@ exits nonzero:
    config overlay): two rounds. The warm epoch's train images/s, its
    device share (profiler), the train loader's images/s alone, validation
    images/s; the artifacts, 10 valid picks per image per round, finite
-   losses, and the kernels' launches over the campaign.
+   losses, and the kernels' launches over the campaign;
+8. micro-batch step (``--micro_batch_size``): at phase 6's weights, dropout
+   off, SGD, the kernels on, a megabatch of 48 at micro 4 against 12
+   sequential train steps on the same rows (every parameter and running
+   statistic to phase 6's leaf limit; 12 x 13 fused launches), a remainder
+   of 31 padded to 32 against 8 sequential steps on the padded rows, and a
+   megabatch whose third micro-batch is all pad bit-equal to the first
+   two alone; then ``main_al`` at ``--batch_size 48 --micro_batch_size 4``
+   (a config overlay) for 3 epochs: 92 optimizer updates per epoch, the
+   warm epoch's train images/s beside phase 7's bs-4 epoch, the device's
+   busy time (profiler);
+9. dense step: ``main_al --n_pixels_by_us 0`` for 2 epochs at bs 4 with the
+   kernels: the ``fully_sup`` artifacts, finite losses, the fused
+   launches, the warm epoch's images/s and peak device memory;
+10. MC-dropout committee: phase 3's weights with ``--use_mc_dropout
+   --mc_n_steps 20``, soft vote, margin sampling: a warm sweep of the pool
+   (10 valid picks per image, none labelled or void, 14 x 20 depthwise
+   launches per pool batch) timed against phase 3's warm sweep; one pool
+   batch with the hard vote; at dropout p = 0 the committee's picks equal
+   the plain sweep's.
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. The details go to
-``<out>/chip_smoke.json``. Weights are random, from a seed.
+``<out>/chip_smoke.json``. Weights are random, from a seed. In the kernels'
+line, ``launches`` counts every main-path run: the depthwise kernel's
+(forward and dx) over the sweeps of phases 3 and 10, the campaign of phase
+7 and the epoch runs of phases 8 and 9; the fused kernels' over phases 7,
+8 and 9 (their counters zeroed just before each run and read just after).
 """
 
 from __future__ import annotations
@@ -997,6 +1021,25 @@ def well_conditioned_(model, seed: int) -> None:
                 m.weight.sub_(m.weight.mean((1, 2, 3), keepdim=True))
 
 
+def train_batch(rng, n: int, k: int = 10, hw=IMAGE_HW) -> dict:
+    """A host batch of ``n`` sparse-label train rows: images of distinct
+    content (a 24x24-pixel random mosaic plus noise, at a contrast and
+    brightness of their own, so that ASPP's pooled branch varies across the
+    batch) and ``k`` valid random picks each."""
+    mosaic = np.kron(rng.uniform(-1, 1, (n, hw[0] // 24, hw[1] // 24, 3)),
+                     np.ones((1, 24, 24, 1)))
+    images = (rng.uniform(30, 120, (n, 1, 1, 3)) * mosaic
+              + rng.uniform(60, 200, (n, 1, 1, 3))
+              + rng.normal(0, 10, mosaic.shape))
+    return {
+        "x": np.clip(images, 0, 255).astype(np.uint8),
+        "coords": np.stack([rng.integers(0, hw[0], (n, k)),
+                            rng.integers(0, hw[1], (n, k))], -1),
+        "labels": rng.integers(0, N_CLASSES, (n, k)),
+        "valid": np.ones((n, k), dtype=bool),
+    }
+
+
 def phase_train_step(args_cv) -> dict:
     """One full-width train step with the kernels against the library path
     at the same weights and batch, then timed steps of both."""
@@ -1010,28 +1053,8 @@ def phase_train_step(args_cv) -> dict:
     from pixelpick_tpu_torch.models.factory import get_model
     from pixelpick_tpu_torch.ops import depthwise as dw, fused_ir
 
-    rng = np.random.default_rng(7)
-    k = 10
-    # images of distinct content (a 24x24-pixel random mosaic plus noise, at
-    # a contrast and brightness of their own), so that ASPP's pooled branch
-    # varies across the batch
-    mosaic = np.kron(rng.uniform(-1, 1, (TRAIN_BATCH, IMAGE_HW[0] // 24,
-                                         IMAGE_HW[1] // 24, 3)),
-                     np.ones((1, 24, 24, 1)))
-    images = (rng.uniform(30, 120, (TRAIN_BATCH, 1, 1, 3)) * mosaic
-              + rng.uniform(60, 200, (TRAIN_BATCH, 1, 1, 3))
-              + rng.normal(0, 10, mosaic.shape))
-    batch = {
-        "x": torch.from_numpy(np.clip(images, 0, 255).astype(np.uint8))
-        .to(DEVICE),
-        "coords": torch.from_numpy(np.stack(
-            [rng.integers(0, IMAGE_HW[0], (TRAIN_BATCH, k)),
-             rng.integers(0, IMAGE_HW[1], (TRAIN_BATCH, k))], -1)).to(DEVICE),
-        "labels": torch.from_numpy(rng.integers(0, N_CLASSES,
-                                                (TRAIN_BATCH, k))).to(DEVICE),
-        "valid": torch.ones((TRAIN_BATCH, k), dtype=torch.bool,
-                            device=DEVICE),
-    }
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in
+             train_batch(np.random.default_rng(7), TRAIN_BATCH).items()}
     models = {}
     for name, fused in (("kernels", True), ("library", False)):
         args_cv.fused_ir = fused
@@ -1156,45 +1179,54 @@ def phase_train_step(args_cv) -> dict:
 
 # ------------------------------ phase 7 ------------------------------
 
-def phase_campaign(work: Path) -> dict:
-    """Two AL rounds through the CLI entry point, as a user runs them; the
-    round-0 warm epoch timed, the round-1 warm epoch under the profiler."""
-    import torch
+def write_cfg(work: Path, name: str, **overrides) -> Path:
+    """The CamVid block as a dataset config overlay on the synthetic set
+    (the epoch count and the batch size are set by such an overlay, not by
+    flags, in both packages)."""
     import yaml
-    from torch.profiler import ProfilerActivity, profile
 
-    from pixelpick_tpu_torch.active import codec, driver
-    from pixelpick_tpu_torch.cli.main_al import main as main_al
     from pixelpick_tpu_torch.config import DATASET_DEFAULTS
-    from pixelpick_tpu_torch.data.loader import Loader
-    from pixelpick_tpu_torch.ops import depthwise as dw, fused_ir
 
-    run = work / "campaign"
-    # the CamVid block with n_epochs 2 (the epoch count is set by a
-    # dataset config overlay, not a flag, in both packages)
     cfg = {k: v for k, v in DATASET_DEFAULTS["cv"].items()
            if k != "dir_dataset_name"}
     cfg["optimizer_params"] = dict(cfg["optimizer_params"],
                                    betas=list(cfg["optimizer_params"]["betas"]))
     cfg.update(dataset_name="cv", dir_dataset=str(work / "camvid"),
-               n_epochs=2)
-    (work / "cv_2epochs.yaml").write_text(yaml.safe_dump(cfg))
+               **overrides)
+    path = work / f"{name}.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
 
-    record = {}
+
+def run_main_al(argv: list, record: dict, timed=(), traced=()):
+    """``cli.main_al.main(argv)`` with the kernels' counters zeroed just
+    before and read just after. The epochs keyed (round, epoch) in
+    ``timed`` are timed, with the peak device memory; those in ``traced``
+    run under the profiler, the device's activity only (sifting a host
+    trace of every operator of an epoch takes longer than the epoch).
+    Returns (the driver, its wall time, the launch counts)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pixelpick_tpu_torch.active import driver
+    from pixelpick_tpu_torch.cli.main_al import main as main_al
+    from pixelpick_tpu_torch.ops import depthwise as dw, fused_ir
+
     train_epoch = driver.ALModel._train_epoch
 
-    def timed_epoch(self, epoch, step_fn):
-        if epoch != 2:
+    def hooked(self, epoch, step_fn):
+        key = (self.nth_query, epoch)
+        if key not in timed and key not in traced:
             return train_epoch(self, epoch, step_fn)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        if self.nth_query == 0:
+        if key in timed:
             out = train_epoch(self, epoch, step_fn)
             torch.cuda.synchronize()
             record["warm_epoch_s"] = time.perf_counter() - t0
+            record["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
             return out
-        # the device's activity only: sifting a host trace of every
-        # operator of the epoch takes longer than the epoch itself
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             out = train_epoch(self, epoch, step_fn)
             torch.cuda.synchronize()
@@ -1202,23 +1234,37 @@ def phase_campaign(work: Path) -> dict:
         record["busy"] = device_busy(prof, record["traced_epoch_s"])
         return out
 
-    driver.ALModel._train_epoch = timed_epoch
+    driver.ALModel._train_epoch = hooked
+    torch.cuda.synchronize()
     fused_ir.reset_launch_counts()
     dw.reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        al = main_al([
-            "-pdc", str(work / "cv_2epochs.yaml"), "--dir_checkpoints",
-            str(run), "--device", DEVICE, "--fused_ir", "--pallas_dw",
-            "--n_pixels_by_us", "10", "--max_budget", "20",
-            "-qs", "margin_sampling", "--pool_batch_size", str(POOL_BATCH),
-            "--n_workers", "8", "--seed", "0"])
+        al = main_al(argv)
         torch.cuda.synchronize()
     finally:
         driver.ALModel._train_epoch = train_epoch
-    campaign_s = time.perf_counter() - t0
+    wall_s = time.perf_counter() - t0
     counts = {**fused_ir.launch_counts, **{f"depthwise_{k}": v for k, v in
                                            dw.launch_counts.items()}}
+    return al, wall_s, counts
+
+
+def phase_campaign(work: Path) -> dict:
+    """Two AL rounds through the CLI entry point, as a user runs them; the
+    round-0 warm epoch timed, the round-1 warm epoch under the profiler."""
+    from pixelpick_tpu_torch.active import codec
+    from pixelpick_tpu_torch.data.loader import Loader
+
+    run = work / "campaign"
+    cfg = write_cfg(work, "cv_2epochs", n_epochs=2)
+    record = {}
+    al, campaign_s, counts = run_main_al([
+        "-pdc", str(cfg), "--dir_checkpoints", str(run), "--device", DEVICE,
+        "--fused_ir", "--pallas_dw", "--n_pixels_by_us", "10",
+        "--max_budget", "20", "-qs", "margin_sampling", "--pool_batch_size",
+        str(POOL_BATCH), "--n_workers", "8", "--seed", "0"], record,
+        timed={(0, 2)}, traced={(1, 2)})
     n_steps = 2 * 2 * -(-N_IMAGES // TRAIN_BATCH)
     print(f"[7] two rounds in {campaign_s:.1f} s; launches {counts} for "
           f"{n_steps} train steps")
@@ -1289,6 +1335,403 @@ def phase_campaign(work: Path) -> dict:
             "timing": timing}
 
 
+# ------------------------------ phase 8 ------------------------------
+
+def sgd_args(args_cv):
+    """``args_cv`` with SGD, whose update is linear in the gradient: two
+    runs stay as close as their gradients (Adam's normalisation would blow
+    a rounding difference of a near-zero gradient up to a whole step)."""
+    import copy
+
+    args = copy.copy(args_cv)
+    args.optimizer_type, args.optimizer_params = "SGD", {"lr": 5e-4}
+    return args
+
+
+def fresh_model(args, start: dict):
+    """A full-width train-mode model with the kernels at ``start``'s
+    weights, dropout at p = 0, and its SGD optimizer."""
+    from pixelpick_tpu_torch.engine.optim import make_optimizer
+    from pixelpick_tpu_torch.models import layers
+    from pixelpick_tpu_torch.models.factory import get_model
+
+    model = get_model(args, DEVICE, seed=11)
+    model.load_state_dict(start)
+    for m in model.modules():
+        if isinstance(m, layers.Dropout):
+            m.p = 0.0
+    model.train()
+    return model, make_optimizer(sgd_args(args), model, 92)
+
+
+def state_error(got: dict, ref: dict, start: dict) -> dict:
+    """Two models' states after the same updates, leaf by leaf against
+    phase 6's limit: a parameter within STEP_GRAD_TOL of its own largest
+    move from ``start`` plus STEP_GRAD_FLOOR of the largest move of any
+    leaf; a running statistic within STEP_GRAD_TOL of its largest |value|
+    (at least 1); the forward counts equal. Returns the worst leaf's error
+    over its limit, its name, and whether every leaf is bit-equal."""
+    moves = {k: float((v.float() - start[k].float()).abs().max())
+             for k, v in ref.items() if v.is_floating_point()}
+    big = max(v for k, v in moves.items()
+              if not k.endswith(("running_mean", "running_var")))
+    worst, name = 0.0, None
+    for k, r in ref.items():
+        if not r.is_floating_point():
+            e = 0.0 if torch_equal(got[k], r) else float("inf")
+        else:
+            err = float((got[k].float() - r.float()).abs().max())
+            if k.endswith(("running_mean", "running_var")):
+                e = err / (STEP_GRAD_TOL * max(float(r.abs().max()), 1.0))
+            else:
+                e = err / (STEP_GRAD_TOL * moves[k] + STEP_GRAD_FLOOR * big)
+        if e >= worst:
+            worst, name = e, k
+    return {"worst": worst, "leaf": name,
+            "bit_equal": all(torch_equal(got[k], r) for k, r in ref.items())}
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return bool(torch.equal(a, b))
+
+
+def megabatch_vs_sequential(args, start: dict, batch: dict,
+                            micro: int) -> dict:
+    """The host megabatch ``batch`` through
+    ``make_microbatch_train_step`` against ``B // micro`` sequential
+    ``make_train_step`` calls on the same rows, from the same state; the
+    kernels' launches of the megabatch step."""
+    import torch
+
+    from pixelpick_tpu_torch.engine.trainer import (
+        batch_to_device, make_microbatch_train_step, make_train_step,
+    )
+    from pixelpick_tpu_torch.ops import depthwise as dw, fused_ir
+
+    kw = dict(n_classes=N_CLASSES, mean=args.mean, std=args.std)
+    model, opt = fresh_model(args, start)
+    step = make_microbatch_train_step(model, opt, micro_bs=micro, **kw)
+    torch.cuda.synchronize()
+    fused_ir.reset_launch_counts()
+    dw.reset_launch_counts()
+    losses, hist = step(batch)
+    torch.cuda.synchronize()
+    counts = {**fused_ir.launch_counts, **{f"depthwise_{k}": v for k, v in
+                                           dw.launch_counts.items()}}
+    got, n_updates = model.state_dict(), opt.step_count
+    del model, opt, step
+
+    model, opt = fresh_model(args, start)
+    step = make_train_step(model, opt, **kw)
+    dev = batch_to_device(batch, DEVICE)
+    ref_losses, ref_hist = [], None
+    for m in range(batch["x"].shape[0] // micro):
+        loss, h = step({k: v[m * micro:(m + 1) * micro]
+                        for k, v in dev.items()})
+        ref_losses.append(loss)
+        ref_hist = h if ref_hist is None else ref_hist + h
+    torch.cuda.synchronize()
+    losses, ref_losses = losses.cpu().numpy(), torch.stack(ref_losses).cpu() \
+        .numpy()
+    out = state_error(got, model.state_dict(), start)
+    out.update(
+        updates=n_updates, ref_updates=opt.step_count, launches=counts,
+        loss_rel_err=float(np.max(np.abs(losses - ref_losses)
+                                  / np.abs(ref_losses))),
+        hist_equal=torch_equal(hist, ref_hist), losses=losses.tolist())
+    return out
+
+
+def phase_microbatch(work: Path, args_cv, bs4: dict) -> dict:
+    """The micro-batch step at full width with the kernels: a megabatch of
+    48 at micro 4 against 12 sequential steps, a remainder of 31 padded to
+    32, an all-pad third micro-batch; then ``main_al`` at bs 48 / micro 4
+    for 3 epochs (epoch 2 timed, epoch 3 under the profiler)."""
+    import torch
+
+    from pixelpick_tpu_torch.active import driver
+    from pixelpick_tpu_torch.engine.trainer import make_microbatch_train_step
+    from pixelpick_tpu_torch.models.factory import get_model
+    from pixelpick_tpu_torch.parallel.mesh import pad_batch_to_devices
+
+    args_cv.fused_ir = True
+    try:
+        model = get_model(args_cv, DEVICE, seed=11)
+        well_conditioned_(model, seed=12)  # phase 6's weights
+        start = {k: v.clone() for k, v in model.state_dict().items()}
+        del model
+        batch = train_batch(np.random.default_rng(8), 48)
+        full = megabatch_vs_sequential(args_cv, start, batch, 4)
+        print(f"[8] megabatch of 48 at micro 4 against 12 sequential steps: "
+              f"worst leaf {full['worst']:.3g} of its limit ({full['leaf']}),"
+              f" bit-equal {full['bit_equal']}, losses within "
+              f"{full['loss_rel_err']:.3g} relative, confusion matrices "
+              f"equal {full['hist_equal']}; launches {full['launches']}")
+        check(full["updates"] == full["ref_updates"] == 12,
+              f"{full['updates']} updates")
+        check(full["launches"]["fused_fwd"] == 12 * 13
+              and full["launches"]["fused_bwd"] == 12 * 13
+              and full["launches"]["depthwise_kernel"] == 12
+              and full["launches"]["depthwise_kernel_dx"] == 12,
+              f"megabatch launches {full['launches']}")
+        check(full["worst"] <= 1 and full["hist_equal"]
+              and full["loss_rel_err"] <= STEP_LOSS_TOL,
+              f"megabatch differs from the sequential steps: {full}")
+
+        rem, n_real = pad_batch_to_devices(
+            {k: v[:31] for k, v in batch.items()}, pad_label=VOID,
+            target_rows=32)
+        check(n_real == 31 and not rem["valid"][31:].any(), "padding")
+        remainder = megabatch_vs_sequential(args_cv, start, rem, 4)
+        print(f"[8] remainder of 31 padded to 32 (8 updates, the last 3 "
+              f"real rows and 1 pad row) against 8 sequential steps on the "
+              f"same rows: worst leaf {remainder['worst']:.3g} of its limit, "
+              f"bit-equal {remainder['bit_equal']}")
+        check(remainder["updates"] == 8 and remainder["worst"] <= 1
+              and remainder["hist_equal"]
+              and remainder["loss_rel_err"] <= STEP_LOSS_TOL,
+              f"remainder megabatch: {remainder}")
+
+        # a third micro-batch of pad rows leaves everything as two did;
+        # cuDNN's deterministic algorithms, so that two runs of the same
+        # updates give the same bits
+        pads = {k: v[:12].copy() for k, v in batch.items()}
+        pads["valid"][8:] = False
+        states = []
+        torch.backends.cudnn.deterministic = True
+        for b in (pads, {k: v[:8] for k, v in batch.items()}):
+            model, opt = fresh_model(args_cv, start)
+            losses, _ = make_microbatch_train_step(
+                model, opt, micro_bs=4, n_classes=N_CLASSES,
+                mean=args_cv.mean, std=args_cv.std)(b)
+            states.append((model.state_dict(), opt.step_count,
+                           losses.cpu().numpy(), opt.state))
+            del model
+        torch.backends.cudnn.deterministic = False
+        (sa, na, la, oa), (sb, nb, lb, ob) = states
+        no_op = (na == nb == 2 and np.isnan(la[2])
+                 and np.array_equal(la[:2], lb)
+                 and all(torch_equal(sa[k], v) for k, v in sb.items())
+                 and all(torch_equal(x, y) for ga, gb in zip(oa, ob)
+                         for name in ga for x, y in zip(ga[name], gb[name])))
+        print(f"[8] an all-pad third micro-batch: a no-op {no_op} (2 updates, "
+              f"losses {la.tolist()})")
+        check(no_op, "the all-pad micro-batch moved the state")
+        del states, sa, sb, oa, ob
+        torch.cuda.empty_cache()
+    finally:
+        args_cv.fused_ir = False
+
+    cfg = write_cfg(work, "cv_bs48", n_epochs=3, batch_size=48)
+    record, opts = {}, []
+    make_optimizer = driver.make_optimizer
+
+    def kept(*a, **k):
+        opts.append(make_optimizer(*a, **k))
+        return opts[-1]
+
+    driver.make_optimizer = kept
+    try:
+        al, wall_s, counts = run_main_al([
+            "-pdc", str(cfg), "--dir_checkpoints", str(work / "micro"),
+            "--device", DEVICE, "--fused_ir", "--pallas_dw",
+            "--micro_batch_size", "4", "--n_pixels_by_us", "10",
+            "--max_budget", "10", "-qs", "margin_sampling",
+            "--pool_batch_size", str(POOL_BATCH), "--n_workers", "8",
+            "--seed", "0"], record, timed={(0, 2)}, traced={(0, 3)})
+    finally:
+        driver.make_optimizer = make_optimizer
+    updates = opts[0].step_count
+    per_epoch = al._iters_per_epoch()
+    rows = (work / "micro" / "0_query" / "log_train.txt").read_text() \
+        .split()[1:]
+    busy, busy_us, by_name = record["busy"]
+    ips = N_IMAGES / record["warm_epoch_s"]
+    print(f"[8] main_al at bs 48 / micro 4, 3 epochs in {wall_s:.1f} s: "
+          f"{updates} optimizer updates ({per_epoch} per epoch); launches "
+          f"{counts}; warm epoch {record['warm_epoch_s']:.2f} s = {ips:.1f} "
+          f"train images/s (phase 7's bs-4 warm epoch "
+          f"{bs4['train_images_per_s']:.1f}); epoch 3 under the profiler "
+          f"{record['traced_epoch_s']:.2f} s, device busy "
+          + (f"{busy_us / 1e6:.2f} s = {100 * busy_us / 1e6 / record['warm_epoch_s']:.1f}% "
+             f"of the untraced warm epoch" if busy is not None
+             else "not measured"))
+    top = print_top("[8]", by_name)
+    check(per_epoch == 92 and updates == 3 * 92,
+          f"{updates} updates, {per_epoch} per epoch")
+    check(counts["fused_fwd"] == 13 * updates
+          and counts["fused_bwd"] == 13 * updates
+          and counts["depthwise_kernel_dx"] == updates,
+          f"epoch launches {counts}")
+    check(len(rows) == 3 and all(np.isfinite(float(r.split(",")[3]))
+                                 for r in rows), f"losses {rows}")
+    check((work / "micro" / "1_query" / "queries.pkl").is_file(),
+          "the round's picks were not written")
+    return {"megabatch": full, "remainder": remainder, "all_pad_no_op": no_op,
+            "epoch_run_s": wall_s, "updates": updates,
+            "updates_per_epoch": per_epoch, "launches": counts,
+            "warm_epoch_s": record["warm_epoch_s"], "train_images_per_s": ips,
+            "bs4_train_images_per_s": bs4["train_images_per_s"],
+            "peak_device_gb": record["peak_device_gb"],
+            "traced_epoch_s": record["traced_epoch_s"],
+            "device_busy_ms": busy_us / 1e3,
+            "device_busy_share_untraced_epoch":
+                busy_us / 1e6 / record["warm_epoch_s"],
+            "top_device_ms": top}
+
+
+# ------------------------------ phase 9 ------------------------------
+
+def phase_dense(work: Path) -> dict:
+    """``main_al --n_pixels_by_us 0``: the fully supervised stage, 2 epochs
+    at bs 4 with the kernels, epoch 2 timed with its peak memory."""
+    run = work / "dense"
+    cfg = write_cfg(work, "cv_2epochs", n_epochs=2)
+    record = {}
+    al, wall_s, counts = run_main_al([
+        "-pdc", str(cfg), "--dir_checkpoints", str(run), "--device", DEVICE,
+        "--fused_ir", "--pallas_dw", "--n_pixels_by_us", "0",
+        "--n_workers", "8", "--seed", "0"], record, timed={(-1, 2)})
+    n_steps = 2 * -(-N_IMAGES // TRAIN_BATCH)
+    stage = run / "fully_sup"
+    for f in ("best_miou_model.ckpt", "log_train.txt", "log_val.txt"):
+        check((stage / f).is_file(), f"fully_sup/{f} not written")
+    check(not (run / "0_query").exists(), "the dense run made a query round")
+    rows = (stage / "log_train.txt").read_text().split()[1:]
+    losses = [float(r.split(",")[3]) for r in rows]
+    ips = N_IMAGES / record["warm_epoch_s"]
+    print(f"[9] fully supervised stage, 2 epochs in {wall_s:.1f} s: losses "
+          f"{losses}; launches {counts} for {n_steps} steps; warm epoch "
+          f"{record['warm_epoch_s']:.2f} s = {ips:.1f} train images/s, peak "
+          f"device memory {record['peak_device_gb']:.3f} GB")
+    check(len(losses) == 2 and np.isfinite(losses).all(), f"losses {rows}")
+    check(al.loader.mode == "train_dense", "not the dense loader")
+    check(counts["fused_fwd"] == 13 * n_steps
+          and counts["fused_bwd"] == 13 * n_steps
+          and counts["depthwise_kernel_dx"] == n_steps,
+          f"dense launches {counts}")
+    return {"run_s": wall_s, "losses": losses, "launches": counts,
+            "n_steps": n_steps, "warm_epoch_s": record["warm_epoch_s"],
+            "train_images_per_s": ips,
+            "peak_device_gb": record["peak_device_gb"]}
+
+
+# ------------------------------ phase 10 ------------------------------
+
+MC_STEPS = 20
+
+
+def phase_committee(model, args, plain: dict) -> dict:
+    """The MC-dropout committee's pool sweep (``--use_mc_dropout
+    --mc_n_steps 20``, soft vote, margin sampling) at phase 3's weights,
+    the pool's images decoded already; one pool batch with the hard vote;
+    at p = 0 the committee's picks against the plain sweep's."""
+    import copy
+
+    import torch
+
+    from pixelpick_tpu_torch.active.acquisition import make_score_fn
+    from pixelpick_tpu_torch.active.selector import QuerySelector
+    from pixelpick_tpu_torch.data.factory import get_dataset
+    from pixelpick_tpu_torch.data.loader import Loader
+    from pixelpick_tpu_torch.models import layers
+    from pixelpick_tpu_torch.models.factory import get_model
+    from pixelpick_tpu_torch.ops import depthwise as dw
+
+    args_mc = copy.copy(args)
+    args_mc.use_mc_dropout, args_mc.mc_n_steps = True, MC_STEPS
+    committee_model = get_model(args_mc)
+    committee_model.load_state_dict(model.state_dict())
+    dataset = get_dataset(args_mc, val=False, query=True)
+    kw = dict(strategy="margin_sampling", mean=args.mean, std=args.std,
+              n_pixels=10, top_n_percent=0.05, reverse_order=False,
+              ignore_index=VOID)
+
+    def device_batch(batch):
+        return {k: torch.from_numpy(batch[k]).to(DEVICE)
+                for k in ("x", "excluded", "y")}
+
+    with Loader(dataset, POOL_BATCH, mode="query",
+                n_workers=args.n_workers) as loader:
+        first = next(iter(loader))  # decodes the first batch
+        for _ in loader:  # and the rest: the sweep below is warm
+            pass
+        selector = QuerySelector(args_mc, loader, committee_model, DEVICE)
+        generator = torch.Generator(device=DEVICE).manual_seed(1)
+        committee_model.set_dropout_generator(generator)
+        n_batches, n_bad, n_picks = 0, 0, 0
+        torch.cuda.synchronize()
+        dw.reset_launch_counts()
+        t0 = time.perf_counter()
+        for batch in loader:
+            idx, stats = selector._score_fn(device_batch(batch), generator)
+            idx, ok = idx.cpu().numpy(), stats["picked_valid"].cpu().numpy()
+            forbidden = (batch["excluded"] | (batch["y"] == VOID)) \
+                .reshape(len(idx), -1)
+            n_bad += int(np.take_along_axis(forbidden, idx, 1).sum()
+                         + (~ok).sum())
+            n_picks += sum(len(set(row.tolist())) for row in idx)
+            n_batches += 1
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        counts = dict(dw.launch_counts)
+    print(f"[10] MC committee ({MC_STEPS} members, soft vote) warm sweep of "
+          f"{N_IMAGES} images in {n_batches} batches: {sweep_s:.3f} s = "
+          f"{N_IMAGES / sweep_s:.1f} images/s against the single-forward "
+          f"sweep's {plain['images_per_s']:.1f} (phase 3; "
+          f"{sweep_s / plain['warm_s']:.1f}x its time); launches {counts}; "
+          f"{n_picks} distinct picks, {n_bad} on a labelled or void pixel")
+    check(counts["kernel"] == 14 * MC_STEPS * n_batches,
+          f"{counts['kernel']} depthwise launches for {n_batches} batches")
+    check(n_picks == 10 * N_IMAGES and n_bad == 0,
+          f"{n_picks} picks, {n_bad} forbidden")
+
+    # the hard vote on one pool batch
+    dev = device_batch(first)
+    hard = make_score_fn(committee_model, mc_n_steps=MC_STEPS,
+                         vote_type="hard", **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx, stats = hard(dev, torch.Generator(device=DEVICE).manual_seed(2))
+    idx = idx.cpu().numpy()
+    hard_s = time.perf_counter() - t0
+    hard_valid = float(stats["picked_valid"].float().mean())
+    distinct = all(len(set(row.tolist())) == 10 for row in idx)
+    # labelled and void pixels take the fill value, margin 1, as do the
+    # pixels whose members all vote alike: picks may tie into them
+    print(f"[10] hard vote, one batch of {len(idx)}: {hard_s:.3f} s; 10 "
+          f"distinct picks per image {distinct}; share of picks off "
+          f"labelled and void pixels {hard_valid:.4f}")
+    check(distinct and idx.min() >= 0
+          and idx.max() < IMAGE_HW[0] * IMAGE_HW[1], "hard-vote picks")
+
+    # at p = 0 every member is the plain forward: the same picks
+    for m in committee_model.modules():
+        if isinstance(m, layers.Dropout):
+            m.p = 0.0
+    soft = make_score_fn(committee_model, mc_n_steps=MC_STEPS,
+                         vote_type="soft", **kw)
+    single = make_score_fn(committee_model, **kw)
+    ours, _ = soft(dev, torch.Generator(device=DEVICE).manual_seed(3))
+    ref, _ = single(dev, torch.Generator(device=DEVICE).manual_seed(3))
+    same = [set(a.tolist()) == set(b.tolist())
+            for a, b in zip(ours.cpu().numpy(), ref.cpu().numpy())]
+    print(f"[10] at p = 0 the committee's picks equal the plain sweep's in "
+          f"{sum(same)} of {len(same)} images")
+    check(all(same), "the p = 0 committee picks other pixels")
+    del committee_model
+    torch.cuda.empty_cache()
+    return {"members": MC_STEPS, "sweep_s": sweep_s,
+            "images_per_s": N_IMAGES / sweep_s, "n_batches": n_batches,
+            "launches": counts, "plain_warm_s": plain["warm_s"],
+            "time_over_plain": sweep_s / plain["warm_s"],
+            "hard_vote_batch_s": hard_s,
+            "hard_vote_valid_share": hard_valid,
+            "p0_control_equal": all(same)}
+
+
 # ------------------------------ main ------------------------------
 
 def main(argv=None) -> int:
@@ -1330,6 +1773,9 @@ def main(argv=None) -> int:
     fused = phase_fused_kernels()
     step = phase_train_step(args)
     campaign = phase_campaign(work)
+    micro = phase_microbatch(work, args, campaign)
+    dense = phase_dense(work)
+    committee = phase_committee(model, args, oracle["warm_sweep"])
     phases_s = time.perf_counter() - t_start
 
     f32 = kernels["float32"]
@@ -1338,7 +1784,14 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "pixelpick_tpu_torch/csrc/depthwise.cu",
         "replaces": "pixelpick_tpu/ops/depthwise.py:73",
-        "launches": oracle["launches"]["kernel"],
+        # every main-path run: the sweeps of phases 3 and 10, the
+        # campaign of phase 7, the epoch runs of phases 8 and 9
+        "launches": sum(c[f"{pre}kernel"] + c[f"{pre}kernel_dx"]
+                        for c, pre in ((oracle["launches"], ""),
+                                       (committee["launches"], ""),
+                                       (campaign["launches"], "depthwise_"),
+                                       (micro["launches"], "depthwise_"),
+                                       (dense["launches"], "depthwise_"))),
         "max_abs_err": max(r["max_abs_err"] for r in f32),
         # per forward of the main path: the 14 launches at batch 32, f32
         "ms": sum(r["ms"] for r in f32),
@@ -1349,7 +1802,8 @@ def main(argv=None) -> int:
         "library_ms": sum(r["library_ms"] for r in f32),
     }
     # the fused kernels: per train step of the main path, the 13 blocks at
-    # batch 4 in f32, summed; launches over the two-round campaign
+    # batch 4 in f32, summed; launches over the main-path train runs of
+    # phases 7, 8 and 9
     f32 = fused["float32"]
     fused_entries = []
     for k, name, line in (("fwd", "fused_ir_fwd", 221),
@@ -1359,7 +1813,8 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda",
             "source": "pixelpick_tpu_torch/csrc/fused_ir.cu",
             "replaces": f"pixelpick_tpu/ops/fused_ir.py:{line}",
-            "launches": campaign["launches"][f"fused_{k}"],
+            "launches": sum(r["launches"][f"fused_{k}"]
+                            for r in (campaign, micro, dense)),
             "max_abs_err": max(r["y_max_abs_err" if k == "fwd"
                                  else "grad_max_abs_err"] for r in f32),
             "ms": sum(r[f"{k}_ms"] for r in f32),
@@ -1369,7 +1824,7 @@ def main(argv=None) -> int:
             else "operations",
             "library_ms": sum(r[f"library_{k}_ms"] for r in f32),
         })
-    print(f"[7] phases 2-7 took {phases_s:.1f} s")
+    print(f"[10] phases 2-10 took {phases_s:.1f} s")
     out = Path(opts.out)
     if not out.is_absolute():
         out = HERE / out
@@ -1378,7 +1833,8 @@ def main(argv=None) -> int:
         json.dump({"card": card, "kernels": kernels, "oracle_round": oracle,
                    "human_cli": human, "fused_kernels": fused,
                    "train_step": step, "campaign": campaign,
-                   "phases_s": phases_s,
+                   "microbatch": micro, "dense": dense,
+                   "committee": committee, "phases_s": phases_s,
                    "summary": [entry, *fused_entries]}, f, indent=1)
     shutil.rmtree(work, ignore_errors=True)
 

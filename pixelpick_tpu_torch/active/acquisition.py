@@ -9,11 +9,19 @@ the flattened map (k = ``top_n_percent * H*W`` with a random sub-sample of
 ``reverse_order`` variant. Only the (B, n_pixels) indices and small stats
 tensors leave the device.
 
+With ``mc_n_steps > 0`` the MC-dropout committee scores instead
+(``acquisition.py:125-154``, reference ``query.py:177-187``):
+``mc_n_steps`` eval-mode forwards with the dropouts on, ``prob`` the mean of
+the members' softmaxes (the stats read it), and the uncertainty either the
+mean of the members' maps (``vote_type="soft"``) or the strategy's formula
+on the mean one-hot argmax votes (``"hard"``).
+
 Randomness (the sub-sample draws, the ``reverse_order`` candidate draws,
 the ``random`` strategy's scores) comes from a ``torch.Generator``, or is
 injected by the caller, so tests can feed both frameworks the same draws.
-The MC-dropout committee comes later (ROADMAP.md, Queue 1), as do the
-bucket-padding masks of variable-size pools.
+The committee's dropout masks come from the model's dropout generator
+(``DeepLab.set_dropout_generator``). The bucket-padding masks of
+variable-size pools come later (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -30,9 +38,9 @@ from pixelpick_tpu_torch.ops.uncertainty import (
 )
 
 
-def _full_res_pred(model, x: torch.Tensor) -> torch.Tensor:
+def _full_res_pred(model, x: torch.Tensor, **kw) -> torch.Tensor:
     """Full-resolution f32 logits without the full-resolution emb."""
-    pred = model(x, upsample=False)["pred"].float()
+    pred = model(x, upsample=False, **kw)["pred"].float()
     if pred.shape[1:3] != x.shape[1:3]:
         pred = resize_align_corners(pred, x.shape[1:3])
     return pred
@@ -75,10 +83,40 @@ def _select_topk(uc_flat: torch.Tensor, uniforms: Optional[torch.Tensor], *,
     return torch.gather(idx, 1, sel)
 
 
+def committee(model, x: torch.Tensor, *, strategy: str, mc_n_steps: int,
+              vote_type: str, member_scores=None, score=None):
+    """The MC-dropout committee over normalised images x (B, H, W, 3):
+    ``mc_n_steps`` eval-mode forwards with the dropouts on. Returns (prob,
+    uc): the mean of the members' softmaxes, and the mean of their
+    uncertainty maps (soft vote) or the strategy's formula on the mean
+    one-hot argmax votes (hard vote). The ``random`` strategy reads
+    ``member_scores`` (mc_n_steps, B, H, W), one draw per member, and in the
+    hard vote ``score`` (B, H, W). The accumulators are (B, H, W, C) and
+    (B, H, W) f32, as the JAX scan's carry; the hard vote's replaces the
+    soft vote's (B, H, W) one."""
+    hard = vote_type == "hard"
+    prob = acc = None
+    for m in range(mc_n_steps):
+        p = torch.softmax(_full_res_pred(model, x, mc_dropout_on=True), -1)
+        if hard:
+            a = torch.zeros_like(p).scatter_(-1, p.argmax(-1, keepdim=True),
+                                             1.0)
+        else:
+            a = uncertainty_map(p, strategy, None if member_scores is None
+                                else member_scores[m])
+        prob, acc = (p, a) if prob is None else (prob + p, acc + a)
+    prob = prob / mc_n_steps
+    if hard:
+        return prob, uncertainty_map(acc / mc_n_steps, strategy, score)
+    return prob, acc / mc_n_steps
+
+
 def make_score_fn(model, *, strategy: str, mean, std,
                   n_pixels: int, top_n_percent: float, reverse_order: bool,
-                  ignore_index: int) -> Callable:
-    """Build the batched pool-scoring function.
+                  ignore_index: int, mc_n_steps: int = 0,
+                  vote_type: str = "soft") -> Callable:
+    """Build the batched pool-scoring function; ``mc_n_steps > 0`` scores
+    with the MC-dropout committee (:func:`committee`).
 
     ``score_batch(batch, generator=None, uniforms=None)``, batch keys (all
     tensors on the model's device):
@@ -87,8 +125,10 @@ def make_score_fn(model, *, strategy: str, mean, std,
       y:        (B, H, W) int ground truth (oracle mode; all zeros in
                 human-label mode) — the void exclusion and the stats.
     ``uniforms`` may inject the draws: ``{"select": (B, H*W)}`` and, for the
-    random strategy, ``{"score": (B, H, W)}``; otherwise they are drawn
-    from ``generator`` (on the batch's device).
+    random strategy, ``{"score": (B, H, W)}`` (the plain sweep and the hard
+    vote) and ``{"member_scores": (mc_n_steps, B, H, W)}`` (the committee's
+    members); otherwise they are drawn from ``generator`` (on the batch's
+    device).
 
     Returns (indices (B, n_pixels) int64 flat, stats dict of tensors).
     """
@@ -105,10 +145,20 @@ def make_score_fn(model, *, strategy: str, mean, std,
             if strategy == "random":
                 uniforms["score"] = torch.rand(
                     (bsz, big_h, big_w), generator=generator, device=dev)
+                if mc_n_steps > 0:
+                    uniforms["member_scores"] = torch.rand(
+                        (mc_n_steps, bsz, big_h, big_w), generator=generator,
+                        device=dev)
 
         x = normalize_images(batch["x"], mean, std)
-        prob = torch.softmax(_full_res_pred(model, x), -1)
-        uc = uncertainty_map(prob, strategy, uniforms.get("score"))
+        if mc_n_steps > 0:
+            prob, uc = committee(model, x, strategy=strategy,
+                                 mc_n_steps=mc_n_steps, vote_type=vote_type,
+                                 member_scores=uniforms.get("member_scores"),
+                                 score=uniforms.get("score"))
+        else:
+            prob = torch.softmax(_full_res_pred(model, x), -1)
+            uc = uncertainty_map(prob, strategy, uniforms.get("score"))
         excluded = batch["excluded"] | (batch["y"] == ignore_index)
         uc = uc.masked_fill(excluded, fill_value(strategy))
         idx = _select_topk(uc.reshape(bsz, -1), uniforms.get("select"),

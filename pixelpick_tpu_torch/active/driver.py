@@ -14,9 +14,17 @@ Each round's model weights come from a generator seeded with
 ``(seed * 7919 + nth_query + 1) & 0x7FFFFFFF`` (``driver.py:199``), and its
 dropout masks from one seeded with that value ``^ 0x5EED``. The loss and the
 confusion matrix stay on the device through an epoch and are read once at
-its end. Not ported yet (``config.check_supported`` refuses them): the
-fully supervised mode, ``--micro_batch_size``, stage snapshots and
-``--resume_campaign``, ``--device_augment``, human labels, and meshes.
+its end.
+
+Round modes: ``--micro_batch_size M`` trains each loader batch as
+sequential bs-M updates (``engine/trainer.py:make_microbatch_train_step``;
+``driver.py:207-217, 390-437``); ``--n_pixels_by_us 0`` runs one fully
+supervised stage, ``fully_sup``, with the dense step and no query
+(``driver.py:135-137``); ``--use_mc_dropout`` scores the pool with the
+MC-dropout committee (``active/acquisition.py``). Not ported yet
+(``config.check_supported`` refuses them): stage snapshots and
+``--resume_campaign``, ``--pretrained_ckpt``, ``--device_augment``, human
+labels, and meshes.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from __future__ import annotations
 import os
 import time
 
+import numpy as np
 import torch
 
 from pixelpick_tpu_torch.active.selector import QuerySelector
@@ -32,9 +41,11 @@ from pixelpick_tpu_torch.data.loader import Loader
 from pixelpick_tpu_torch.engine.checkpoint import save_checkpoint
 from pixelpick_tpu_torch.engine.optim import make_optimizer
 from pixelpick_tpu_torch.engine.trainer import (
-    batch_to_device, make_eval_step, make_train_step,
+    batch_to_device, make_dense_train_step, make_eval_step,
+    make_microbatch_train_step, make_train_step,
 )
 from pixelpick_tpu_torch.models.factory import get_model, resolve_device
+from pixelpick_tpu_torch.parallel.mesh import pad_batch_to_devices
 from pixelpick_tpu_torch.utils.logging import write_log
 from pixelpick_tpu_torch.utils.metrics import AverageMeter, RunningScore
 from pixelpick_tpu_torch.utils.profiling import PhaseTimer, trace
@@ -61,9 +72,11 @@ class ALModel:
         self.dataset_query.n_pixels_total = self.dataset.n_pixels_total
         self.dataset_val = get_dataset(args, val=True, query=False)
 
-        self.loader = Loader(self.dataset, args.batch_size, mode="train",
+        self.fully_sup = args.n_pixels_by_us == 0
+        self.loader = Loader(self.dataset, args.batch_size,
+                             mode="train_dense" if self.fully_sup else "train",
                              shuffle=True, n_workers=args.n_workers,
-                             seed=args.seed)
+                             seed=args.seed, drop_unit=self._micro_bs() or None)
         self.loader_query = Loader(self.dataset_query, args.pool_batch_size,
                                    mode="query", n_workers=args.n_workers)
         self.loader_val = Loader(self.dataset_val,
@@ -82,6 +95,9 @@ class ALModel:
 
     def __call__(self):
         args = self.args
+        if self.fully_sup:
+            self._run_stage("fully_sup")
+            return
         n_stages = args.max_budget // args.n_pixels_by_us
         n_stages += 1 if args.n_init_pixels > 0 else 0
         print("n_stages:", n_stages)
@@ -115,9 +131,17 @@ class ALModel:
         model.set_dropout_generator(
             torch.Generator(device=self.device).manual_seed(seed ^ 0x5EED))
         self.model = model
-        optimizer = make_optimizer(args, model, len(self.loader))
-        step_fn = make_train_step(model, optimizer, n_classes=args.n_classes,
-                                  mean=args.mean, std=args.std)
+        micro = self._micro_bs()
+        optimizer = make_optimizer(args, model, self._iters_per_epoch())
+        kw = dict(n_classes=args.n_classes, mean=args.mean, std=args.std)
+        if self.fully_sup:
+            step_fn = make_dense_train_step(
+                model, optimizer, ignore_index=args.ignore_index, **kw)
+        elif micro:
+            step_fn = make_microbatch_train_step(model, optimizer,
+                                                 micro_bs=micro, **kw)
+        else:
+            step_fn = make_train_step(model, optimizer, **kw)
         eval_fn = make_eval_step(model, n_classes=args.n_classes,
                                  mean=args.mean, std=args.std)
 
@@ -148,8 +172,9 @@ class ALModel:
 
     def _train_epoch(self, epoch: int, step_fn):
         args = self.args
-        print(f"training epoch {epoch} of {self.nth_query}th query "
-              f"({self.dataset.n_pixels_total} labelled pixels)")
+        if not self.fully_sup:
+            print(f"training epoch {epoch} of {self.nth_query}th query "
+                  f"({self.dataset.n_pixels_total} labelled pixels)")
         self.loader.set_epoch(epoch)
         score = RunningScore(args.n_classes)
         self.running_loss.reset()
@@ -157,18 +182,31 @@ class ALModel:
         n_imgs = 0
         losses = []
         last_batch = None
+        micro = self._micro_bs()
         for batch in self.loader:
-            loss, hist = step_fn(batch_to_device(batch, self.device))
-            losses.append(loss)
+            n_real = batch["x"].shape[0]
+            if micro:
+                # a remainder megabatch (CamVid 367 % 48 = 31) pads to a
+                # micro multiple with inert rows; the step uploads it once
+                batch, n_real = pad_batch_to_devices(
+                    batch, pad_label=args.ignore_index,
+                    target_rows=-(-n_real // micro) * micro)
+                loss, hist = step_fn(batch)
+            else:
+                loss, hist = step_fn(batch_to_device(batch, self.device))
+            losses.append(loss.reshape(-1))
             score.merge(hist)
-            n_imgs += batch["x"].shape[0]
+            n_imgs += n_real
             last_batch = batch
             if args.debug:
                 break
-        # the epoch-mean loss, read from the device once (model.py:126,147)
+        # the epoch-mean loss over optimizer updates, read from the device
+        # once (model.py:126,147); NaN marks an all-pad micro-batch, which
+        # made no update
         if losses:
-            for v in torch.stack(losses).cpu().numpy():
-                self.running_loss.update(float(v))
+            for v in torch.cat(losses).cpu().numpy():
+                if np.isfinite(v):
+                    self.running_loss.update(float(v))
         scores = score.get_scores()[0]
         miou, pixel_acc = scores["Mean IoU"], scores["Pixel Acc"]
         dt = time.time() - t0
@@ -205,12 +243,43 @@ class ALModel:
             render_vis_panels(self.vis, batch["x"][0], batch["y"][0], vis,
                               f"{dir_stage}/{epoch}_val.png")
 
+    def _micro_bs(self) -> int:
+        """--micro_batch_size (0: one update per batch), inert in the fully
+        supervised mode; it must divide --batch_size, so that megabatches
+        split at the reference's bs-micro boundaries (``driver.py:390-415``).
+        On one device the remainder pads to a multiple of it
+        (``_train_pad_multiple``, ``driver.py:416-437``)."""
+        micro = int(getattr(self.args, "micro_batch_size", 0) or 0)
+        if not micro or self.args.n_pixels_by_us == 0:
+            return 0
+        if self.args.batch_size % micro != 0:
+            raise ValueError(
+                f"--micro_batch_size {micro} must divide --batch_size "
+                f"{self.args.batch_size}: the megabatch scan partitions "
+                f"each batch into whole micro-updates (the reference bs-"
+                f"{micro} schedule); a non-divisor would pad every batch "
+                f"with duplicate rows and change the BN moments")
+        return micro
+
+    def _iters_per_epoch(self) -> int:
+        """Optimizer updates per epoch, which the LR schedule steps by:
+        ceil(rows / micro) per loader batch under micro-batching lands on
+        the reference's bs-micro count (CamVid 367 at bs 48 / micro 4:
+        7 x 12 + 8 = 92 = ceil(367 / 4); ``driver.py:207-217``)."""
+        micro = self._micro_bs()
+        if not micro:
+            return len(self.loader)
+        return sum(-(-len(ix) // micro)
+                   for ix in self.loader.batch_index_plan(0))
+
     def _visualise(self, eval_fn, batch, fp: str) -> None:
         """6-panel PNG of image 0 of a train batch (model.py:150-158),
-        computed by the eval step; train batches carry no dense target."""
-        x0 = batch["x"][:1]
+        computed by the eval step; sparse-label batches carry no dense
+        target, dense ones show theirs."""
+        x0, y = batch["x"][:1], batch.get("y")
+        y0 = np.zeros(x0.shape[:3], np.int32) if y is None else y[:1]
         feed = {"x": torch.from_numpy(x0).to(self.device),
-                "y": torch.zeros(x0.shape[:3], dtype=torch.int32,
-                                 device=self.device)}
+                "y": torch.from_numpy(y0.astype(np.int32)).to(self.device)}
         _, _, vis = eval_fn(feed)
-        render_vis_panels(self.vis, x0[0], None, vis, fp)
+        render_vis_panels(self.vis, x0[0], None if y is None else y[0], vis,
+                          fp)

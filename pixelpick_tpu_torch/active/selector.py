@@ -4,7 +4,10 @@ Counterpart of ``pixelpick_tpu/active/selector.py`` (reference
 ``query.py:12-221``): ``QuerySelector(args, loader, model, device)(nth_query,
 human_labels)`` scores the pool batch by batch with
 ``acquisition.make_score_fn``, returns the encoded query dict and, in oracle
-mode, dumps the round's stats and labels the pool dataset's masks.
+mode, dumps the round's stats and labels the pool dataset's masks. With
+``--use_mc_dropout`` the MC-dropout committee scores (``mc_n_steps``
+members, ``--vote_type``; ``selector.py:55-56``), its dropout masks drawn
+from the round's generator.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ class QuerySelector:
         self.model = model
         self.device = torch.device(device)
         self.seed = args.seed
+        self.mc_n_steps = args.mc_n_steps if args.use_mc_dropout else 0
         self._score_fn = make_score_fn(
             model,
             strategy=args.query_strategy,
@@ -34,6 +38,8 @@ class QuerySelector:
             top_n_percent=args.top_n_percent,
             reverse_order=args.reverse_order,
             ignore_index=args.ignore_index,
+            mc_n_steps=self.mc_n_steps,
+            vote_type=args.vote_type,
         )
 
     def __call__(self, nth_query: int,
@@ -43,6 +49,9 @@ class QuerySelector:
         dict_queries: Dict[str, dict] = {}
         generator = torch.Generator(device=self.device).manual_seed(
             (self.seed * 1_000_003 + nth_query) & 0x7FFFFFFF)
+        if self.mc_n_steps:
+            # the committee's dropout masks draw from the round's stream too
+            self.model.set_dropout_generator(generator)
 
         n_pixels_total = 0
         sample_idx = 0

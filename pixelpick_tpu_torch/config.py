@@ -231,14 +231,9 @@ def check_supported(args: Namespace) -> None:
     missing = []
     if args.network_name == "FPN":
         missing.append("--network_name FPN (Queue 1: FPN/ResNet)")
-    if args.use_mc_dropout:
-        missing.append("--use_mc_dropout (Queue 1: MC-dropout committee)")
-    if args.n_pixels_by_us == 0:
-        missing.append("--n_pixels_by_us 0, the fully supervised dense step "
-                       "(Queue 1: the dense step)")
-    if args.micro_batch_size > 0:
-        missing.append("--micro_batch_size > 0 (Queue 1: the micro-batch "
-                       "scan step)")
+    if args.pretrained_ckpt:
+        missing.append("--pretrained_ckpt (Queue 1 item 5: stage snapshots, "
+                       "resume, and the JAX checkpoint files)")
     if args.stage_ckpt_interval:
         missing.append("--stage_ckpt_interval (Queue 1: stage snapshots "
                        "and resume)")

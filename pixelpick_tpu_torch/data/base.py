@@ -12,7 +12,8 @@ Counterpart of ``pixelpick_tpu/data/base.py`` (reference
   ``void_filter`` is off, cached on disk (``camvid.py:50-96``);
 - ``train_sample``: co-augmented (``data/augment.py``) image, label and
   query mask, then the labelled pixels as sparse coordinates
-  (``extract_sparse_labels``) for the sparse-label train step
+  (``extract_sparse_labels``) for the sparse-label train step, or with
+  ``fully_sup`` the augmented dense label map for the dense step
   (``base.py:286-323``);
 - ``val_sample`` / ``query_sample``: uint8 images and int32 labels, decoded
   once and cached in RAM; normalisation happens on the device
@@ -195,9 +196,11 @@ class SegDatasetBase:
         return random.Random(
             (int(self.seed) * 1_000_003 + int(epoch)) * 1_000_003 + int(index))
 
-    def train_sample(self, i: int, epoch: int) -> dict:
+    def train_sample(self, i: int, epoch: int, fully_sup: bool = False) -> dict:
         """Augmented sample with sparse labels: x uint8 (H, W, 3), coords
-        (k_max, 2), labels (k_max,), valid (k_max,)."""
+        (k_max, 2), labels (k_max,), valid (k_max,); with ``fully_sup`` the
+        same augmentation without query masks, returning x and the dense
+        label map y int32 (H, W)."""
         from pixelpick_tpu_torch.data.augment import (
             geometric_augment, photometric_augment,
         )
@@ -206,11 +209,14 @@ class SegDatasetBase:
         x = Image.fromarray(self._load_x(i))
         y = Image.fromarray(self._load_y(i).astype(np.int32), mode="I")
         x, y_np, q_np, _ = geometric_augment(
-            x, y, self.queries[i], None, rng, crop_size=self.crop_size,
-            mean_fill=self.mean_fill, ignore_index=self.ignore_index,
+            x, y, None if fully_sup else self.queries[i], None, rng,
+            crop_size=self.crop_size, mean_fill=self.mean_fill,
+            ignore_index=self.ignore_index,
             enabled=self.geometric_augmentations)
         x = photometric_augment(x, rng, jitter=self.jitter,
                                 enabled=self.photometric_augmentations)
+        if fully_sup:
+            return {"x": np.asarray(x, dtype=np.uint8), "y": y_np}
         coords, labels, valid = extract_sparse_labels(
             q_np, y_np, self.ignore_index, self.k_max)
         return {"x": np.asarray(x, dtype=np.uint8), "coords": coords,

@@ -5,11 +5,14 @@ reference's ``torch.utils.data.DataLoader``, ``utils/utils.py:102-108``):
 worker threads decode samples while the device computes, and batches are
 collated into contiguous NumPy arrays. The train mode shuffles per epoch
 (``batch_index_plan``, ``loader.py:143-161``) and drops the last shuffled
-image only when ``n % batch_size == 1`` (the reference's drop-last,
-``utils/utils.py:107``); val and query loaders keep dataset order and drop
-nothing. Augmentation draws from a per-(epoch, index) stream, so batches do
-not depend on thread scheduling. The dense train mode and the shape buckets
-of variable-size pools come later (ROADMAP.md, Queue 1).
+image only when ``n % drop_unit == 1`` (the reference's drop-last,
+``utils/utils.py:107``, at the update size: ``drop_unit`` is the batch size,
+or the micro-batch size of a megabatch schedule, ``loader.py:66-88``); val
+and query loaders keep dataset order and drop nothing. The train modes are
+``train`` (sparse labels) and ``train_dense`` (the full label map, for the
+fully supervised step). Augmentation draws from a per-(epoch, index)
+stream, so batches do not depend on thread scheduling. The shape buckets of
+variable-size pools come later (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -25,12 +28,13 @@ def collate(samples: List[dict]) -> Dict[str, np.ndarray]:
 
 
 class Loader:
-    """mode: 'train' | 'val' | 'query'."""
+    """mode: 'train' | 'train_dense' | 'val' | 'query'."""
 
     def __init__(self, dataset, batch_size: int, mode: str = "query",
                  n_workers: int = 4, human_labels: bool = False,
-                 prefetch: int = 2, shuffle: bool = False, seed: int = 0):
-        if mode not in ("train", "val", "query"):
+                 prefetch: int = 2, shuffle: bool = False, seed: int = 0,
+                 drop_unit: int = None):
+        if mode not in ("train", "train_dense", "val", "query"):
             raise NotImplementedError(f"loader mode {mode!r} is not ported "
                                       "yet (ROADMAP.md, Queue 1)")
         if mode == "train" and human_labels:
@@ -44,7 +48,11 @@ class Loader:
         self.shuffle = shuffle
         self.seed = seed
         self.epoch = 0
-        self.drop_last = mode == "train" and len(dataset) % batch_size == 1
+        # the drop-last rule at the update size: a megabatch schedule
+        # (--micro_batch_size M) drops what the reference's bs-M run drops
+        self.drop_unit = drop_unit or batch_size
+        self.drop_last = (mode in ("train", "train_dense")
+                          and len(dataset) % self.drop_unit == 1)
         # separate pools: a batch task must never wait on sample tasks
         # queued behind it in its own pool
         self._pool = ThreadPoolExecutor(max_workers=max(1, n_workers))
@@ -76,6 +84,9 @@ class Loader:
         if self.shuffle:
             np.random.RandomState(self.seed * 100003 + epoch).shuffle(order)
         if self.drop_last:
+            # the rule fires for one trailing image only, so dropping the
+            # last shuffled image is the reference's dropped batch at any
+            # drop_unit
             order = order[:-1]
         return [order[i:i + self.batch_size]
                 for i in range(0, len(order), self.batch_size)]
@@ -83,6 +94,8 @@ class Loader:
     def _fetch(self, i: int) -> dict:
         if self.mode == "train":
             return self.dataset.train_sample(i, self.epoch)
+        if self.mode == "train_dense":
+            return self.dataset.train_sample(i, self.epoch, fully_sup=True)
         if self.mode == "val":
             return self.dataset.val_sample(i)
         return self.dataset.query_sample(i, human_labels=self.human_labels)

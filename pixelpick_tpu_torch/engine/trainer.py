@@ -11,6 +11,11 @@ Counterpart of ``pixelpick_tpu/engine/trainer.py``:
   backward, optimizer update (``make_train_step``/``_jit_step``,
   ``trainer.py:125-133, 210-226``). The loss and the confusion matrix stay on
   the device; nothing syncs the host per step;
+- :func:`make_microbatch_train_step`: sequential bs-M updates over one
+  megabatch uploaded once (``trainer.py:136-227``), the reference's bs-M
+  schedule at a larger loader batch;
+- :func:`make_dense_train_step`: the fully supervised step, cross-entropy
+  over the full-resolution label map (``trainer.py:229-255``);
 - :func:`make_eval_step`: full-resolution argmax and confusion matrix, and
   one image's visualisation maps (``trainer.py:256-293``).
 """
@@ -93,6 +98,89 @@ def make_train_step(model, optimizer, *, n_classes: int, mean, std,
         loss, hist = sparse_ce_and_hist(
             out["pred"], batch["coords"], batch["labels"], batch["valid"],
             batch["x"].shape[1:3], n_classes, gather_impl=gather_impl)
+        optimizer.zero_grad()
+        loss.backward()
+        optimizer.step()
+        return loss.detach(), hist
+
+    return train_step
+
+
+def make_microbatch_train_step(model, optimizer, *, micro_bs: int,
+                               n_classes: int, mean, std,
+                               gather_impl: str = "matmul") -> Callable:
+    """Megabatch step: ``B // micro_bs`` sequential bs-``micro_bs`` updates,
+    each :func:`make_train_step`'s body on rows ``[m*M, (m+1)*M)``.
+
+    ``train_step(batch)`` takes the HOST batch (NumPy, the sparse keys of
+    :func:`make_train_step`, B a multiple of ``micro_bs``; the driver pads a
+    remainder with ``parallel/mesh.py:pad_batch_to_devices``), uploads it
+    once and returns ``(losses (n_micro,), hist summed)`` on the device.
+
+    As the JAX scan: the same update count, sample order, per-update
+    BatchNorm moments, optimizer and schedule stepping and dropout draws
+    (from the model's generator, once per update, in update order) as
+    ``n_micro`` separate bs-``micro_bs`` steps. Pad rows join the final
+    micro-batch's BatchNorm moments (``trainer.py:155-158``). A
+    micro-batch with no valid entry is a true no-op: no forward (the
+    running statistics stay), no optimizer step (its count, the schedule
+    and the moments stay), and NaN in its loss slot, which the driver's
+    epoch mean skips. That is decided from the host copy of ``valid``, so
+    nothing syncs the device per micro-batch."""
+    step = make_train_step(model, optimizer, n_classes=n_classes, mean=mean,
+                           std=std, gather_impl=gather_impl)
+
+    def train_step(batch):
+        b = batch["x"].shape[0]
+        if b % micro_bs:
+            raise ValueError(f"a megabatch of {b} rows is not a multiple of "
+                             f"the micro-batch size {micro_bs}")
+        any_real = batch["valid"].reshape(b // micro_bs, -1).any(1)
+        device = next(model.parameters()).device
+        dev = batch_to_device(batch, device)
+        losses = []
+        hist = torch.zeros((n_classes, n_classes), dtype=torch.long,
+                           device=device)
+        for m, real in enumerate(any_real):
+            if not real:
+                losses.append(torch.full((), float("nan"), device=device))
+                continue
+            rows = slice(m * micro_bs, (m + 1) * micro_bs)
+            loss, h = step({k: v[rows] for k, v in dev.items()})
+            losses.append(loss)
+            hist = hist + h
+        return torch.stack(losses), hist
+
+    return train_step
+
+
+def make_dense_train_step(model, optimizer, *, n_classes: int,
+                          ignore_index: int, mean, std) -> Callable:
+    """Fully supervised train step (``n_pixels_by_us == 0``; reference
+    ``model.py:108-126``): batch keys x uint8 (B, H, W, 3) and y int
+    (B, H, W). The train-mode logits, in f32, resized align-corners to the
+    full resolution; the mean log-softmax cross-entropy over the pixels
+    with ``y != ignore_index`` and ``0 <= y < n_classes``, divided by
+    max(their count, 1); the full-resolution confusion matrix; then the
+    optimizer update. JAX calls the model with ``upsample=True``, which
+    also resizes the embedding the loss never reads; here ``pred`` alone
+    is resized, so loss and gradients are the same. Returns (loss, hist) on
+    the device."""
+
+    def train_step(batch):
+        model.train()
+        x = normalize_images(batch["x"], mean, std)
+        logits = model(x, upsample=False)["pred"].float()
+        if logits.shape[1:3] != x.shape[1:3]:
+            logits = resize_align_corners(logits, x.shape[1:3])
+        y = batch["y"].long()
+        valid = (y != ignore_index) & (y >= 0) & (y < n_classes)
+        logp = torch.log_softmax(logits, -1)
+        ll = torch.gather(logp, -1, y.clamp(0, n_classes - 1)[..., None])
+        validf = valid.float()
+        loss = -(ll[..., 0] * validf).sum() / validf.sum().clamp(min=1)
+        hist = confusion_matrix(torch.where(valid, y, torch.full_like(y, -1)),
+                                logits.argmax(-1), n_classes)
         optimizer.zero_grad()
         loss.backward()
         optimizer.step()

@@ -5,7 +5,8 @@ Counterpart of ``pixelpick_tpu/models/aspp.py``: four atrous branches
 branch, concatenated 5x256 -> 1x1 conv 256. The reference's bilinear
 align-corners upsample of the 1x1 pooled map is a broadcast
 (``aspp.py:44-50``). The output passes ``Dropout(0.5)`` (``aspp.py:56``),
-active in train mode. Module names follow the reference.
+active in train mode or under ``mc_dropout_on`` (the MC-dropout committee).
+Module names follow the reference.
 """
 
 from __future__ import annotations
@@ -55,8 +56,10 @@ class ASPP(nn.Module):
         self.bn1 = BatchNorm(256, dtype, groups=bn_groups)
         self.dropout = Dropout(0.5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                mc_dropout_on: bool = False) -> torch.Tensor:
         branches = [getattr(self, f"aspp{i}")(x) for i in range(1, 5)]
         branches.append(self.global_avg_pool(x).expand_as(branches[0]))
         h = torch.cat(branches, dim=1)  # 1280
-        return self.dropout(F.relu(self.bn1(self.conv1(h))))
+        return self.dropout(F.relu(self.bn1(self.conv1(h))),
+                            active=self.training or mc_dropout_on)

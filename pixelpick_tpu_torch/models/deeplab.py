@@ -15,8 +15,10 @@ Counterpart of ``pixelpick_tpu/models/deeplab.py`` (reference
 (``deeplab.py:99-100``), which the sparse train loss reads. The model takes
 and returns NHWC, the JAX layout; inside it runs NCHW in ``channels_last``
 memory format, so the permutes at either end are views. The dropouts are
-active in train mode and draw from the generator that
-``set_dropout_generator`` installs.
+active in train mode, and ASPP's and the head's also under
+``mc_dropout_on`` (the MC-dropout committee scores in eval mode, BatchNorm
+on its running statistics; ``deeplab.py:46, 50-51``). They draw from the
+generator that ``set_dropout_generator`` installs.
 """
 
 from __future__ import annotations
@@ -51,8 +53,11 @@ class SegmentHead(nn.Module):
             Dropout(mc_dropout_p))
         self.classifier = conv(256, n_classes, 1, bias=True, dtype=dtype)
 
-    def forward(self, x: torch.Tensor):
-        emb = self.segment_head(x)
+    def forward(self, x: torch.Tensor, mc_dropout_on: bool = False):
+        emb = x
+        for m in self.segment_head:
+            emb = m(emb, active=self.training or mc_dropout_on) \
+                if isinstance(m, Dropout) else m(emb)
         return emb, self.classifier(emb)
 
 
@@ -60,10 +65,12 @@ class DeepLab(nn.Module):
     def __init__(self, n_classes: int, output_stride: int = 16,
                  width_mult: float = 1.0, dtype=torch.float32,
                  mc_dropout_p: float = 0.2, bn_groups: int = 0,
-                 fused_ir: bool = False):
+                 fused_ir: bool = False, mc_dropout: bool = False,
+                 mc_dropout2d_committee: bool = False):
         super().__init__()
         self.backbone = MobileNetV2(output_stride, width_mult, dtype,
-                                    bn_groups, fused_ir)
+                                    bn_groups, fused_ir, mc_dropout,
+                                    mc_dropout_p, mc_dropout2d_committee)
         self.aspp = ASPP(self.backbone.out_channels, output_stride, dtype,
                          bn_groups)
         self.low_level_conv = nn.Sequential(
@@ -79,17 +86,18 @@ class DeepLab(nn.Module):
             if isinstance(m, Dropout):
                 m.generator = generator
 
-    def forward(self, x: torch.Tensor,
-                upsample: bool = True) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, upsample: bool = True,
+                mc_dropout_on: bool = False) -> Dict[str, torch.Tensor]:
         """x: (B, H, W, 3) normalised NHWC. Returns NHWC ``pred`` and
         ``emb``, at (H, W) in f32, or at 1/4 resolution in the compute dtype
-        when ``upsample`` is False."""
-        high, low = self.backbone(x.permute(0, 3, 1, 2))
-        a = self.aspp(high)
+        when ``upsample`` is False. ``mc_dropout_on``: a committee member's
+        forward (dropouts on in eval mode)."""
+        high, low = self.backbone(x.permute(0, 3, 1, 2), mc_dropout_on)
+        a = self.aspp(high, mc_dropout_on)
         ll = self.low_level_conv(low)
         a = resize_align_corners(_nhwc(a), ll.shape[2:]).permute(0, 3, 1, 2)
         h = torch.cat([a, ll], dim=1)  # [256 | 48] (deeplab.py:50)
-        emb, pred = self.seg_head(h)
+        emb, pred = self.seg_head(h, mc_dropout_on)
         if not upsample:
             return {"pred": _nhwc(pred), "emb": _nhwc(emb)}
         out_hw = x.shape[1:3]

@@ -59,7 +59,10 @@ def get_model(args, device=None, seed=None) -> DeepLab:
                     dtype=compute_dtype(args),
                     mc_dropout_p=getattr(args, "mc_dropout_p", 0.2),
                     bn_groups=int(getattr(args, "bn_group_size", 0) or 0),
-                    fused_ir=bool(getattr(args, "fused_ir", False)))
+                    fused_ir=bool(getattr(args, "fused_ir", False)),
+                    mc_dropout=bool(getattr(args, "use_mc_dropout", False)),
+                    mc_dropout2d_committee=bool(
+                        getattr(args, "mc_dropout2d_committee", False)))
     init_model(model, args.seed if seed is None else seed)
     device = resolve_device(device if device is not None else args.device)
     return model.to(device=device, memory_format=torch.channels_last).eval()

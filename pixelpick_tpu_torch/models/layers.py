@@ -116,7 +116,9 @@ class ReLU6(nn.Module):
 
 class Dropout(nn.Module):
     """Inverted dropout as flax's ``nn.Dropout``: keep with probability
-    1 - p and scale by 1 / (1 - p); identity in eval mode or at p = 0.
+    1 - p and scale by 1 / (1 - p); identity when inactive or at p = 0.
+    It is active in train mode, or where the caller passes ``active=True``
+    (the MC-dropout committee scores in eval mode with its dropouts on).
     ``broadcast_hw`` drops whole feature maps (``Dropout2d``). The mask is
     drawn from ``self.generator`` (set by ``DeepLab.set_dropout_generator``)
     or, when none is set, from torch's default generator."""
@@ -127,8 +129,9 @@ class Dropout(nn.Module):
         self.broadcast_hw = broadcast_hw
         self.generator: Optional[torch.Generator] = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training or self.p == 0:
+    def forward(self, x: torch.Tensor,
+                active: Optional[bool] = None) -> torch.Tensor:
+        if not (self.training if active is None else active) or self.p == 0:
             return x
         shape = (*x.shape[:2], 1, 1) if self.broadcast_hw else x.shape
         u = torch.rand(shape, generator=self.generator, device=x.device)

@@ -15,8 +15,14 @@ Module names follow the reference (``features.0`` the stem,
 ``features.{i+1}.conv.{j}`` the blocks), which is the layout
 ``pixelpick_tpu.models.convert.convert_deeplab`` reads. With ``fused_ir``
 the stride-1 t=6 blocks are ``FusedIRBlock``s (``models/fused_block.py``),
-which keep ``InvertedResidual``'s names (``mobilenet_v2.py:165-170``). The
-MC-dropout sites come with the MC-dropout committee (ROADMAP.md, Queue 1).
+which keep ``InvertedResidual``'s names (``mobilenet_v2.py:165-170``).
+
+With ``mc_dropout`` (``--use_mc_dropout``) two ``Dropout2d`` sites follow
+the features, ``feat_dropout`` on the high-level and ``low_dropout`` on the
+low-level ones (``mobilenet_v2.py:181-186``). They are active in train mode,
+and in committee scoring only with ``mc_dropout2d_committee``: the
+reference's ``turn_on_dropout`` re-enables ``nn.Dropout`` modules only, and
+``nn.Dropout2d`` is not one (``mobilenet_v2.py:101-102``).
 """
 
 from __future__ import annotations
@@ -26,7 +32,9 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 
-from pixelpick_tpu_torch.models.layers import BatchNorm, ReLU6, conv, fixed_pad
+from pixelpick_tpu_torch.models.layers import (
+    BatchNorm, Dropout2d, ReLU6, conv, fixed_pad,
+)
 
 # (expand_ratio t, channels c, repeats n, stride s) — mobilenet_v2.py:82-91
 INVERTED_RESIDUAL_SETTINGS = (
@@ -91,7 +99,9 @@ class InvertedResidual(nn.Module):
 class MobileNetV2(nn.Module):
     def __init__(self, output_stride: int = 16, width_mult: float = 1.0,
                  dtype=torch.float32, bn_groups: int = 0,
-                 fused_ir: bool = False):
+                 fused_ir: bool = False, mc_dropout: bool = False,
+                 mc_dropout_p: float = 0.2,
+                 mc_dropout2d_committee: bool = False):
         super().__init__()
         from pixelpick_tpu_torch.models.fused_block import FusedIRBlock
 
@@ -109,8 +119,13 @@ class MobileNetV2(nn.Module):
             blocks.append(block(inp, oup, stride, d, t, dtype=dtype,
                                 bn_groups=bn_groups))
         self.features = nn.Sequential(stem, *blocks)
+        self.mc_dropout2d_committee = mc_dropout2d_committee
+        if mc_dropout:
+            self.feat_dropout = Dropout2d(mc_dropout_p)
+            self.low_dropout = Dropout2d(mc_dropout_p)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, mc_dropout_on: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """NCHW in; returns (high_level 1/16, low_level 1/4)."""
         h = self.features[0](x)
         low = None
@@ -118,4 +133,9 @@ class MobileNetV2(nn.Module):
             h = block(h)
             if i == 2:  # features[0:4] = stem + blocks 0..2 (:125)
                 low = h
+        if hasattr(self, "feat_dropout"):
+            on = self.training or (mc_dropout_on
+                                   and self.mc_dropout2d_committee)
+            h = self.feat_dropout(h, active=on)
+            low = self.low_dropout(low, active=on)
         return h, low

@@ -133,18 +133,39 @@ def test_flag_surface_matches_jax():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--network_name", "FPN"], ["--use_mc_dropout"],
-    ["--micro_batch_size", "2"],
+    ["--network_name", "FPN"], ["--pretrained_ckpt", "backbone.ckpt"],
+    ["--s2d_backbone", "true"],
     ["--s2d_backbone", "1"], ["--conv3x3_matmul"],
     ["--spatial_query_sharding"], ["--dist_coordinator", "localhost:1"],
     ["--data_parallel", "2"], ["--dataset_name", "cs"],
-    ["--dataset_name", "voc"], ["--n_pixels_by_us", "0"],
+    ["--dataset_name", "voc"], ["--dataset_name", "cs", "--n_pixels_by_us",
+                                "0"],
     ["--stage_ckpt_interval", "1"], ["--resume_campaign"],
     ["--device_augment"]])
 def test_unported_flags_raise(flags):
     args = config.build_parser().parse_args(flags)
     with pytest.raises(NotImplementedError, match="ROADMAP|Queue"):
         config.check_supported(args)
+
+
+def test_pretrained_ckpt_is_refused_by_main_al(tmp_path):
+    """``--pretrained_ckpt`` through ``cli/main_al.py``'s argument path
+    raises, naming ROADMAP Queue 1 item 5, where the JAX checkpoint overlay
+    comes; it is not quietly ignored."""
+    from pixelpick_tpu_torch.cli.main_al import main
+
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        main(["--device", "cpu", "--dir_checkpoints", str(tmp_path),
+              "--pretrained_ckpt", str(tmp_path / "backbone.ckpt")])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--use_mc_dropout"], ["--micro_batch_size", "2"],
+    ["--n_pixels_by_us", "0"]])
+def test_ported_round_modes_pass(flags):
+    """The micro-batch step, the dense step and the MC-dropout committee
+    are ported: their flags pass the check."""
+    config.check_supported(config.build_parser().parse_args(flags))
 
 
 def test_cuda_without_a_card_raises():

@@ -36,7 +36,6 @@ largest three-step move plus 1e-6 of their largest |value|; running
 statistics 1e-4 of their largest |value| (at least 1).
 """
 
-from types import SimpleNamespace
 
 import flax.linen
 import numpy as np
@@ -54,59 +53,14 @@ from pixelpick_tpu_torch.engine import optim, trainer
 from pixelpick_tpu_torch.models import layers
 from pixelpick_tpu_torch.models.convert import state_dict_from_jax
 from pixelpick_tpu_torch.models.deeplab import DeepLab
-from pixelpick_tpu_torch.ops import fused_ir
-from torch_helpers import jax_deeplab_variables
+from torch_helpers import (
+    BS, HW, N_CLASSES, jax_deeplab_variables, record_kink_margins,
+    sgd_args, sparse_batches, well_conditioned,
+)
 
-N_CLASSES, WIDTH, HW, BS, K = 11, 0.5, (48, 64), 4, 12
+WIDTH = 0.5
 MEAN, STD = (0.41, 0.43, 0.44), (0.28, 0.29, 0.29)
 ITERS = 5
-
-
-def _batches(n, seed=0):
-    """Random picks on images of distinct content: an 8x8-pixel random
-    mosaic per image, plus noise."""
-    rng = np.random.default_rng(seed)
-    out = []
-    for _ in range(n):
-        valid = rng.random((BS, K)) < 0.8
-        valid[:, 0] = True
-        mosaic = np.kron(rng.uniform(0, 255, (BS, HW[0] // 8, HW[1] // 8, 3)),
-                         np.ones((1, 8, 8, 1)))
-        x = mosaic + rng.normal(0, 20, (BS, *HW, 3))
-        out.append({
-            "x": np.clip(x, 0, 255).astype(np.uint8),
-            "coords": np.stack([rng.integers(0, HW[0], (BS, K)),
-                                rng.integers(0, HW[1], (BS, K))],
-                               -1).astype(np.int32),
-            "labels": rng.integers(0, N_CLASSES, (BS, K)).astype(np.int32),
-            "valid": valid,
-        })
-    return out
-
-
-def _opt_args():
-    """SGD (the table's rates: backbone 1e-3, heads 1e-2; momentum 0.9,
-    coupled weight decay 5e-4) under the MultiStep schedule."""
-    return SimpleNamespace(
-        optimizer_type="SGD", lr_scheduler_type="MultiStepLR", n_epochs=50,
-        optimizer_params={"lr": 5e-4}, dataset_name="cv",
-        network_name="deeplab")
-
-
-def _well_conditioned(tree, rng):
-    """BatchNorm scale in [0.3, 0.6] and bias in [2.5, 3.5]; every conv
-    kernel (HWIO) minus its mean over its inputs."""
-    if "scale" in tree and "bias" in tree:
-        c = tree["scale"].shape[0]
-        return {"scale": rng.uniform(0.3, 0.6, c).astype(np.float32),
-                "bias": rng.uniform(2.5, 3.5, c).astype(np.float32)}
-    out = {k: _well_conditioned(v, rng) if isinstance(v, dict) else v
-           for k, v in tree.items()}
-    if "kernel" in out and out["kernel"].ndim == 4:
-        k = out["kernel"]
-        out["kernel"] = (k - k.mean((0, 1, 2), keepdims=True)) \
-            .astype(np.float32)
-    return out
 
 
 @pytest.fixture(scope="module")
@@ -122,7 +76,7 @@ def _run_jax(params, stats, batches, fused, monkeypatch):
     model = JaxDeepLab(n_classes=N_CLASSES, width_mult=WIDTH, fused_ir=fused)
     params = jax.tree.map(jnp.asarray, params)
     stats = jax.tree.map(jnp.asarray, stats)
-    tx = jax_optim.make_optimizer(_opt_args(), params, ITERS)
+    tx = jax_optim.make_optimizer(sgd_args(), params, ITERS)
     loss_fn = jax_trainer._sparse_loss_fn(
         model, n_classes=N_CLASSES, mean=MEAN, std=STD, normalize=True,
         gather_impl="matmul")
@@ -155,48 +109,22 @@ def _port_model(params, stats, fused):
     return model.to(memory_format=torch.channels_last)
 
 
-def _record_kink_margins(monkeypatch):
-    """Record, for every train-mode BatchNorm output of the port (the
-    inputs of its ReLUs and ReLU6s), the least distance to 0 or 6."""
-    margins = []
-
-    def margin(y):
-        y = y.detach().float()
-        margins.append(float(torch.minimum(y.abs(), (y - 6).abs()).min()))
-
-    bn_train, fused_bn = layers.ghost_bn_train, fused_ir._bn
-
-    def bn_recorded(*a):
-        out = bn_train(*a)
-        margin(out[0])
-        return out
-
-    def fused_bn_recorded(*a):
-        out = fused_bn(*a)
-        margin(out)
-        return out
-
-    monkeypatch.setattr(layers, "ghost_bn_train", bn_recorded)
-    monkeypatch.setattr(fused_ir, "_bn", fused_bn_recorded)
-    return margins
-
-
 @pytest.mark.parametrize("fused", [False, True])
 def test_three_train_steps_match_jax(variables, fused, monkeypatch):
     params, stats = variables
-    params = _well_conditioned(params, np.random.default_rng(102))
-    batches = _batches(3)
+    params = well_conditioned(params, np.random.default_rng(102))
+    batches = sparse_batches(3)
     steps_j, final_j = _run_jax(params, stats, batches, fused, monkeypatch)
 
     model = _port_model(params, stats, fused)
     start = {k: v.clone() for k, v in model.state_dict().items()}
     args = default_args(device="cpu")
     args.optimizer_type = "SGD"
-    args.optimizer_params = _opt_args().optimizer_params
+    args.optimizer_params = sgd_args().optimizer_params
     opt = optim.make_optimizer(args, model, ITERS)
     step = trainer.make_train_step(model, opt, n_classes=N_CLASSES,
                                    mean=MEAN, std=STD)
-    margins = _record_kink_margins(monkeypatch)
+    margins = record_kink_margins(monkeypatch)
     for i, (b, (loss_j, hist_j, grads_j)) in enumerate(zip(batches, steps_j)):
         margins.clear()
         loss, hist = step(trainer.batch_to_device(b, "cpu"))
@@ -238,7 +166,7 @@ def fused_ir_block_type():
 def test_sparse_ce_and_hist_matches_jax(gather_impl):
     rng = np.random.default_rng(3)
     logits = rng.standard_normal((BS, 12, 16, N_CLASSES)).astype(np.float32)
-    b = _batches(1, seed=4)[0]
+    b = sparse_batches(1, seed=4)[0]
     b["labels"][:, 1] = 11  # void picks: kept, not valid
     b["valid"][:, 1] = False
     loss_j, hist_j = jax_trainer.sparse_ce_and_hist(

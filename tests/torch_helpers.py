@@ -1,7 +1,14 @@
 """Shared fixtures of the PyTorch-port tests: JAX DeepLab variables with
-random BatchNorm statistics, as NumPy trees, for the weight bridge."""
+random BatchNorm statistics, as NumPy trees, for the weight bridge; and the
+train-step tests' sparse batches, SGD settings, well-conditioned weights
+and ReLU-kink margin recorder (tests/test_torch_train_step.py says why)."""
+
+from types import SimpleNamespace
 
 import numpy as np
+import pytest
+
+N_CLASSES, HW, BS, K = 11, (48, 64), 4, 12
 
 
 def randomise_bn(tree, rng):
@@ -50,3 +57,95 @@ def port_deeplab(params, stats, n_classes, width_mult):
     model = DeepLab(n_classes, width_mult=width_mult)
     model.load_state_dict(state_dict_from_jax(params, stats))
     return model.to(memory_format=torch.channels_last).eval()
+
+
+def sparse_batches(n, seed=0, bs=BS):
+    """Random picks on images of distinct content: an 8x8-pixel random
+    mosaic per image, plus noise."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        valid = rng.random((bs, K)) < 0.8
+        valid[:, 0] = True
+        mosaic = np.kron(rng.uniform(0, 255, (bs, HW[0] // 8, HW[1] // 8, 3)),
+                         np.ones((1, 8, 8, 1)))
+        x = mosaic + rng.normal(0, 20, (bs, *HW, 3))
+        out.append({
+            "x": np.clip(x, 0, 255).astype(np.uint8),
+            "coords": np.stack([rng.integers(0, HW[0], (bs, K)),
+                                rng.integers(0, HW[1], (bs, K))],
+                               -1).astype(np.int32),
+            "labels": rng.integers(0, N_CLASSES, (bs, K)).astype(np.int32),
+            "valid": valid,
+        })
+    return out
+
+
+def sgd_args():
+    """SGD (the table's rates: backbone 1e-3, heads 1e-2; momentum 0.9,
+    coupled weight decay 5e-4) under the MultiStep schedule."""
+    return SimpleNamespace(
+        optimizer_type="SGD", lr_scheduler_type="MultiStepLR", n_epochs=50,
+        optimizer_params={"lr": 5e-4}, dataset_name="cv",
+        network_name="deeplab")
+
+
+def well_conditioned(tree, rng):
+    """BatchNorm scale in [0.3, 0.6] and bias in [2.5, 3.5]; every conv
+    kernel (HWIO) minus its mean over its inputs."""
+    if "scale" in tree and "bias" in tree:
+        c = tree["scale"].shape[0]
+        return {"scale": rng.uniform(0.3, 0.6, c).astype(np.float32),
+                "bias": rng.uniform(2.5, 3.5, c).astype(np.float32)}
+    out = {k: well_conditioned(v, rng) if isinstance(v, dict) else v
+           for k, v in tree.items()}
+    if "kernel" in out and out["kernel"].ndim == 4:
+        k = out["kernel"]
+        out["kernel"] = (k - k.mean((0, 1, 2), keepdims=True)) \
+            .astype(np.float32)
+    return out
+
+
+def record_kink_margins(monkeypatch):
+    """Record, for every train-mode BatchNorm output of the port (the
+    inputs of its ReLUs and ReLU6s), the least distance to 0 or 6."""
+    import torch
+
+    from pixelpick_tpu_torch.models import layers
+    from pixelpick_tpu_torch.ops import fused_ir
+
+    margins = []
+
+    def margin(y):
+        y = y.detach().float()
+        margins.append(float(torch.minimum(y.abs(), (y - 6).abs()).min()))
+
+    bn_train, fused_bn = layers.ghost_bn_train, fused_ir._bn
+
+    def bn_recorded(*a):
+        out = bn_train(*a)
+        margin(out[0])
+        return out
+
+    def fused_bn_recorded(*a):
+        out = fused_bn(*a)
+        margin(out)
+        return out
+
+    monkeypatch.setattr(layers, "ghost_bn_train", bn_recorded)
+    monkeypatch.setattr(fused_ir, "_bn", fused_bn_recorded)
+    return margins
+
+
+@pytest.fixture
+def few_torch_threads():
+    """Two intra-op threads for the test: these small models gain nothing
+    from more, and the suite runs several workers on one host's cores."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
