@@ -9,7 +9,9 @@ for CUDA and the CUDA toolkit (nvcc):
 It builds the hand-written kernels from the sources in the checkout (one
 ``nvcc`` per source, started together) and drives the port's pool-scoring
 (query) path, its training round and its other round modes (micro-batch,
-dense, MC-dropout committee) at full width, in phases; any failure exits
+dense, MC-dropout committee), and its train and eval CLIs with stage
+snapshots, JAX-layout checkpoint files, ``--resume_campaign`` and
+``--pretrained_ckpt``, at full width, in phases; any failure exits
 nonzero:
 
 1. card: name and power limit, torch and CUDA versions, the kernel builds;
@@ -68,15 +70,38 @@ nonzero:
    (10 valid picks per image, none labelled or void, 14 x 20 depthwise
    launches per pool batch) timed against phase 3's warm sweep; one pool
    batch with the hard vote; at dropout p = 0 the committee's picks equal
-   the plain sweep's.
+   the plain sweep's;
+11. train CLI with a resume: ``pixelpick_tpu_torch.cli.train.main`` on
+   phase 4's human-labelled rounds (stage ``1_query``, 3 epochs,
+   ``--fused_ir --pallas_dw --stage_ckpt_interval 1``, cuDNN's
+   deterministic algorithms), (a) straight and (b) interrupted after 10
+   updates of epoch 3 and rerun over the same directory: (b)'s final
+   ``state_dict`` equal to (a)'s bit for bit, or else no further from it,
+   leaf by leaf, than (c) a second straight run; the line says which held.
+   The snapshot's save ms and bytes, the logs' rows (epochs 1-3 once), the
+   snapshot gone, 13 fused launches per update, the warm epoch's images/s;
+12. eval CLI: ``pixelpick_tpu_torch.cli.eval.main --pallas_dw`` on arm
+   (a)'s ``best_miou_model.ckpt`` and on a JAX-layout msgpack file of the
+   same weights (written by ``write_flax_checkpoint`` below; the card's
+   machine has no flax): both confusion matrices equal, 14 depthwise
+   launches per forward, the validation images/s; the torch file again
+   with ``--fused_ir``, the stage's own model (its blocks' eval path keeps
+   the library's depthwise, as JAX's does): the stage's best validation's
+   confusion matrix exactly;
+13. ``main_al --resume_campaign`` over phase 7's campaign (no update, no
+   sweep, the same labelled pixels, the logs untouched), and ``main_al
+   --pretrained_ckpt`` with phase 12's msgpack file for one ``--debug``
+   round: round 0's weights before its first update are the file's.
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. The details go to
 ``<out>/chip_smoke.json``. Weights are random, from a seed. In the kernels'
 line, ``launches`` counts every main-path run: the depthwise kernel's
 (forward and dx) over the sweeps of phases 3 and 10, the campaign of phase
-7 and the epoch runs of phases 8 and 9; the fused kernels' over phases 7,
-8 and 9 (their counters zeroed just before each run and read just after).
+7, the epoch runs of phases 8 and 9, the train CLI's runs of phase 11, the
+eval CLI's of phase 12 and the ``--pretrained_ckpt`` round of phase 13; the
+fused kernels' over phases 7, 8, 9, 11 and 13 (their counters zeroed just
+before each run and read just after).
 """
 
 from __future__ import annotations
@@ -1198,13 +1223,14 @@ def write_cfg(work: Path, name: str, **overrides) -> Path:
     return path
 
 
-def run_main_al(argv: list, record: dict, timed=(), traced=()):
-    """``cli.main_al.main(argv)`` with the kernels' counters zeroed just
-    before and read just after. The epochs keyed (round, epoch) in
-    ``timed`` are timed, with the peak device memory; those in ``traced``
-    run under the profiler, the device's activity only (sifting a host
-    trace of every operator of an epoch takes longer than the epoch).
-    Returns (the driver, its wall time, the launch counts)."""
+def run_main_al(argv: list, record: dict, timed=(), traced=(), entry=None):
+    """``cli.main_al.main(argv)`` (or ``entry(argv)``, another CLI that
+    drives ``ALModel``) with the kernels' counters zeroed just before and
+    read just after. The epochs keyed (round, epoch) in ``timed`` are
+    timed, with the peak device memory; those in ``traced`` run under the
+    profiler, the device's activity only (sifting a host trace of every
+    operator of an epoch takes longer than the epoch). Returns (the
+    driver, its wall time, the launch counts)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1240,7 +1266,7 @@ def run_main_al(argv: list, record: dict, timed=(), traced=()):
     dw.reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        al = main_al(argv)
+        al = (entry or main_al)(argv)
         torch.cuda.synchronize()
     finally:
         driver.ALModel._train_epoch = train_epoch
@@ -1734,6 +1760,431 @@ def phase_committee(model, args, plain: dict) -> dict:
 
 # ------------------------------ main ------------------------------
 
+# ------------------------------ phase 11 ------------------------------
+
+TRAIN_CLI_EPOCHS, INTERRUPT_AFTER_STEPS = 3, 10
+
+
+def state_on_host(model) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def leaf_diffs(a: dict, b: dict) -> dict:
+    """Per leaf, the largest |a - b| (0 for equal integer leaves)."""
+    return {k: float((a[k].double() - b[k].double()).abs().max())
+            if a[k].numel() else 0.0 for k in a}
+
+
+def phase_train_cli(work: Path) -> dict:
+    """``cli.train.main`` on phase 4's human-labelled rounds (all 367 images,
+    20 labelled pixels each): the stage ``1_query`` at full width with
+    ``--fused_ir --pallas_dw --stage_ckpt_interval 1`` for 3 epochs, (a)
+    straight, (b) interrupted after 10 updates of epoch 3 and rerun over
+    its directory, which resumes from the epoch-2 snapshot. cuDNN runs its
+    deterministic algorithms in every arm (its default weight-gradient
+    algorithms may add in any order), so that (b) can equal (a) bit for
+    bit; where it does not, (c) a second straight run is made and (b) must
+    lie no further from (a), leaf by leaf, than (c) does."""
+    import torch
+
+    from pixelpick_tpu_torch.active import driver
+    from pixelpick_tpu_torch.cli.train import main as train_main
+
+    cfg = write_cfg(work, "cv_3epochs", n_epochs=TRAIN_CLI_EPOCHS)
+    val_hists = []
+    running_score, val = driver.RunningScore, driver.ALModel._val
+
+    class Recording(running_score):
+        def get_scores(self):
+            val_hists.append(np.asarray(self.confusion))
+            return super().get_scores()
+
+    def recording_val(self, *a):
+        driver.RunningScore = Recording
+        try:
+            return val(self, *a)
+        finally:
+            driver.RunningScore = running_score
+
+    def train(run: Path, record: dict, timed=()):
+        return run_main_al(
+            ["-pdc", str(cfg), "--dir_checkpoints", str(run), "--device",
+             DEVICE, "--fused_ir", "--pallas_dw", "--stage_ckpt_interval",
+             "1", "--n_workers", "8", "--seed", "0"], record, timed=timed,
+            entry=train_main)
+
+    def arm(name: str, record: dict, timed=()):
+        """A fresh run directory holding phase 4's two labelled rounds."""
+        run = work / f"train_{name}"
+        for nth in (0, 1):
+            (run / f"{nth}_query").mkdir(parents=True)
+            shutil.copy(work / "human" / f"{nth}_query" / "queries.pkl",
+                        run / f"{nth}_query" / "queries.pkl")
+        return run, train(run, record, timed)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        record = {}
+        driver.ALModel._val = recording_val
+        try:
+            run_a, (al_a, wall_a, counts_a) = arm("a", record,
+                                                  timed={(1, 2)})
+        finally:
+            driver.ALModel._val = val
+        straight = state_on_host(al_a.model)
+        n_steps = TRAIN_CLI_EPOCHS * -(-N_IMAGES // TRAIN_BATCH)
+        check(al_a.human_labels and al_a.dataset.list_labels == []
+              and len(al_a.dataset) == N_IMAGES, "not the human-label mode")
+        check(counts_a["fused_fwd"] == 13 * n_steps
+              and counts_a["fused_bwd"] == 13 * n_steps
+              and counts_a["depthwise_kernel_dx"] == n_steps,
+              f"arm (a) launches {counts_a} for {n_steps} updates")
+
+        # (b): the first run stops in epoch 3, its snapshot of epoch 2 on
+        # disk; the rerun resumes from it
+        train_epoch = driver.ALModel._train_epoch
+
+        class Interrupted(Exception):
+            pass
+
+        def interrupting(self, epoch, step_fn):
+            if epoch < TRAIN_CLI_EPOCHS:
+                return train_epoch(self, epoch, step_fn)
+            n = [0]
+
+            def step(batch):
+                if n[0] == INTERRUPT_AFTER_STEPS:
+                    raise Interrupted
+                n[0] += 1
+                return step_fn(batch)
+
+            return train_epoch(self, epoch, step)
+
+        driver.ALModel._train_epoch = interrupting
+        try:
+            arm("b", {})
+            raise SmokeFailure("arm (b) was not interrupted")
+        except Interrupted:
+            pass
+        finally:
+            driver.ALModel._train_epoch = train_epoch
+        run_b = work / "train_b"
+        snap = run_b / "1_query" / "stage_state.ckpt"
+        check(snap.is_file(), "no snapshot after the interruption")
+        snap_bytes = snap.stat().st_size
+        rows_before = (run_b / "1_query" / "log_train.txt").read_text().split()
+        al_b, resume_s, counts_b = train(run_b, {})
+        resumed = state_on_host(al_b.model)
+        check(not snap.exists(), "the snapshot outlived its stage")
+        n_epoch = -(-N_IMAGES // TRAIN_BATCH)
+        check(counts_b["fused_fwd"] == 13 * n_epoch
+              and counts_b["fused_bwd"] == 13 * n_epoch,
+              f"the resumed run's launches {counts_b}, not one epoch's")
+        logs = {}
+        for log in ("log_train.txt", "log_val.txt"):
+            rows = (run_b / "1_query" / log).read_text().split()
+            logs[log] = rows
+            check([r.split(",")[0] for r in rows[1:]] == ["1", "2", "3"],
+                  f"{log} rows {rows}")
+        check([r.split(",")[0] for r in rows_before[1:]] == ["1", "2"],
+              f"log_train.txt before the rerun: {rows_before}")
+
+        check(list(resumed) == list(straight), "other state_dict keys")
+        bit_exact = all(torch.equal(resumed[k], straight[k])
+                        for k in straight)
+        second = None
+        if not bit_exact:
+            _, (al_c, _, _) = arm("c", {})
+            d_c = leaf_diffs(state_on_host(al_c.model), straight)
+            d_b = leaf_diffs(resumed, straight)
+            worse = [k for k in straight if d_b[k] > d_c[k]]
+            second = {"max_resumed_diff": max(d_b.values()),
+                      "max_straight_diff": max(d_c.values()),
+                      "leaves_further": worse}
+            check(not worse, f"the resumed run lies further from the "
+                             f"straight one than a second straight run at "
+                             f"{len(worse)} leaves, e.g. {worse[:3]}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    timing = json.loads((run_a / "1_query" / "timing.json").read_text())
+    save_ms = 1e3 * timing["stage_ckpt"]["seconds"] / (TRAIN_CLI_EPOCHS - 1)
+    ips = N_IMAGES / record["warm_epoch_s"]
+    # the best validation of arm (a): the first of its highest mIoU
+    mious = [float(r.split(",")[1]) for r in
+             (run_a / "1_query" / "log_val.txt").read_text().split()[1:]]
+    check(len(val_hists) == TRAIN_CLI_EPOCHS, f"{len(val_hists)} validations")
+    best_hist = val_hists[int(np.argmax(mious))]
+    print(f"[11] train CLI, stage 1_query on human labels, 3 epochs: "
+          f"resumed run {'bit-exact' if bit_exact else 'not bit-exact'} "
+          f"against the straight one"
+          + ("" if bit_exact else
+             f" (resumed max diff {second['max_resumed_diff']:.3e}, a second "
+             f"straight run {second['max_straight_diff']:.3e})")
+          + f"; snapshot save {save_ms:.1f} ms, {snap_bytes} bytes; log rows "
+          f"{logs['log_train.txt'][1:]}; launches straight {counts_a} for "
+          f"{n_steps} updates, resume {counts_b}; warm epoch (2) "
+          f"{record['warm_epoch_s']:.2f} s = {ips:.1f} train images/s; "
+          f"resume {resume_s:.1f} s")
+    return {"bit_exact": bit_exact, "second_straight": second,
+            "cudnn_deterministic": True,
+            "snapshot_save_ms": save_ms, "snapshot_bytes": snap_bytes,
+            "log_rows": logs, "launches": counts_a, "launches_resume":
+            counts_b, "n_steps": n_steps, "warm_epoch_s":
+            record["warm_epoch_s"], "train_images_per_s": ips,
+            "straight_s": wall_a, "resume_s": resume_s, "timing": timing,
+            "val_mious": mious, "best_val_hist": best_hist.tolist(),
+            "best_ckpt": str(run_a / "1_query" / "best_miou_model.ckpt")}
+
+
+# ------------------------------ phase 12 ------------------------------
+
+def _pack(obj) -> bytes:
+    """msgpack of the subset ``flax.serialization`` writes for a checkpoint:
+    str-keyed maps, str, non-negative int, bin and the ndarray extension
+    (type 1: ``(shape, dtype name, C-order bytes)``)."""
+    import struct
+
+    def sized(n, small_tag, fix_max, tags):
+        if small_tag is not None and n <= fix_max:
+            return bytes([small_tag | n])
+        for tag, fmt, top in tags:
+            if n <= top:
+                return bytes([tag]) + struct.pack(fmt, n)
+        raise ValueError(f"length {n}")
+
+    if isinstance(obj, dict):
+        return sized(len(obj), 0x80, 15, ((0xde, ">H", 0xffff),
+                                           (0xdf, ">I", 0xffffffff))) \
+            + b"".join(_pack(k) + _pack(v) for k, v in obj.items())
+    if isinstance(obj, (list, tuple)):
+        return sized(len(obj), 0x90, 15, ((0xdc, ">H", 0xffff),
+                                           (0xdd, ">I", 0xffffffff))) \
+            + b"".join(_pack(v) for v in obj)
+    if isinstance(obj, str):
+        b = obj.encode()
+        return sized(len(b), 0xa0, 31, ((0xd9, ">B", 0xff), (0xda, ">H", 0xffff),
+                                         (0xdb, ">I", 0xffffffff))) + b
+    if isinstance(obj, bytes):
+        return sized(len(obj), None, 0, ((0xc4, ">B", 0xff),
+                                          (0xc5, ">H", 0xffff),
+                                          (0xc6, ">I", 0xffffffff))) + obj
+    if isinstance(obj, int) and obj >= 0:
+        return sized(obj, 0x00, 127, ((0xcc, ">B", 0xff), (0xcd, ">H", 0xffff),
+                                       (0xce, ">I", 0xffffffff)))
+    if isinstance(obj, np.ndarray):
+        payload = _pack([list(obj.shape), obj.dtype.name,
+                         np.ascontiguousarray(obj).tobytes()])
+        n = len(payload)
+        head = {1: b"\xd4", 2: b"\xd5", 4: b"\xd6", 8: b"\xd7", 16: b"\xd8"}
+        if n in head:
+            return head[n] + b"\x01" + payload
+        return sized(n, None, 0, ((0xc7, ">B", 0xff), (0xc8, ">H", 0xffff),
+                                  (0xc9, ">I", 0xffffffff))) + b"\x01" + payload
+    raise TypeError(type(obj))
+
+
+def write_flax_checkpoint(state: dict, path: Path) -> None:
+    """The JAX package's best-model layout (``save_checkpoint``:
+    ``{"params", "batch_stats"}`` of its DeepLab, kernels HWIO) from a
+    port ``state_dict``: the bridge ``models/convert.py`` inverted."""
+    from pixelpick_tpu_torch.models.convert import MODULE_KEYS
+
+    params, stats = {}, {}
+
+    def put(tree, path, value):
+        for k in path[:-1]:
+            tree = tree.setdefault(k, {})
+        tree[path[-1]] = value
+
+    done = set()
+    for scope, key in MODULE_KEYS.items():
+        if f"{key}.weight" not in state:
+            continue
+        w = state[f"{key}.weight"].float().numpy()
+        if f"{key}.running_mean" in state:
+            put(params, scope + ("bn", "scale"), w)
+            put(params, scope + ("bn", "bias"),
+                state[f"{key}.bias"].float().numpy())
+            put(stats, scope + ("bn", "mean"),
+                state[f"{key}.running_mean"].float().numpy())
+            put(stats, scope + ("bn", "var"),
+                state[f"{key}.running_var"].float().numpy())
+            done |= {f"{key}.{n}" for n in ("weight", "bias", "running_mean",
+                                             "running_var",
+                                             "num_batches_tracked")}
+        else:
+            put(params, scope + ("kernel",), w.transpose(2, 3, 1, 0))
+            done.add(f"{key}.weight")
+            if f"{key}.bias" in state:
+                put(params, scope + ("bias",),
+                    state[f"{key}.bias"].float().numpy())
+                done.add(f"{key}.bias")
+    check(done == set(state), f"unwritten: {sorted(set(state) - done)[:3]}")
+    path.write_bytes(_pack({"params": params, "batch_stats": stats}))
+
+
+def default_args_cv(work: Path):
+    """The full-width CamVid configuration on the card, no files written."""
+    from pixelpick_tpu_torch.config import default_args
+
+    return default_args(dataset_name="cv", dir_dataset=str(work / "camvid"),
+                        device=DEVICE, width_multiplier=1.0, fused_ir=True)
+
+
+def phase_eval_cli(work: Path, train: dict) -> dict:
+    """``cli.eval.main --pallas_dw`` on phase 11's best checkpoint (the
+    torch format) and on a JAX-layout msgpack file of the same weights: the
+    same confusion matrix from both, and 14 depthwise launches per forward.
+    Then the torch file again with ``--fused_ir`` too, the model of the
+    stage: its blocks' eval path keeps the library's depthwise conv (as the
+    JAX package's ``FusedIRBlock`` does), so only block 0 launches the
+    kernel, and it gives the stage's best validation's confusion matrix.
+    cuDNN runs its deterministic algorithms, as in phase 11."""
+    import torch
+
+    from pixelpick_tpu_torch.cli import eval as eval_cli
+    from pixelpick_tpu_torch.engine.checkpoint import load_checkpoint
+    from pixelpick_tpu_torch.models.factory import get_model
+    from pixelpick_tpu_torch.ops import depthwise as dw
+
+    best = Path(train["best_ckpt"])
+    state = torch.load(best, map_location="cpu", weights_only=True)["model"]
+    flax_ckpt = work / "best_flax.msgpack"
+    write_flax_checkpoint(state, flax_ckpt)
+    args = default_args_cv(work)
+    back = load_checkpoint(str(flax_ckpt), get_model(args)).state_dict()
+    check(all(torch.equal(back[k].cpu(), state[k]) for k in state
+              if not k.endswith("num_batches_tracked")),
+          "the msgpack file does not read back to the checkpoint")
+
+    hists, runs = {}, {}
+    running_score = eval_cli.RunningScore
+
+    class Recording(running_score):
+        def get_scores(self):
+            hists[current] = np.asarray(self.confusion)
+            return super().get_scores()
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    eval_cli.RunningScore = Recording
+    try:
+        for current, ckpt, flags, per_forward in (
+                ("torch", best, [], 14), ("msgpack", flax_ckpt, [], 14),
+                ("torch_fused_ir", best, ["--fused_ir"], 1)):
+            dw.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scores, _ = eval_cli.main([
+                "-pdc", str(work / "cv_3epochs.yaml"), "--p_state_dict",
+                str(ckpt), "--dir_checkpoints", str(work / f"eval_{current}"),
+                "--device", DEVICE, "--pallas_dw", "--n_workers", "8",
+                "--visualize_interval", "50", *flags])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs[current] = {"s": wall, "images_per_s": N_VAL / wall,
+                             "miou": scores["Mean IoU"],
+                             "launches": dict(dw.launch_counts)}
+            check(dw.launch_counts["kernel"] == per_forward * N_VAL,
+                  f"{current}: {dw.launch_counts} for {N_VAL} forwards")
+            pngs = sorted(p.name for p in (work / f"eval_{current}" / "val")
+                          .glob("*.png"))
+            check(pngs == ["0.png", "100.png", "50.png"], f"PNGs {pngs}")
+    finally:
+        eval_cli.RunningScore = running_score
+        torch.backends.cudnn.deterministic = deterministic
+    check(np.array_equal(hists["torch"], hists["msgpack"]),
+          "the two checkpoint formats give other confusion matrices")
+    best_hist = np.asarray(train["best_val_hist"])
+    check(np.array_equal(hists["torch_fused_ir"], best_hist),
+          "the eval CLI's confusion matrix is not the best validation's")
+    # pixels whose class moved between the kernel's and the library's
+    # depthwise (near-ties of the argmax)
+    moved = int(np.abs(hists["torch"] - best_hist).sum()) // 2
+    print(f"[12] eval CLI on the best checkpoint: torch file "
+          f"{runs['torch']['images_per_s']:.1f} and msgpack file "
+          f"{runs['msgpack']['images_per_s']:.1f} validation images/s (each "
+          f"run decodes the PNGs), equal confusion matrices, mIoU "
+          f"{runs['torch']['miou']:.6f}, launches "
+          f"{runs['torch']['launches']}; with --fused_ir "
+          f"{runs['torch_fused_ir']['images_per_s']:.1f} images/s, the "
+          f"stage's best validation's matrix exactly (mIoU "
+          f"{runs['torch_fused_ir']['miou']:.6f}); {moved} of "
+          f"{int(best_hist.sum())} pixels change class between the "
+          f"kernel's and the library's depthwise")
+    return {"runs": runs, "flax_ckpt": str(flax_ckpt),
+            "flax_ckpt_bytes": flax_ckpt.stat().st_size,
+            "pixels_moved_kernel_vs_library": moved}
+
+
+# ------------------------------ phase 13 ------------------------------
+
+def phase_resume_and_pretrained(work: Path, flax_ckpt: str) -> dict:
+    """``main_al --resume_campaign`` over phase 7's finished campaign: no
+    update, no sweep, the same labelled pixels, the logs untouched. Then
+    ``main_al --pretrained_ckpt`` with phase 12's msgpack file for one
+    ``--debug`` epoch: round 0's weights before its first update are the
+    file's."""
+    import torch
+
+    from pixelpick_tpu_torch.active import driver
+    from pixelpick_tpu_torch.engine.checkpoint import load_checkpoint
+    from pixelpick_tpu_torch.models.factory import get_model
+
+    run = work / "campaign"
+    cfg = work / "cv_2epochs.yaml"
+    logs = sorted(run.glob("*_query/log_*.txt")) \
+        + sorted(run.glob("*_query/best_miou_model.ckpt"))
+    mtimes = [p.stat().st_mtime_ns for p in logs]
+    al, resume_s, counts = run_main_al([
+        "-pdc", str(cfg), "--dir_checkpoints", str(run), "--device", DEVICE,
+        "--fused_ir", "--pallas_dw", "--n_pixels_by_us", "10",
+        "--max_budget", "20", "-qs", "margin_sampling", "--pool_batch_size",
+        str(POOL_BATCH), "--n_workers", "8", "--seed", "0",
+        "--resume_campaign"], {})
+    check(al.model is None, "--resume_campaign trained a stage")
+    check(sum(counts.values()) == 0, f"--resume_campaign launched {counts}")
+    check(al.dataset.n_pixels_total == 3 * 10 * N_IMAGES,
+          f"{al.dataset.n_pixels_total} labelled pixels after the fast-forward")
+    check([p.stat().st_mtime_ns for p in logs] == mtimes and len(logs) == 6,
+          "--resume_campaign touched a round's logs or checkpoint")
+
+    seen = {}
+    train_epoch = driver.ALModel._train_epoch
+
+    def first_epoch(self, epoch, step_fn):
+        if not seen:
+            seen.update(state_on_host(self.model))
+        return train_epoch(self, epoch, step_fn)
+
+    driver.ALModel._train_epoch = first_epoch
+    try:
+        al2, pre_s, counts2 = run_main_al([
+            "-pdc", str(cfg), "--dir_checkpoints", str(work / "pretrained"),
+            "--device", DEVICE, "--fused_ir", "--pallas_dw",
+            "--n_pixels_by_us", "10", "--max_budget", "10",
+            "--pool_batch_size", str(POOL_BATCH), "--n_workers", "8",
+            "--seed", "0", "--debug", "--pretrained_ckpt", flax_ckpt], {})
+    finally:
+        driver.ALModel._train_epoch = train_epoch
+    want = load_checkpoint(flax_ckpt, get_model(default_args_cv(work))) \
+        .state_dict()
+    differ = [k for k in want if not k.endswith("num_batches_tracked")
+              and not torch.equal(seen[k], want[k].cpu())]
+    check(not differ, f"round 0 starts off the file at {differ[:3]}")
+    check(counts2["fused_fwd"] == 13 and counts2["fused_bwd"] == 13,
+          f"the --debug epoch's launches {counts2}")
+    print(f"[13] --resume_campaign fast-forwarded both rounds in "
+          f"{resume_s:.1f} s (no launch, {al.dataset.n_pixels_total} labelled "
+          f"pixels, logs untouched); --pretrained_ckpt: round 0 starts at "
+          f"the file's {len(want)} tensors; a --debug round in {pre_s:.1f} s, "
+          f"launches {counts2}")
+    return {"resume_s": resume_s, "resume_launches": counts,
+            "pretrained_s": pre_s, "pretrained_launches": counts2}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="chiprun_out",
@@ -1776,6 +2227,9 @@ def main(argv=None) -> int:
     micro = phase_microbatch(work, args, campaign)
     dense = phase_dense(work)
     committee = phase_committee(model, args, oracle["warm_sweep"])
+    train_cli = phase_train_cli(work)
+    eval_cli = phase_eval_cli(work, train_cli)
+    resume = phase_resume_and_pretrained(work, eval_cli["flax_ckpt"])
     phases_s = time.perf_counter() - t_start
 
     f32 = kernels["float32"]
@@ -1785,13 +2239,26 @@ def main(argv=None) -> int:
         "source": "pixelpick_tpu_torch/csrc/depthwise.cu",
         "replaces": "pixelpick_tpu/ops/depthwise.py:73",
         # every main-path run: the sweeps of phases 3 and 10, the
-        # campaign of phase 7, the epoch runs of phases 8 and 9
+        # campaign of phase 7, the epoch runs of phases 8 and 9, the train
+        # CLI's straight and resumed runs of phase 11, the eval CLI's of
+        # phase 12 and the --pretrained_ckpt round of phase 13
         "launches": sum(c[f"{pre}kernel"] + c[f"{pre}kernel_dx"]
                         for c, pre in ((oracle["launches"], ""),
                                        (committee["launches"], ""),
                                        (campaign["launches"], "depthwise_"),
                                        (micro["launches"], "depthwise_"),
-                                       (dense["launches"], "depthwise_"))),
+                                       (dense["launches"], "depthwise_"),
+                                       (train_cli["launches"], "depthwise_"),
+                                       (train_cli["launches_resume"],
+                                        "depthwise_"),
+                                       (eval_cli["runs"]["torch"]["launches"],
+                                        ""),
+                                       (eval_cli["runs"]["msgpack"]
+                                        ["launches"], ""),
+                                       (eval_cli["runs"]["torch_fused_ir"]
+                                        ["launches"], ""),
+                                       (resume["pretrained_launches"],
+                                        "depthwise_"))),
         "max_abs_err": max(r["max_abs_err"] for r in f32),
         # per forward of the main path: the 14 launches at batch 32, f32
         "ms": sum(r["ms"] for r in f32),
@@ -1803,7 +2270,7 @@ def main(argv=None) -> int:
     }
     # the fused kernels: per train step of the main path, the 13 blocks at
     # batch 4 in f32, summed; launches over the main-path train runs of
-    # phases 7, 8 and 9
+    # phases 7, 8, 9, 11 (both arms) and 13
     f32 = fused["float32"]
     fused_entries = []
     for k, name, line in (("fwd", "fused_ir_fwd", 221),
@@ -1813,8 +2280,10 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda",
             "source": "pixelpick_tpu_torch/csrc/fused_ir.cu",
             "replaces": f"pixelpick_tpu/ops/fused_ir.py:{line}",
-            "launches": sum(r["launches"][f"fused_{k}"]
-                            for r in (campaign, micro, dense)),
+            "launches": sum(c[f"fused_{k}"] for c in (
+                campaign["launches"], micro["launches"], dense["launches"],
+                train_cli["launches"], train_cli["launches_resume"],
+                resume["pretrained_launches"])),
             "max_abs_err": max(r["y_max_abs_err" if k == "fwd"
                                  else "grad_max_abs_err"] for r in f32),
             "ms": sum(r[f"{k}_ms"] for r in f32),
@@ -1824,7 +2293,7 @@ def main(argv=None) -> int:
             else "operations",
             "library_ms": sum(r[f"library_{k}_ms"] for r in f32),
         })
-    print(f"[10] phases 2-10 took {phases_s:.1f} s")
+    print(f"[13] phases 2-13 took {phases_s:.1f} s")
     out = Path(opts.out)
     if not out.is_absolute():
         out = HERE / out
@@ -1834,7 +2303,9 @@ def main(argv=None) -> int:
                    "human_cli": human, "fused_kernels": fused,
                    "train_step": step, "campaign": campaign,
                    "microbatch": micro, "dense": dense,
-                   "committee": committee, "phases_s": phases_s,
+                   "committee": committee, "train_cli": train_cli,
+                   "eval_cli": eval_cli, "resume_pretrained": resume,
+                   "phases_s": phases_s,
                    "summary": [entry, *fused_entries]}, f, indent=1)
     shutil.rmtree(work, ignore_errors=True)
 

@@ -21,15 +21,22 @@ sequential bs-M updates (``engine/trainer.py:make_microbatch_train_step``;
 ``driver.py:207-217, 390-437``); ``--n_pixels_by_us 0`` runs one fully
 supervised stage, ``fully_sup``, with the dense step and no query
 (``driver.py:135-137``); ``--use_mc_dropout`` scores the pool with the
-MC-dropout committee (``active/acquisition.py``). Not ported yet
-(``config.check_supported`` refuses them): stage snapshots and
-``--resume_campaign``, ``--pretrained_ckpt``, ``--device_augment``, human
-labels, and meshes.
+MC-dropout committee (``active/acquisition.py``).
+
+Checkpoints (``driver.py:143-162, 178-205, 270-294``):
+``--pretrained_ckpt`` overlays a JAX msgpack file on every round's fresh
+model; ``--stage_ckpt_interval N`` snapshots a stage after validation every
+N epochs and resumes it from ``{stage}/stage_state.ckpt`` on a rerun;
+``--resume_campaign`` fast-forwards a round whose next ``queries.pkl``
+exists. Human labels (``human_labels``, ``cli/train.py``) train on merged
+per-image label maps. Not ported yet (``config.check_supported`` refuses
+them): ``--device_augment`` and meshes.
 """
 
 from __future__ import annotations
 
 import os
+import pickle as pkl
 import time
 
 import numpy as np
@@ -38,12 +45,15 @@ import torch
 from pixelpick_tpu_torch.active.selector import QuerySelector
 from pixelpick_tpu_torch.data.factory import get_dataset
 from pixelpick_tpu_torch.data.loader import Loader
-from pixelpick_tpu_torch.engine.checkpoint import save_checkpoint
+from pixelpick_tpu_torch.engine.checkpoint import (
+    load_stage_state, save_checkpoint, save_stage_state,
+)
 from pixelpick_tpu_torch.engine.optim import make_optimizer
 from pixelpick_tpu_torch.engine.trainer import (
     batch_to_device, make_dense_train_step, make_eval_step,
     make_microbatch_train_step, make_train_step,
 )
+from pixelpick_tpu_torch.models.convert import load_pretrained_ckpt
 from pixelpick_tpu_torch.models.factory import get_model, resolve_device
 from pixelpick_tpu_torch.parallel.mesh import pad_batch_to_devices
 from pixelpick_tpu_torch.utils.logging import write_log
@@ -57,28 +67,41 @@ def round_seed(seed: int, nth_query: int) -> int:
 
 
 class ALModel:
-    def __init__(self, args):
+    def __init__(self, args, human_labels: bool = False,
+                 human_inputs=None, human_maps=None):
+        """``human_inputs``/``human_maps``: the merged human-labelled image
+        paths and label maps of ``cli/train.py``, installed before the
+        loaders plan their batches (``driver.py:45-71``)."""
         self.args = args
         self.device = resolve_device(args.device)
         self.dir_checkpoints = args.dir_checkpoints
         self.experim_name = args.experim_name
         self.best_miou = -1.0
         self.nth_query = -1
+        self.human_labels = human_labels
 
         self.dataset = get_dataset(args, val=False, query=False)
         self.dataset_query = get_dataset(args, val=False, query=True,
                                          generate_init_queries=False)
-        self.dataset_query.queries = self.dataset.queries
-        self.dataset_query.n_pixels_total = self.dataset.n_pixels_total
+        if human_inputs is not None:
+            if not human_labels:
+                raise ValueError("human_inputs needs human_labels=True")
+            self.dataset.set_human_inputs(human_inputs, human_maps)
+            self.dataset_query.set_human_inputs(human_inputs, human_maps)
+        else:
+            self.dataset_query.queries = self.dataset.queries
+            self.dataset_query.n_pixels_total = self.dataset.n_pixels_total
         self.dataset_val = get_dataset(args, val=True, query=False)
 
         self.fully_sup = args.n_pixels_by_us == 0
         self.loader = Loader(self.dataset, args.batch_size,
                              mode="train_dense" if self.fully_sup else "train",
                              shuffle=True, n_workers=args.n_workers,
-                             seed=args.seed, drop_unit=self._micro_bs() or None)
+                             seed=args.seed, human_labels=human_labels,
+                             drop_unit=self._micro_bs() or None)
         self.loader_query = Loader(self.dataset_query, args.pool_batch_size,
-                                   mode="query", n_workers=args.n_workers)
+                                   mode="query", n_workers=args.n_workers,
+                                   human_labels=human_labels)
         self.loader_val = Loader(self.dataset_val,
                                  getattr(args, "val_batch_size", 1),
                                  mode="val", n_workers=args.n_workers)
@@ -104,12 +127,25 @@ class ALModel:
         profile_dir = getattr(args, "profile_dir", "")
         for nth_query in range(n_stages):
             self.nth_query = nth_query
+            # a round whose next queries.pkl exists ran to its end: merge
+            # its recorded picks, with no training and no new artifacts
+            next_pkl = f"{self.dir_checkpoints}/{nth_query + 1}_query/" \
+                "queries.pkl"
+            if getattr(args, "resume_campaign", False) \
+                    and os.path.isfile(next_pkl):
+                print(f"resume_campaign: round {nth_query} is complete; "
+                      f"fast-forwarding past its training and query")
+                with open(next_pkl, "rb") as f:
+                    self.dataset.label_queries(pkl.load(f), None)
+                if nth_query == n_stages - 1:
+                    break
+                continue
             model = self._run_stage(f"{nth_query}_query")
             selector = QuerySelector(args, self.loader_query, model,
                                      self.device)
             with trace(f"{profile_dir}/query" if profile_dir
                        and nth_query == 0 else None):
-                queries = selector(nth_query)
+                queries = selector(nth_query, human_labels=self.human_labels)
             self.dataset.label_queries(queries, nth_query + 1)
             # the reference queries and labels before breaking on the last
             # stage (model.py:82-87)
@@ -122,14 +158,24 @@ class ALModel:
         os.makedirs(dir_stage, exist_ok=True)
         self.log_train = f"{dir_stage}/log_train.txt"
         self.log_val = f"{dir_stage}/log_val.txt"
-        write_log(self.log_train, header=["epoch", "mIoU", "pixel_acc", "loss"])
-        write_log(self.log_val, header=["epoch", "mIoU", "pixel_acc"])
+        stage_ckpt = int(getattr(args, "stage_ckpt_interval", 0) or 0)
+        p_stage_state = f"{dir_stage}/stage_state.ckpt"
+        resuming = stage_ckpt > 0 and os.path.isfile(p_stage_state)
+        if not resuming:  # a resumed stage appends to its logs
+            write_log(self.log_train,
+                      header=["epoch", "mIoU", "pixel_acc", "loss"])
+            write_log(self.log_val, header=["epoch", "mIoU", "pixel_acc"])
 
         # a fresh model per round (model.py:163)
         seed = round_seed(args.seed, self.nth_query)
         model = get_model(args, self.device, seed=seed)
-        model.set_dropout_generator(
-            torch.Generator(device=self.device).manual_seed(seed ^ 0x5EED))
+        if getattr(args, "pretrained_ckpt", ""):
+            load_pretrained_ckpt(model, args.pretrained_ckpt)
+        # the dropout masks' one stateful stream; a snapshot carries its
+        # state, so a resumed stage draws the masks of the straight run
+        generator = torch.Generator(device=self.device).manual_seed(
+            seed ^ 0x5EED)
+        model.set_dropout_generator(generator)
         self.model = model
         micro = self._micro_bs()
         optimizer = make_optimizer(args, model, self._iters_per_epoch())
@@ -146,12 +192,19 @@ class ALModel:
                                  mean=args.mean, std=args.std)
 
         self.best_miou = -1.0
+        start_epoch = 1
+        if resuming:
+            done_epoch, self.best_miou = load_stage_state(
+                p_stage_state, model, optimizer, generator)
+            start_epoch = done_epoch + 1
+            print(f"resuming {stage_name} from {p_stage_state}: epoch "
+                  f"{start_epoch} (best mIoU so far {self.best_miou:.4f})")
         self.timer = PhaseTimer()
         eval_interval = max(1, getattr(args, "eval_interval", 1))
         profile_dir = getattr(args, "profile_dir", "")
         trace_epoch = min(2, args.n_epochs) if profile_dir \
             and self.nth_query <= 0 else -1
-        for epoch in range(1, 1 + args.n_epochs):
+        for epoch in range(start_epoch, 1 + args.n_epochs):
             with self.timer.phase("train", len(self.dataset)), \
                     trace(f"{profile_dir}/train" if epoch == trace_epoch
                           else None):
@@ -163,8 +216,16 @@ class ALModel:
             if epoch % eval_interval == 0 or epoch == args.n_epochs:
                 with self.timer.phase("val", len(self.dataset_val)):
                     self._val(epoch, model, eval_fn, dir_stage)
+            if stage_ckpt and epoch % stage_ckpt == 0 \
+                    and epoch != args.n_epochs:
+                # after validation, so that best_miou is current
+                with self.timer.phase("stage_ckpt"):
+                    save_stage_state(p_stage_state, model, optimizer,
+                                     generator, epoch, self.best_miou)
             if args.debug:
                 break
+        if stage_ckpt and os.path.isfile(p_stage_state):
+            os.remove(p_stage_state)  # a complete stage starts afresh
         self.timer.dump(f"{dir_stage}/timing.json")
         return model
 

@@ -8,7 +8,7 @@ mode, and dump ``{nth}_query/queries.pkl`` for the annotation tools.
         --dir_checkpoints RUN_DIR [--device cuda|cpu] [--pallas_dw] ...
 
 The checkpoint is the reference's torch format ``{"model": state_dict}``
-(``engine/checkpoint.py``).
+or a JAX package msgpack file (``engine/checkpoint.py:load_checkpoint``).
 """
 
 from __future__ import annotations

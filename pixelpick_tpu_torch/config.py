@@ -134,7 +134,8 @@ def build_parser() -> ArgumentParser:
                              "HEIGHT stripes instead of by batch")
     parser.add_argument("--pretrained_ckpt", type=str, default="",
                         help="path to a converted pretrained backbone "
-                             "checkpoint")
+                             "checkpoint (a JAX msgpack file), overlaid on "
+                             "every round's fresh model")
     parser.add_argument("--device_augment", action="store_true", default=False,
                         help="run the augmentation pipeline on the device")
     parser.add_argument("--pallas_dw", action="store_true", default=False,
@@ -159,7 +160,8 @@ def build_parser() -> ArgumentParser:
                         choices=["msgpack", "orbax"],
                         help="best-model checkpoint format of the JAX "
                              "package; the port writes the reference's "
-                             "torch format")
+                             "torch format, reads the JAX package's msgpack "
+                             "files, and raises on its orbax directories")
     parser.add_argument("--stage_ckpt_interval", type=int, default=0,
                         help="save a resumable mid-stage snapshot every N "
                              "epochs; 0 = off")
@@ -231,15 +233,6 @@ def check_supported(args: Namespace) -> None:
     missing = []
     if args.network_name == "FPN":
         missing.append("--network_name FPN (Queue 1: FPN/ResNet)")
-    if args.pretrained_ckpt:
-        missing.append("--pretrained_ckpt (Queue 1 item 5: stage snapshots, "
-                       "resume, and the JAX checkpoint files)")
-    if args.stage_ckpt_interval:
-        missing.append("--stage_ckpt_interval (Queue 1: stage snapshots "
-                       "and resume)")
-    if args.resume_campaign:
-        missing.append("--resume_campaign (Queue 1: stage snapshots and "
-                       "resume)")
     if args.device_augment:
         missing.append("--device_augment (Queue 1: device augmentation)")
     if args.s2d_backbone:

@@ -7,20 +7,20 @@ Counterpart of ``pixelpick_tpu/data/base.py`` (reference
   per-image boolean query masks, optionally dump ``{nth}_query/queries.pkl``
   (``base_dataset.py:24-46``);
 - ``update_labelled_queries``: install human-labelled per-pixel maps
-  (``base_dataset.py:143-149``);
+  (``base_dataset.py:143-149``); ``set_human_inputs`` points the dataset at
+  the merged human-labelled images and maps of ``cli/train.py``
+  (``base.py:188-210``);
 - ``generate_init_queries``: seeded random initial picks, non-void unless
   ``void_filter`` is off, cached on disk (``camvid.py:50-96``);
 - ``train_sample``: co-augmented (``data/augment.py``) image, label and
   query mask, then the labelled pixels as sparse coordinates
-  (``extract_sparse_labels``) for the sparse-label train step, or with
-  ``fully_sup`` the augmented dense label map for the dense step
-  (``base.py:286-323``);
+  (``extract_sparse_labels``) for the sparse-label train step; with
+  ``human_labels`` the coordinates and labels of the augmented human-label
+  map (``extract_sparse_from_map``); or with ``fully_sup`` the augmented
+  dense label map for the dense step (``base.py:286-325``);
 - ``val_sample`` / ``query_sample``: uint8 images and int32 labels, decoded
   once and cached in RAM; normalisation happens on the device
   (``engine/trainer.py:normalize_images``).
-
-The human-label train mode (``set_human_inputs``) comes with
-``cli/train.py`` (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -54,28 +54,46 @@ SPARSE_OVERFLOW_COUNT = 0
 SPARSE_OVERFLOW_PIXELS = 0
 
 
+def _padded(ys, xs, labels, valid, k_max: int, what: str):
+    """The first k_max picks as (coords (k_max, 2), labels (k_max,), valid
+    (k_max,)), zero-padded; an overflow is counted and warned about."""
+    global SPARSE_OVERFLOW_COUNT, SPARSE_OVERFLOW_PIXELS
+    if len(ys) > k_max:
+        SPARSE_OVERFLOW_COUNT += 1
+        SPARSE_OVERFLOW_PIXELS += len(ys) - k_max
+        warnings.warn(f"sparse-label overflow{what}: {len(ys)} labelled "
+                      f"pixels in crop but k_max={k_max}; "
+                      f"{len(ys) - k_max} dropped")
+    n = min(len(ys), k_max)
+    coords = np.zeros((k_max, 2), np.int32)
+    out_labels = np.zeros((k_max,), np.int32)
+    out_valid = np.zeros((k_max,), bool)
+    coords[:n, 0] = ys[:n]
+    coords[:n, 1] = xs[:n]
+    out_labels[:n] = labels[:n]
+    out_valid[:n] = valid[:n]
+    return coords, out_labels, out_valid
+
+
 def extract_sparse_labels(queries: np.ndarray, y: np.ndarray,
                           ignore_index: int, k_max: int):
     """Labelled-pixel coordinates and labels after augmentation, padded to
     k_max (``base.py:76-102``). Picks whose label is void are kept but not
     valid: CE ``ignore_index`` on the densified path."""
-    global SPARSE_OVERFLOW_COUNT, SPARSE_OVERFLOW_PIXELS
     ys, xs = np.nonzero(queries)
     labels = y[ys, xs].astype(np.int32)
-    if len(ys) > k_max:
-        SPARSE_OVERFLOW_COUNT += 1
-        SPARSE_OVERFLOW_PIXELS += len(ys) - k_max
-        warnings.warn(f"sparse-label overflow: {len(ys)} labelled pixels in "
-                      f"crop but k_max={k_max}; {len(ys) - k_max} dropped")
-    n = min(len(ys), k_max)
-    coords = np.zeros((k_max, 2), np.int32)
-    out_labels = np.zeros((k_max,), np.int32)
-    valid = np.zeros((k_max,), bool)
-    coords[:n, 0] = ys[:n]
-    coords[:n, 1] = xs[:n]
-    out_labels[:n] = labels[:n]
-    valid[:n] = labels[:n] != ignore_index
-    return coords, out_labels, valid
+    return _padded(ys, xs, labels, labels != ignore_index, k_max, "")
+
+
+def extract_sparse_from_map(labelled_map: np.ndarray, ignore_index: int,
+                            k_max: int):
+    """Human-label mode: the coordinates and labels of every non-void pixel
+    of an (augmented) merged label map, padded to k_max
+    (``base.py:105-126``)."""
+    ys, xs = np.nonzero(labelled_map != ignore_index)
+    labels = labelled_map[ys, xs].astype(np.int32)
+    return _padded(ys, xs, labels, np.ones(len(ys), bool), k_max,
+                   " (human labels)")
 
 
 class SegDatasetBase:
@@ -137,6 +155,31 @@ class SegDatasetBase:
     def update_labelled_queries(self, labelled_queries: List[np.ndarray]) -> None:
         self.list_labelled_queries = labelled_queries
 
+    def set_human_inputs(self, inputs: List[str],
+                         labelled_maps: List[np.ndarray]) -> None:
+        """Point the dataset at the merged human-labelled images and their
+        label maps (``base.py:188-210``), before any loader is built on it.
+        Human mode reads no label file: the label list is cleared, so a stray
+        read fails loudly instead of reading another image's labels."""
+        if len(inputs) != len(labelled_maps):
+            raise ValueError(f"{len(inputs)} inputs for "
+                             f"{len(labelled_maps)} labelled maps")
+        for p, m in zip(inputs, labelled_maps):
+            if not os.path.exists(p):
+                raise FileNotFoundError(p)
+            if m.ndim != 2:
+                raise ValueError(f"{p}: label map of shape {m.shape}")
+        self.list_inputs = list(inputs)
+        self.list_labels = []
+        if hasattr(self, "has_labels"):
+            self.has_labels = False
+        self.queries = None
+        self.n_pixels_total = int(sum(int((m != self.ignore_index).sum())
+                                      for m in labelled_maps))
+        self._x_cache.clear()
+        self._y_cache.clear()
+        self.update_labelled_queries(list(labelled_maps))
+
     def generate_init_queries(self, n_pixels_per_img: int,
                               path_queries: str,
                               void_filter: bool = True) -> None:
@@ -196,9 +239,12 @@ class SegDatasetBase:
         return random.Random(
             (int(self.seed) * 1_000_003 + int(epoch)) * 1_000_003 + int(index))
 
-    def train_sample(self, i: int, epoch: int, fully_sup: bool = False) -> dict:
+    def train_sample(self, i: int, epoch: int, human_labels: bool = False,
+                     fully_sup: bool = False) -> dict:
         """Augmented sample with sparse labels: x uint8 (H, W, 3), coords
-        (k_max, 2), labels (k_max,), valid (k_max,); with ``fully_sup`` the
+        (k_max, 2), labels (k_max,), valid (k_max,); with ``human_labels``
+        taken from the merged label map (an all-void y rides along through
+        the augmentation; no label file is read); with ``fully_sup`` the
         same augmentation without query masks, returning x and the dense
         label map y int32 (H, W)."""
         from pixelpick_tpu_torch.data.augment import (
@@ -206,21 +252,31 @@ class SegDatasetBase:
         )
 
         rng = self.sample_rng(epoch, i)
-        x = Image.fromarray(self._load_x(i))
-        y = Image.fromarray(self._load_y(i).astype(np.int32), mode="I")
-        x, y_np, q_np, _ = geometric_augment(
-            x, y, None if fully_sup else self.queries[i], None, rng,
-            crop_size=self.crop_size, mean_fill=self.mean_fill,
-            ignore_index=self.ignore_index,
+        x_arr = self._load_x(i)
+        if human_labels:
+            y_arr = np.full(x_arr.shape[:2], self.ignore_index, np.int32)
+        else:
+            y_arr = self._load_y(i).astype(np.int32)
+        queries = None if (fully_sup or human_labels) else self.queries[i]
+        labelled = self.list_labelled_queries[i] if human_labels else None
+        x, y_np, q_np, l_np = geometric_augment(
+            Image.fromarray(x_arr), Image.fromarray(y_arr, mode="I"),
+            queries, labelled, rng, crop_size=self.crop_size,
+            mean_fill=self.mean_fill, ignore_index=self.ignore_index,
             enabled=self.geometric_augmentations)
         x = photometric_augment(x, rng, jitter=self.jitter,
                                 enabled=self.photometric_augmentations)
+        x_np = np.asarray(x, dtype=np.uint8)
         if fully_sup:
-            return {"x": np.asarray(x, dtype=np.uint8), "y": y_np}
-        coords, labels, valid = extract_sparse_labels(
-            q_np, y_np, self.ignore_index, self.k_max)
-        return {"x": np.asarray(x, dtype=np.uint8), "coords": coords,
-                "labels": labels, "valid": valid}
+            return {"x": x_np, "y": y_np}
+        if human_labels:
+            coords, labels, valid = extract_sparse_from_map(
+                l_np, self.ignore_index, self.k_max)
+        else:
+            coords, labels, valid = extract_sparse_labels(
+                q_np, y_np, self.ignore_index, self.k_max)
+        return {"x": x_np, "coords": coords, "labels": labels,
+                "valid": valid}
 
     def val_sample(self, i: int) -> dict:
         return {"x": self._load_x(i), "y": self._load_y(i)}

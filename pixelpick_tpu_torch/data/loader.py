@@ -10,8 +10,10 @@ image only when ``n % drop_unit == 1`` (the reference's drop-last,
 or the micro-batch size of a megabatch schedule, ``loader.py:66-88``); val
 and query loaders keep dataset order and drop nothing. The train modes are
 ``train`` (sparse labels) and ``train_dense`` (the full label map, for the
-fully supervised step). Augmentation draws from a per-(epoch, index)
-stream, so batches do not depend on thread scheduling. The shape buckets of
+fully supervised step); with ``human_labels`` the train mode reads the
+merged human-label maps and the query mode excludes their pixels.
+Augmentation draws from a per-(epoch, index) stream, so batches do not
+depend on thread scheduling. The shape buckets of
 variable-size pools come later (ROADMAP.md, Queue 1).
 """
 
@@ -37,9 +39,6 @@ class Loader:
         if mode not in ("train", "train_dense", "val", "query"):
             raise NotImplementedError(f"loader mode {mode!r} is not ported "
                                       "yet (ROADMAP.md, Queue 1)")
-        if mode == "train" and human_labels:
-            raise NotImplementedError("human-label training is not ported "
-                                      "yet (ROADMAP.md, Queue 1: cli/train)")
         self.dataset = dataset
         self.batch_size = batch_size
         self.mode = mode
@@ -93,7 +92,8 @@ class Loader:
 
     def _fetch(self, i: int) -> dict:
         if self.mode == "train":
-            return self.dataset.train_sample(i, self.epoch)
+            return self.dataset.train_sample(
+                i, self.epoch, human_labels=self.human_labels)
         if self.mode == "train_dense":
             return self.dataset.train_sample(i, self.epoch, fully_sup=True)
         if self.mode == "val":

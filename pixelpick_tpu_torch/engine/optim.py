@@ -135,6 +135,33 @@ class Optimizer:
             torch._foreach_add_(ps, torch._foreach_mul(upd, self.lr(cfg, t)))
         self.step_count += 1
 
+    def state_dict(self) -> dict:
+        """The update count and each group's moment lists, on the CPU."""
+        return {"step_count": self.step_count,
+                "state": [{k: [t.detach().cpu() for t in ts]
+                           for k, ts in st.items()} for st in self.state]}
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Install a ``state_dict``: ``step`` replaces the moment lists
+        rather than writing into them, so new tensors are made here, on
+        each parameter's device."""
+        if len(sd["state"]) != len(self.state):
+            raise ValueError(f"{len(sd['state'])} optimizer groups saved, "
+                             f"{len(self.state)} here")
+        state = []
+        for (_, ps), st, saved in zip(self.groups, self.state, sd["state"]):
+            if set(saved) != set(st) or any(len(v) != len(ps)
+                                            for v in saved.values()):
+                raise ValueError(f"optimizer state {sorted(saved)} of "
+                                 f"{[len(v) for v in saved.values()]} "
+                                 f"tensors does not fit {sorted(st)} of "
+                                 f"{len(ps)} parameters")
+            state.append({k: [t.to(device=p.device, dtype=p.dtype, copy=True)
+                              for t, p in zip(v, ps)]
+                          for k, v in saved.items()})
+        self.state = state
+        self.step_count = int(sd["step_count"])
+
 
 def make_optimizer(args, model: torch.nn.Module,
                    iters_per_epoch: int) -> Optimizer:

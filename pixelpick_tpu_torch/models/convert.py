@@ -11,75 +11,106 @@ is this one's inverse:
   ``running_mean/running_var`` (plus ``num_batches_tracked`` = 0, which the
   reference's modules carry).
 
-Reading a JAX checkpoint file (msgpack/orbax) here is still open
-(ROADMAP.md).
+It walks the trees' own leaves, so a partial tree gives the entries it
+holds: the backbone-only file of ``python -m pixelpick_tpu.models.convert
+--kind mobilenet_v2`` gives the backbone's.
+
+``load_pretrained_ckpt(model, path)`` is the counterpart of
+``pixelpick_tpu/models/convert.py:load_pretrained_ckpt`` (``overlay_tree``):
+it reads a JAX msgpack file (``engine/flax_msgpack.py``) and overlays every
+entry whose key the model has at the same shape; everything else keeps the
+model's own init.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
-
-def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.float32))
-
-
-def _kernel(tree) -> torch.Tensor:
-    return _t(np.asarray(tree["kernel"]).transpose(3, 2, 0, 1))  # HWIO -> OIHW
+from pixelpick_tpu_torch.engine.flax_msgpack import flatten, msgpack_restore
+from pixelpick_tpu_torch.models.mobilenet_v2 import block_plan
 
 
-def _bn(sd: Dict[str, torch.Tensor], key: str, params, stats) -> None:
-    sd[f"{key}.weight"] = _t(params["bn"]["scale"])
-    sd[f"{key}.bias"] = _t(params["bn"]["bias"])
-    sd[f"{key}.running_mean"] = _t(stats["bn"]["mean"])
-    sd[f"{key}.running_var"] = _t(stats["bn"]["var"])
-    sd[f"{key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+def _module_keys() -> Dict[Tuple[str, ...], str]:
+    """JAX module scope (without a BatchNorm's inner ``bn``) -> the port's
+    module key, for every module of the DeepLab."""
+    keys = {
+        ("backbone", "stem"): "backbone.features.0.0",
+        ("backbone", "stem_bn"): "backbone.features.0.1",
+        ("aspp", "gap_conv"): "aspp.global_avg_pool.1",
+        ("aspp", "gap_bn"): "aspp.global_avg_pool.2",
+        ("aspp", "proj"): "aspp.conv1",
+        ("aspp", "proj_bn"): "aspp.bn1",
+        ("low_level_conv",): "low_level_conv.0",
+        ("low_level_bn",): "low_level_conv.1",
+        ("seg_head", "conv1"): "seg_head.segment_head.0",
+        ("seg_head", "bn1"): "seg_head.segment_head.1",
+        ("seg_head", "conv2"): "seg_head.segment_head.4",
+        ("seg_head", "bn2"): "seg_head.segment_head.5",
+        ("seg_head", "classifier"): "seg_head.classifier",
+    }
+    for k in range(1, 5):
+        keys[("aspp", f"aspp{k}")] = f"aspp.aspp{k}.atrous_conv"
+        keys[("aspp", f"aspp{k}_bn")] = f"aspp.aspp{k}.bn"
+    # block i's layers sit at these indices of ``features.{i+1}.conv``; the
+    # expand ratio per block is the same at every width and output stride
+    for i, (*_, t) in enumerate(block_plan(16)[0]):
+        layers = ("dw", "dw_bn", None, "project", "project_bn") if t == 1 \
+            else ("expand", "expand_bn", None, "dw", "dw_bn", None,
+                  "project", "project_bn")
+        for j, name in enumerate(layers):
+            if name:
+                keys[("backbone", f"block_{i}", name)] = \
+                    f"backbone.features.{i + 1}.conv.{j}"
+    return keys
+
+
+MODULE_KEYS = _module_keys()
+_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight",
+           "mean": "running_mean", "var": "running_var"}
+
+
+def _tensor(path: Tuple[str, ...], leaf) -> torch.Tensor:
+    a = np.array(leaf, dtype=np.float32)  # a writable copy
+    if path[-1] == "kernel":
+        a = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    return torch.from_numpy(np.ascontiguousarray(a))
 
 
 def state_dict_from_jax(params, batch_stats) -> Dict[str, torch.Tensor]:
-    """JAX DeepLab (params, batch_stats) -> the port's DeepLab state_dict."""
+    """JAX DeepLab (params, batch_stats), whole or any part of them -> the
+    port's DeepLab state_dict entries they hold."""
     sd: Dict[str, torch.Tensor] = {}
-    bb_p, bb_s = params["backbone"], batch_stats["backbone"]
-    sd["backbone.features.0.0.weight"] = _kernel(bb_p["stem"])
-    _bn(sd, "backbone.features.0.1", bb_p["stem_bn"], bb_s["stem_bn"])
-    i = 0
-    while f"block_{i}" in bb_p:
-        blk_p, blk_s = bb_p[f"block_{i}"], bb_s[f"block_{i}"]
-        if "expand" in blk_p:
-            layers = [("expand", 0), ("expand_bn", 1), ("dw", 3),
-                      ("dw_bn", 4), ("project", 6), ("project_bn", 7)]
-        else:
-            layers = [("dw", 0), ("dw_bn", 1), ("project", 3),
-                      ("project_bn", 4)]
-        prefix = f"backbone.features.{i + 1}.conv"
-        for name, j in layers:
-            if name.endswith("_bn"):
-                _bn(sd, f"{prefix}.{j}", blk_p[name], blk_s[name])
-            else:
-                sd[f"{prefix}.{j}.weight"] = _kernel(blk_p[name])
-        i += 1
-
-    a_p, a_s = params["aspp"], batch_stats["aspp"]
-    for k in range(1, 5):
-        sd[f"aspp.aspp{k}.atrous_conv.weight"] = _kernel(a_p[f"aspp{k}"])
-        _bn(sd, f"aspp.aspp{k}.bn", a_p[f"aspp{k}_bn"], a_s[f"aspp{k}_bn"])
-    sd["aspp.global_avg_pool.1.weight"] = _kernel(a_p["gap_conv"])
-    _bn(sd, "aspp.global_avg_pool.2", a_p["gap_bn"], a_s["gap_bn"])
-    sd["aspp.conv1.weight"] = _kernel(a_p["proj"])
-    _bn(sd, "aspp.bn1", a_p["proj_bn"], a_s["proj_bn"])
-
-    sd["low_level_conv.0.weight"] = _kernel(params["low_level_conv"])
-    _bn(sd, "low_level_conv.1", params["low_level_bn"],
-        batch_stats["low_level_bn"])
-
-    h_p, h_s = params["seg_head"], batch_stats["seg_head"]
-    sd["seg_head.segment_head.0.weight"] = _kernel(h_p["conv1"])
-    _bn(sd, "seg_head.segment_head.1", h_p["bn1"], h_s["bn1"])
-    sd["seg_head.segment_head.4.weight"] = _kernel(h_p["conv2"])
-    _bn(sd, "seg_head.segment_head.5", h_p["bn2"], h_s["bn2"])
-    sd["seg_head.classifier.weight"] = _kernel(h_p["classifier"])
-    sd["seg_head.classifier.bias"] = _t(h_p["classifier"]["bias"])
+    for tree in (params, batch_stats):
+        for path, leaf in flatten(tree).items():
+            scope = path[:-2] if path[-2:-1] == ("bn",) else path[:-1]
+            if scope not in MODULE_KEYS:
+                raise KeyError(f"no port module for the JAX leaf "
+                               f"{'/'.join(path)}")
+            key = MODULE_KEYS[scope]
+            sd[f"{key}.{_LEAVES[path[-1]]}"] = _tensor(path, leaf)
+            if path[-1] == "mean":
+                sd[f"{key}.num_batches_tracked"] = torch.tensor(
+                    0, dtype=torch.long)
     return sd
+
+
+def load_pretrained_ckpt(model: torch.nn.Module, path: str) -> list:
+    """Overlay a JAX-written ``{"params", "batch_stats"}`` msgpack file on
+    ``model`` (``pixelpick_tpu/models/convert.py:137-170``): every entry
+    whose key the model has at the same shape is copied in, the rest keeps
+    its init. Returns the keys overlaid."""
+    with open(path, "rb") as f:
+        payload = msgpack_restore(f.read())
+    entries = state_dict_from_jax(payload.get("params", {}),
+                                  payload.get("batch_stats", {}))
+    own = model.state_dict()
+    done = []
+    with torch.no_grad():
+        for k, v in entries.items():
+            if k in own and tuple(own[k].shape) == tuple(v.shape):
+                own[k].copy_(v.to(own[k].dtype))
+                done.append(k)
+    return done

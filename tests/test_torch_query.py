@@ -133,14 +133,13 @@ def test_flag_surface_matches_jax():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--network_name", "FPN"], ["--pretrained_ckpt", "backbone.ckpt"],
+    ["--network_name", "FPN"],
     ["--s2d_backbone", "true"],
     ["--s2d_backbone", "1"], ["--conv3x3_matmul"],
     ["--spatial_query_sharding"], ["--dist_coordinator", "localhost:1"],
     ["--data_parallel", "2"], ["--dataset_name", "cs"],
     ["--dataset_name", "voc"], ["--dataset_name", "cs", "--n_pixels_by_us",
                                 "0"],
-    ["--stage_ckpt_interval", "1"], ["--resume_campaign"],
     ["--device_augment"]])
 def test_unported_flags_raise(flags):
     args = config.build_parser().parse_args(flags)
@@ -148,24 +147,73 @@ def test_unported_flags_raise(flags):
         config.check_supported(args)
 
 
-def test_pretrained_ckpt_is_refused_by_main_al(tmp_path):
-    """``--pretrained_ckpt`` through ``cli/main_al.py``'s argument path
-    raises, naming ROADMAP Queue 1 item 5, where the JAX checkpoint overlay
-    comes; it is not quietly ignored."""
-    from pixelpick_tpu_torch.cli.main_al import main
-
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        main(["--device", "cpu", "--dir_checkpoints", str(tmp_path),
-              "--pretrained_ckpt", str(tmp_path / "backbone.ckpt")])
-
-
 @pytest.mark.parametrize("flags", [
     ["--use_mc_dropout"], ["--micro_batch_size", "2"],
-    ["--n_pixels_by_us", "0"]])
+    ["--n_pixels_by_us", "0"], ["--pretrained_ckpt", "backbone.ckpt"],
+    ["--stage_ckpt_interval", "1"], ["--resume_campaign"]])
 def test_ported_round_modes_pass(flags):
-    """The micro-batch step, the dense step and the MC-dropout committee
-    are ported: their flags pass the check."""
+    """The micro-batch step, the dense step, the MC-dropout committee, the
+    pretrained overlay, stage snapshots and the campaign fast-forward are
+    ported: their flags pass the check."""
     config.check_supported(config.build_parser().parse_args(flags))
+
+
+def test_pretrained_ckpt_through_main_al(tmp_path, monkeypatch):
+    """``--pretrained_ckpt`` through ``cli/main_al.py``'s argument path: a
+    backbone-only JAX msgpack file (``python -m pixelpick_tpu.models.convert
+    --kind mobilenet_v2`` writes that layout) is in round 0's model before
+    its first update, and every other tensor is the round's own init."""
+    import flax.serialization
+    import yaml
+
+    from pixelpick_tpu_torch.active import driver
+    from pixelpick_tpu_torch.cli.main_al import main
+    from pixelpick_tpu_torch.models.convert import state_dict_from_jax
+    from pixelpick_tpu_torch.models.factory import get_model
+
+    root = make_synthetic_camvid(str(tmp_path / "ds"), n_train=4, n_test=2)
+    os.rename(f"{root}/test", f"{root}/val")
+    os.rename(f"{root}/testannot", f"{root}/valannot")
+    cfg = dict(dataset_name="custom", dir_dataset=root, batch_size=4,
+               ignore_index=11, n_classes=N_CLASSES, n_epochs=1,
+               mean=[0.5, 0.5, 0.5], std=[0.25, 0.25, 0.25],
+               optimizer_type="Adam", lr_scheduler_type="MultiStepLR",
+               optimizer_params={"lr": 5e-4, "betas": [0.9, 0.999],
+                                 "weight_decay": 2e-4, "eps": 1e-7})
+    (tmp_path / "cfg.yaml").write_text(yaml.safe_dump(cfg))
+    params, stats = jax_deeplab_variables(N_CLASSES, WIDTH, HW, seed=5)
+    payload = {"params": {"backbone": params["backbone"]},
+               "batch_stats": {"backbone": stats["backbone"]}}
+    ckpt = tmp_path / "mnv2.ckpt"
+    ckpt.write_bytes(flax.serialization.msgpack_serialize(payload))
+
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def first_epoch(self, epoch, step_fn):
+        seen.update({k: v.clone() for k, v in self.model.state_dict().items()})
+        seen["args"] = self.args
+        raise Stop
+
+    monkeypatch.setattr(driver.ALModel, "_train_epoch", first_epoch)
+    with pytest.raises(Stop):
+        main(["-pdc", str(tmp_path / "cfg.yaml"), "--dir_checkpoints",
+              str(tmp_path / "run"), "--device", "cpu", "--width_multiplier",
+              str(WIDTH), "--n_pixels_by_us", "3", "--max_budget", "3",
+              "--n_workers", "2", "--seed", "4", "--pretrained_ckpt",
+              str(ckpt)])
+
+    want = state_dict_from_jax(payload["params"], payload["batch_stats"])
+    fresh = get_model(seen.pop("args"), "cpu",
+                      seed=driver.round_seed(4, 0)).state_dict()
+    assert set(seen) == set(fresh)
+    assert len(want) == sum(k.startswith("backbone.") for k in fresh)
+    for k, v in seen.items():
+        assert torch.equal(v, want[k] if k in want else fresh[k]), k
+    assert not torch.equal(want["backbone.features.0.0.weight"],
+                           fresh["backbone.features.0.0.weight"])
 
 
 def test_cuda_without_a_card_raises():

@@ -149,3 +149,28 @@ def few_torch_threads():
         yield
     finally:
         torch.set_num_threads(n)
+
+
+def custom_camvid(root, n_train=8, n_val=2, seed=0):
+    """tests/helpers.py's synthetic CamVid at 48x64 in the custom-dataset
+    layout ({train,val}{,annot}/) and its dataset config; returns the
+    config's path."""
+    import os
+
+    import yaml
+
+    from tests.helpers import make_synthetic_camvid
+
+    ds = make_synthetic_camvid(str(root / "ds"), n_train=n_train,
+                               n_test=n_val, seed=seed)
+    os.rename(f"{ds}/test", f"{ds}/val")
+    os.rename(f"{ds}/testannot", f"{ds}/valannot")
+    cfg = dict(dataset_name="custom", dir_dataset=ds, batch_size=4,
+               crop_size=list(HW), ignore_index=11, n_classes=N_CLASSES,
+               n_epochs=1, mean=[0.5, 0.5, 0.5], std=[0.25, 0.25, 0.25],
+               optimizer_type="Adam", lr_scheduler_type="MultiStepLR",
+               optimizer_params={"lr": 5e-4, "betas": [0.9, 0.999],
+                                 "weight_decay": 2e-4, "eps": 1e-7})
+    path = root / "custom.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
