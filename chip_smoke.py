@@ -9,10 +9,10 @@ for CUDA and the CUDA toolkit (nvcc):
 It builds the hand-written kernels from the sources in the checkout (one
 ``nvcc`` per source, started together) and drives the port's pool-scoring
 (query) path, its training round and its other round modes (micro-batch,
-dense, MC-dropout committee), and its train and eval CLIs with stage
+dense, MC-dropout committee), its train and eval CLIs with stage
 snapshots, JAX-layout checkpoint files, ``--resume_campaign`` and
-``--pretrained_ckpt``, at full width, in phases; any failure exits
-nonzero:
+``--pretrained_ckpt``, and device augmentation on CamVid and Cityscapes,
+at full width, in phases; any failure exits nonzero:
 
 1. card: name and power limit, torch and CUDA versions, the kernel builds;
 2. kernels vs plain: the depthwise 3x3 kernel at every shape one
@@ -91,7 +91,23 @@ nonzero:
 13. ``main_al --resume_campaign`` over phase 7's campaign (no update, no
    sweep, the same labelled pixels, the logs untouched), and ``main_al
    --pretrained_ckpt`` with phase 12's msgpack file for one ``--debug``
-   round: round 0's weights before its first update are the file's.
+   round: round 0's weights before its first update are the file's;
+14. device augmentation: ``main_al --device_augment`` at ``--batch_size 48
+   --micro_batch_size 4`` (phase 8's configuration) for 3 epochs and one
+   round, then phase 8's host-loader run again for 2 epochs, so that the
+   host loader and the device pipeline run in turns in one call: 92
+   updates per epoch, no labelled pixel dropped (overflow 0), 13 fused
+   launches of each kind per update, the warm epochs' train images/s, the
+   device's busy share (profiler), the staged bytes, the pipeline's
+   device ms per batch of 48 (CUDA events) and its host ms to enqueue
+   one; the card's pipeline against its CPU run on the same draws, with
+   TF32 on in the process (``pipeline_card_vs_cpu``);
+15. Cityscapes: a synthetic 1024x2048 ``leftImg8bit/``/``gtFine/`` tree
+   (50 train, 6 val images, labelIds 0-33), and ``main_al --dataset_name
+   cs --device_augment`` at bs 48 / micro 4 for 2 epochs and one round
+   with its sweep, which builds the ds-4 train and ds-2 val caches: every
+   cached label in 0-19, 10 picks per image and none void, 13 updates per
+   epoch and their launches.
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. The details go to
@@ -99,9 +115,10 @@ line, and last ``{"ok": true, "device": {...}}``. The details go to
 line, ``launches`` counts every main-path run: the depthwise kernel's
 (forward and dx) over the sweeps of phases 3 and 10, the campaign of phase
 7, the epoch runs of phases 8 and 9, the train CLI's runs of phase 11, the
-eval CLI's of phase 12 and the ``--pretrained_ckpt`` round of phase 13; the
-fused kernels' over phases 7, 8, 9, 11 and 13 (their counters zeroed just
-before each run and read just after).
+eval CLI's of phase 12, the ``--pretrained_ckpt`` round of phase 13 and
+the runs of phases 14 and 15; the fused kernels' over phases 7, 8, 9, 11,
+13, 14 and 15 (their counters zeroed just before each run and read just
+after).
 """
 
 from __future__ import annotations
@@ -1204,20 +1221,22 @@ def phase_train_step(args_cv) -> dict:
 
 # ------------------------------ phase 7 ------------------------------
 
-def write_cfg(work: Path, name: str, **overrides) -> Path:
-    """The CamVid block as a dataset config overlay on the synthetic set
-    (the epoch count and the batch size are set by such an overlay, not by
-    flags, in both packages)."""
+def write_cfg(work: Path, name: str, dataset: str = "cv",
+              **overrides) -> Path:
+    """The dataset's block (CamVid's unless ``dataset`` says otherwise) as a
+    dataset config overlay on the synthetic set (the epoch count and the
+    batch size are set by such an overlay, not by flags, in both
+    packages)."""
     import yaml
 
     from pixelpick_tpu_torch.config import DATASET_DEFAULTS
 
-    cfg = {k: v for k, v in DATASET_DEFAULTS["cv"].items()
+    cfg = {k: v for k, v in DATASET_DEFAULTS[dataset].items()
            if k != "dir_dataset_name"}
     cfg["optimizer_params"] = dict(cfg["optimizer_params"],
                                    betas=list(cfg["optimizer_params"]["betas"]))
-    cfg.update(dataset_name="cv", dir_dataset=str(work / "camvid"),
-               **overrides)
+    cfg.update(dataset_name=dataset, dir_dataset=str(work / "camvid"))
+    cfg.update(overrides)
     path = work / f"{name}.yaml"
     path.write_text(yaml.safe_dump(cfg))
     return path
@@ -2184,6 +2203,314 @@ def phase_resume_and_pretrained(work: Path, flax_ckpt: str) -> dict:
     return {"resume_s": resume_s, "resume_launches": counts,
             "pretrained_s": pre_s, "pretrained_launches": counts2}
 
+# ------------------------------ phase 14 ------------------------------
+
+# the card's pipeline against its CPU run on the same draws, as
+# tests/test_torch_device_pipeline.py holds the port to JAX: the picks,
+# their labels, the valid masks and the overflow exactly; x on the
+# normalised scale within PIPE_X_TOL, but for pixels where a round() sits
+# on a .5 tie (one grey level apart), fewer than PIPE_TIE_SHARE of them
+PIPE_X_TOL, PIPE_TIE_SHARE = 1e-4, 1e-4
+
+
+def sample_with(pipe, indices, draws) -> dict:
+    """``pipe.sample_batch(indices)`` on the given draws."""
+    pipe.draw = lambda n, generator: draws
+    try:
+        return pipe.sample_batch(indices, None)
+    finally:
+        del pipe.draw
+
+
+def pipeline_card_vs_cpu(pipe, indices, seed: int) -> dict:
+    """The device pipeline ``pipe`` (on the card) against its copy on the
+    CPU, on the same draws (made on the card), with TF32 on in the process
+    during the card's run: the pipeline's products must keep to strict
+    f32 whatever the process's setting. ``ok`` says whether it held: a tie
+    pixel within one grey level (``1 / (255 std)`` on the normalised
+    scale)."""
+    import torch
+
+    rows = -(-len(indices) // pipe.pad_multiple) * pipe.pad_multiple
+    draws = pipe.draw(rows, torch.Generator(device=DEVICE).manual_seed(seed))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        card = sample_with(pipe, indices, draws)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    host = sample_with(pipe.to("cpu"), indices,
+                       {k: v.cpu() for k, v in draws.items()})
+    err = (card["x"].cpu() - host["x"]).abs().amax(-1)
+    off = err > PIPE_X_TOL
+    out = {"rows": rows, "n_real": len(indices),
+           "picks_equal": all(torch.equal(card[k].cpu(), host[k])
+                              for k in ("coords", "labels", "valid")),
+           "overflow": [int(card["overflow"]), int(host["overflow"])],
+           "valid_picks": int(host["valid"].sum()),
+           "x_max_abs_err": float(err.max()),
+           "x_max_abs_err_outside_ties": float(err[~off].max()),
+           "tie_pixels": int(off.sum()), "pixels": off.numel()}
+    grey_level = 1.0 / (255.0 * float(pipe.std.min()))
+    out["ok"] = (out["picks_equal"]
+                 and out["overflow"][0] == out["overflow"][1]
+                 and out["tie_pixels"] <= PIPE_TIE_SHARE * out["pixels"]
+                 and out["x_max_abs_err"] <= grey_level + PIPE_X_TOL)
+    return out
+
+
+def phase_device_augment(work: Path, micro: dict) -> dict:
+    """``main_al --device_augment`` at bs 48 / micro 4 for 3 epochs, one
+    round (epoch 2 timed, epoch 3 under the profiler), then phase 8's
+    host-loader run again for 2 epochs (epoch 2 timed): the host loader,
+    the device pipeline and the host loader in turns in one call. The
+    card's pipeline against its CPU run on a padded remainder batch; its
+    device ms per batch of 48 (CUDA events) and its host ms to enqueue
+    one."""
+    import torch
+
+    from pixelpick_tpu_torch.active import driver
+    from pixelpick_tpu_torch.data import base as data_base, device_pipeline
+
+    cfg = write_cfg(work, "cv_bs48", n_epochs=3, batch_size=48)
+    record, opts, waits = {}, [], []
+    make_optimizer = driver.make_optimizer
+    get_flags = device_pipeline.HostCopy.get
+
+    def kept(*a, **k):
+        opts.append(make_optimizer(*a, **k))
+        return opts[-1]
+
+    def timed_get(self):
+        """The micro-batch step's one wait per megabatch, for its row
+        flags."""
+        t0 = time.perf_counter()
+        out = get_flags(self)
+        waits.append(time.perf_counter() - t0)
+        return out
+
+    argv = ["--device", DEVICE, "--fused_ir", "--pallas_dw",
+            "--micro_batch_size", "4", "--n_pixels_by_us", "10",
+            "--max_budget", "10", "-qs", "margin_sampling",
+            "--pool_batch_size", str(POOL_BATCH), "--n_workers", "8",
+            "--seed", "0"]
+    dropped = data_base.SPARSE_OVERFLOW_PIXELS
+    driver.make_optimizer = kept
+    device_pipeline.HostCopy.get = timed_get
+    try:
+        al, wall_s, counts = run_main_al(
+            ["-pdc", str(cfg), "--dir_checkpoints", str(work / "devaug"),
+             *argv, "--device_augment"], record, timed={(0, 2)},
+            traced={(0, 3)})
+    finally:
+        driver.make_optimizer = make_optimizer
+        device_pipeline.HostCopy.get = get_flags
+    overflow = data_base.SPARSE_OVERFLOW_PIXELS - dropped
+    pipe = al.device_pipe
+    updates, per_epoch = opts[0].step_count, al._iters_per_epoch()
+    rows = (work / "devaug" / "0_query" / "log_train.txt").read_text() \
+        .split()[1:]
+    busy, busy_us, by_name = record["busy"]
+    ips = N_IMAGES / record["warm_epoch_s"]
+    busy_share = busy_us / 1e6 / record["warm_epoch_s"]
+    check(pipe is not None, "--device_augment built no pipeline")
+    check(per_epoch == 92 and updates == 3 * 92,
+          f"{updates} updates, {per_epoch} per epoch")
+    check(counts["fused_fwd"] == 13 * updates
+          and counts["fused_bwd"] == 13 * updates
+          and counts["depthwise_kernel_dx"] == updates,
+          f"device-augment launches {counts}")
+    check(overflow == 0, f"the pipeline dropped {overflow} labelled pixels")
+    check(len(rows) == 3 and all(np.isfinite(float(r.split(",")[3]))
+                                 for r in rows), f"losses {rows}")
+    for f in ("1_train.png", "3_train.png"):
+        check((work / "devaug" / "0_query" / f).is_file(), f"{f} not written")
+    check((work / "devaug" / "1_query" / "queries.pkl").is_file(),
+          "the round's picks were not written")
+
+    plan = al.loader.batch_index_plan(4)
+    gens = [(torch.Generator(device=DEVICE).manual_seed(i),)
+            for i in range(4)]
+    pipe_ms = time_ms(lambda g: pipe.sample_batch(plan[0], g), gens, reps=10)
+    enqueue_ms = []  # each from an idle device, so no full queue blocks it
+    for g, in gens:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.sample_batch(plan[0], g)
+        enqueue_ms.append((time.perf_counter() - t0) * 1e3)
+    host_ms = statistics.median(enqueue_ms)
+    torch.cuda.synchronize()
+    # the epoch's remainder (31 rows) cut to 11, padded to 12
+    cmp = pipeline_card_vs_cpu(pipe, plan[-1][:11], seed=5)
+    staged = pipe.staged_bytes
+    del pipe, al
+    torch.cuda.empty_cache()
+
+    host_record = {}
+    _, host_wall_s, host_counts = run_main_al(
+        ["-pdc", str(write_cfg(work, "cv_bs48_2ep", n_epochs=2,
+                               batch_size=48)),
+         "--dir_checkpoints", str(work / "hostaug"), *argv], host_record,
+        timed={(0, 2)})
+    host_ips = N_IMAGES / host_record["warm_epoch_s"]
+    check(host_counts["fused_fwd"] == 13 * 2 * 92
+          and host_counts["depthwise_kernel_dx"] == 2 * 92,
+          f"host-loader launches {host_counts}")
+    print(f"[14] main_al --device_augment at bs 48 / micro 4, 3 epochs in "
+          f"{wall_s:.1f} s: {updates} updates ({per_epoch} per epoch), "
+          f"overflow {overflow}, launches {counts}; staged {staged} bytes; "
+          f"warm epoch {record['warm_epoch_s']:.2f} s = {ips:.1f} train "
+          f"images/s; in turns, the host loader's: phase 8 "
+          f"{micro['train_images_per_s']:.1f}, again after it {host_ips:.1f};"
+          f" epoch 3 under the profiler {record['traced_epoch_s']:.2f} s, "
+          f"device busy {busy_us / 1e6:.2f} s = {100 * busy_share:.1f}% of "
+          f"the untraced warm epoch (phase 8: "
+          f"{100 * micro['device_busy_share_untraced_epoch']:.1f}%)")
+    print(f"[14] the pipeline, a batch of 48: {pipe_ms:.3f} ms on the "
+          f"device (CUDA events), {host_ms:.2f} ms of host time to enqueue; "
+          f"the step's {len(waits)} reads of its row flags (one per "
+          f"megabatch) waited {1e3 * sum(waits):.2f} ms in all, at most "
+          f"{1e3 * max(waits):.3f} ms")
+    print(f"[14] the card's pipeline against its CPU run, {cmp['n_real']} "
+          f"rows padded to {cmp['rows']} (TF32 on in the process): picks "
+          f"equal {cmp['picks_equal']} ({cmp['valid_picks']} valid), "
+          f"overflow {cmp['overflow']}, x within "
+          f"{cmp['x_max_abs_err_outside_ties']:.3g} outside "
+          f"{cmp['tie_pixels']} tie pixels of {cmp['pixels']} (largest "
+          f"{cmp['x_max_abs_err']:.3g})")
+    top = print_top("[14]", by_name)
+    check(cmp["ok"], f"the card's pipeline differs from its CPU run: {cmp}")
+    return {"run_s": wall_s, "updates": updates,
+            "updates_per_epoch": per_epoch, "launches": counts,
+            "overflow": overflow, "staged_bytes": staged,
+            "warm_epoch_s": record["warm_epoch_s"],
+            "train_images_per_s": ips,
+            "host_loader_images_per_s": [micro["train_images_per_s"],
+                                         host_ips],
+            "host_loader_run_s": host_wall_s,
+            "host_loader_launches": host_counts,
+            "peak_device_gb": record["peak_device_gb"],
+            "traced_epoch_s": record["traced_epoch_s"],
+            "device_busy_ms": busy_us / 1e3,
+            "device_busy_share_untraced_epoch": busy_share,
+            "pipeline_ms_per_batch": pipe_ms,
+            "pipeline_host_ms_per_batch": host_ms,
+            "row_flag_waits_ms": [1e3 * w for w in waits],
+            "card_vs_cpu": cmp, "top_device_ms": top}
+
+
+# ------------------------------ phase 15 ------------------------------
+
+CS_HW, CS_TRAIN, CS_VAL = (1024, 2048), 50, 6
+CS_IDS = np.arange(34)  # labelIds 0-33; 19 of them are train ids
+
+
+def make_synthetic_cityscapes(root: Path, seed: int = 0) -> None:
+    """The raw Cityscapes layout at 1024x2048, city "aachen":
+    leftImg8bit/{train,val}/ and gtFine/{train,val}/ PNGs, labelIds drawn
+    from 0-33 in 64x128-pixel tiles, a colour per id (no noise, which
+    would make the PNGs slow to write and read)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    palette = rng.integers(0, 256, (len(CS_IDS), 3))
+    h, w = CS_HW
+    for split, count in (("train", CS_TRAIN), ("val", CS_VAL)):
+        dx = root / "leftImg8bit" / split / "aachen"
+        dy = root / "gtFine" / split / "aachen"
+        dx.mkdir(parents=True)
+        dy.mkdir(parents=True)
+        for i in range(count):
+            tiles = rng.choice(CS_IDS, (h // 64, w // 128))
+            lab = np.repeat(np.repeat(tiles, 64, 0), 128, 1).astype(np.uint8)
+            img = palette[lab]
+            stem = f"aachen_{i:06d}_000019"
+            Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                dx / f"{stem}_leftImg8bit.png", compress_level=1)
+            Image.fromarray(lab).save(dy / f"{stem}_gtFine_labelIds.png",
+                                      compress_level=1)
+
+
+def phase_cityscapes(work: Path) -> dict:
+    """``main_al --dataset_name cs --device_augment`` at bs 48 / micro 4,
+    2 epochs, one round with its sweep, on a synthetic 1024x2048 tree: the
+    ds-4 train and the ds-2 val caches built by the dataset; every cached
+    label a train id or void; 10 picks per image, none void; the
+    kernels' launches."""
+    import torch
+    from PIL import Image
+
+    from pixelpick_tpu_torch.active import codec, driver
+    from pixelpick_tpu_torch.data.cityscapes import IGNORE
+
+    root = work / "cityscapes"
+    t0 = time.perf_counter()
+    make_synthetic_cityscapes(root)
+    write_s = time.perf_counter() - t0
+    cfg = write_cfg(work, "cs_bs48", dataset="cs", n_epochs=2, batch_size=48,
+                    dir_dataset=str(root))
+    opts = []
+    make_optimizer = driver.make_optimizer
+
+    def kept(*a, **k):
+        opts.append(make_optimizer(*a, **k))
+        return opts[-1]
+
+    driver.make_optimizer = kept
+    try:
+        al, wall_s, counts = run_main_al([
+            "-pdc", str(cfg), "--dir_checkpoints", str(work / "cs_run"),
+            "--device", DEVICE, "--fused_ir", "--pallas_dw",
+            "--micro_batch_size", "4", "--device_augment",
+            "--n_pixels_by_us", "10", "--max_budget", "10",
+            "-qs", "margin_sampling", "--pool_batch_size", str(POOL_BATCH),
+            "--n_workers", "8", "--seed", "0"], {})
+    finally:
+        driver.make_optimizer = make_optimizer
+    updates, per_epoch = opts[0].step_count, al._iters_per_epoch()
+    labels = {}
+    for factor in (4, 2):
+        for p in sorted(Path(f"{root}_d{factor}").glob("gtFine/*/*/*.png")):
+            y = np.asarray(Image.open(p))
+            labels[p] = int(y.max())
+            check(y.max() <= IGNORE, f"{p}: label {y.max()} outside 0-19")
+    n_cached = {f: len(list(Path(f"{root}_d{f}").glob("leftImg8bit/*/*/*")))
+                for f in (4, 2)}
+    check(n_cached == {4: CS_TRAIN + CS_VAL, 2: CS_TRAIN + CS_VAL},
+          f"cached images {n_cached}")
+    check(tuple(al.dataset.crop_size) == (256, 512)
+          and al.dataset_val._load_x(0).shape == (512, 1024, 3),
+          "the ds-4 train / ds-2 val sizes")
+    with open(work / "cs_run" / "1_query" / "queries.pkl", "rb") as f:
+        masks = codec.decode_queries(pkl.load(f), return_as_dict=True)
+    check(len(masks) == CS_TRAIN, f"{len(masks)} images picked")
+    for p, m in masks.items():
+        gt = np.asarray(al.dataset._load_y(al.dataset.list_inputs.index(p)))
+        check(int(m.sum()) == 10, f"{p}: {int(m.sum())} picks")
+        check(not (gt[m] == IGNORE).any(), f"{p}: a void pick")
+    check(per_epoch == 13 and updates == 2 * 13,
+          f"{updates} updates, {per_epoch} per epoch")
+    check(counts["fused_fwd"] == 13 * updates
+          and counts["fused_bwd"] == 13 * updates
+          and counts["depthwise_kernel_dx"] == updates,
+          f"cityscapes launches {counts}")
+    timing = json.loads((work / "cs_run" / "0_query" / "timing.json")
+                        .read_text())
+    staged = al.device_pipe.staged_bytes
+    print(f"[15] synthetic Cityscapes {CS_HW[0]}x{CS_HW[1]} ({CS_TRAIN} "
+          f"train, {CS_VAL} val) written in {write_s:.1f} s; main_al --"
+          f"dataset_name cs --device_augment, 2 epochs and the sweep in "
+          f"{wall_s:.1f} s (the ds-4 and ds-2 caches built inside it): "
+          f"{updates} updates, launches {counts}; staged {staged} bytes; "
+          f"{len(labels)} cached label maps in 0-19; 10 picks per image, "
+          f"none void; train phase {timing['train']}")
+    del al
+    torch.cuda.empty_cache()
+    return {"write_s": write_s, "run_s": wall_s, "updates": updates,
+            "launches": counts, "staged_bytes": staged,
+            "cached_label_maps": len(labels), "timing": timing}
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2230,6 +2557,8 @@ def main(argv=None) -> int:
     train_cli = phase_train_cli(work)
     eval_cli = phase_eval_cli(work, train_cli)
     resume = phase_resume_and_pretrained(work, eval_cli["flax_ckpt"])
+    devaug = phase_device_augment(work, micro)
+    city = phase_cityscapes(work)
     phases_s = time.perf_counter() - t_start
 
     f32 = kernels["float32"]
@@ -2241,7 +2570,8 @@ def main(argv=None) -> int:
         # every main-path run: the sweeps of phases 3 and 10, the
         # campaign of phase 7, the epoch runs of phases 8 and 9, the train
         # CLI's straight and resumed runs of phase 11, the eval CLI's of
-        # phase 12 and the --pretrained_ckpt round of phase 13
+        # phase 12, the --pretrained_ckpt round of phase 13 and the
+        # device-augment runs of phases 14 and 15
         "launches": sum(c[f"{pre}kernel"] + c[f"{pre}kernel_dx"]
                         for c, pre in ((oracle["launches"], ""),
                                        (committee["launches"], ""),
@@ -2258,7 +2588,11 @@ def main(argv=None) -> int:
                                        (eval_cli["runs"]["torch_fused_ir"]
                                         ["launches"], ""),
                                        (resume["pretrained_launches"],
-                                        "depthwise_"))),
+                                        "depthwise_"),
+                                       (devaug["launches"], "depthwise_"),
+                                       (devaug["host_loader_launches"],
+                                        "depthwise_"),
+                                       (city["launches"], "depthwise_"))),
         "max_abs_err": max(r["max_abs_err"] for r in f32),
         # per forward of the main path: the 14 launches at batch 32, f32
         "ms": sum(r["ms"] for r in f32),
@@ -2270,7 +2604,7 @@ def main(argv=None) -> int:
     }
     # the fused kernels: per train step of the main path, the 13 blocks at
     # batch 4 in f32, summed; launches over the main-path train runs of
-    # phases 7, 8, 9, 11 (both arms) and 13
+    # phases 7, 8, 9, 11 (both arms), 13, 14 and 15
     f32 = fused["float32"]
     fused_entries = []
     for k, name, line in (("fwd", "fused_ir_fwd", 221),
@@ -2283,7 +2617,8 @@ def main(argv=None) -> int:
             "launches": sum(c[f"fused_{k}"] for c in (
                 campaign["launches"], micro["launches"], dense["launches"],
                 train_cli["launches"], train_cli["launches_resume"],
-                resume["pretrained_launches"])),
+                resume["pretrained_launches"], devaug["launches"],
+                devaug["host_loader_launches"], city["launches"])),
             "max_abs_err": max(r["y_max_abs_err" if k == "fwd"
                                  else "grad_max_abs_err"] for r in f32),
             "ms": sum(r[f"{k}_ms"] for r in f32),
@@ -2293,7 +2628,7 @@ def main(argv=None) -> int:
             else "operations",
             "library_ms": sum(r[f"library_{k}_ms"] for r in f32),
         })
-    print(f"[13] phases 2-13 took {phases_s:.1f} s")
+    print(f"[15] phases 2-15 took {phases_s:.1f} s")
     out = Path(opts.out)
     if not out.is_absolute():
         out = HERE / out
@@ -2305,6 +2640,7 @@ def main(argv=None) -> int:
                    "microbatch": micro, "dense": dense,
                    "committee": committee, "train_cli": train_cli,
                    "eval_cli": eval_cli, "resume_pretrained": resume,
+                   "device_augment": devaug, "cityscapes": city,
                    "phases_s": phases_s,
                    "summary": [entry, *fused_entries]}, f, indent=1)
     shutil.rmtree(work, ignore_errors=True)

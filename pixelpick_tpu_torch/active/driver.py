@@ -29,8 +29,15 @@ model; ``--stage_ckpt_interval N`` snapshots a stage after validation every
 N epochs and resumes it from ``{stage}/stage_state.ckpt`` on a rerun;
 ``--resume_campaign`` fast-forwards a round whose next ``queries.pkl``
 exists. Human labels (``human_labels``, ``cli/train.py``) train on merged
-per-image label maps. Not ported yet (``config.check_supported`` refuses
-them): ``--device_augment`` and meshes.
+per-image label maps.
+
+``--device_augment`` (``driver.py:108-120, 235-236, 438-449``) stages the
+train set on the device (``data/device_pipeline.py``) and draws each sparse
+batch there; the host only plans the batches' indices. Each batch's draws
+come from a generator seeded with (round seed, epoch, batch index), so a
+resumed stage draws the straight run's augmentations. The flag is inert in
+the dense and human-label stages, as in the JAX package. Not ported yet
+(``config.check_supported`` refuses them): meshes.
 """
 
 from __future__ import annotations
@@ -43,6 +50,8 @@ import numpy as np
 import torch
 
 from pixelpick_tpu_torch.active.selector import QuerySelector
+from pixelpick_tpu_torch.data import base as data_base
+from pixelpick_tpu_torch.data.device_pipeline import DevicePipeline
 from pixelpick_tpu_torch.data.factory import get_dataset
 from pixelpick_tpu_torch.data.loader import Loader
 from pixelpick_tpu_torch.engine.checkpoint import (
@@ -78,6 +87,7 @@ class ALModel:
         self.experim_name = args.experim_name
         self.best_miou = -1.0
         self.nth_query = -1
+        self.stage_seed = 0  # the running stage's round seed
         self.human_labels = human_labels
 
         self.dataset = get_dataset(args, val=False, query=False)
@@ -94,6 +104,17 @@ class ALModel:
         self.dataset_val = get_dataset(args, val=True, query=False)
 
         self.fully_sup = args.n_pixels_by_us == 0
+        self.device_pipe = None
+        if getattr(args, "device_augment", False):
+            if self.fully_sup or human_labels:
+                print("--device_augment is inert in the "
+                      f"{'dense' if self.fully_sup else 'human-label'} "
+                      "stage: the host loader augments its batches")
+            else:
+                self.device_pipe = DevicePipeline(self.dataset, args,
+                                                  self.device)
+                # a remainder megabatch pads to a micro multiple
+                self.device_pipe.pad_multiple = self._micro_bs() or 1
         self.loader = Loader(self.dataset, args.batch_size,
                              mode="train_dense" if self.fully_sup else "train",
                              shuffle=True, n_workers=args.n_workers,
@@ -167,7 +188,7 @@ class ALModel:
             write_log(self.log_val, header=["epoch", "mIoU", "pixel_acc"])
 
         # a fresh model per round (model.py:163)
-        seed = round_seed(args.seed, self.nth_query)
+        seed = self.stage_seed = round_seed(args.seed, self.nth_query)
         model = get_model(args, self.device, seed=seed)
         if getattr(args, "pretrained_ckpt", ""):
             load_pretrained_ckpt(model, args.pretrained_ckpt)
@@ -184,10 +205,15 @@ class ALModel:
             step_fn = make_dense_train_step(
                 model, optimizer, ignore_index=args.ignore_index, **kw)
         elif micro:
-            step_fn = make_microbatch_train_step(model, optimizer,
-                                                 micro_bs=micro, **kw)
+            step_fn = make_microbatch_train_step(
+                model, optimizer, micro_bs=micro,
+                normalize=self.device_pipe is None, **kw)
         else:
-            step_fn = make_train_step(model, optimizer, **kw)
+            step_fn = make_train_step(model, optimizer,
+                                      normalize=self.device_pipe is None,
+                                      **kw)
+        if self.device_pipe is not None:
+            self.device_pipe.set_queries(self.dataset.queries)
         eval_fn = make_eval_step(model, n_classes=args.n_classes,
                                  mean=args.mean, std=args.std)
 
@@ -242,11 +268,16 @@ class ALModel:
         t0 = time.time()
         n_imgs = 0
         losses = []
+        overflows = []
         last_batch = None
         micro = self._micro_bs()
-        for batch in self.loader:
+        for batch in self._epoch_batches(epoch):
             n_real = batch["x"].shape[0]
-            if micro:
+            if self.device_pipe is not None:
+                n_real = batch["n_real"]
+                overflows.append(batch["overflow"])
+                loss, hist = step_fn(batch)
+            elif micro:
                 # a remainder megabatch (CamVid 367 % 48 = 31) pads to a
                 # micro multiple with inert rows; the step uploads it once
                 batch, n_real = pad_batch_to_devices(
@@ -268,6 +299,15 @@ class ALModel:
             for v in torch.cat(losses).cpu().numpy():
                 if np.isfinite(v):
                     self.running_loss.update(float(v))
+        if overflows:
+            # labelled pixels that crops held beyond k_max, read once per
+            # epoch (driver.py:364-378): the counters of the host extractor
+            n_over = int(torch.stack(overflows).sum())
+            if n_over:
+                data_base.SPARSE_OVERFLOW_COUNT += 1
+                data_base.SPARSE_OVERFLOW_PIXELS += n_over
+                print(f"WARNING: device sparse extraction dropped {n_over} "
+                      f"labelled pixels (crops exceeded k_max) this epoch")
         scores = score.get_scores()[0]
         miou, pixel_acc = scores["Mean IoU"], scores["Pixel Acc"]
         dt = time.time() - t0
@@ -277,6 +317,28 @@ class ALModel:
         write_log(self.log_train, list_entities=[
             epoch, miou, pixel_acc, self.running_loss.avg])
         return last_batch
+
+    def _epoch_batches(self, epoch: int):
+        """The host loader's batches, or the device pipeline's along
+        ``Loader.batch_index_plan`` (the host loader's shuffle and
+        drop-last), batch ``bi``'s draws from a generator seeded with
+        (round seed, ``epoch``, ``bi``), as JAX folds ``epoch * 100003 +
+        bi`` into the round's key. The pipeline runs one batch ahead, so
+        that a batch's host copy of its row flags is there when the step
+        reads it."""
+        if self.device_pipe is None:
+            yield from self.loader
+            return
+        pending = None
+        for bi, idxs in enumerate(self.loader.batch_index_plan(epoch)):
+            gen = torch.Generator(device=self.device).manual_seed(
+                ((self.stage_seed ^ 0x5EED) << 32) + epoch * 100003 + bi)
+            batch = self.device_pipe.sample_batch(idxs, gen)
+            if pending is not None:
+                yield pending
+            pending = batch
+        if pending is not None:
+            yield pending
 
     def _val(self, epoch: int, model, eval_fn, dir_stage: str):
         args = self.args
@@ -336,8 +398,14 @@ class ALModel:
     def _visualise(self, eval_fn, batch, fp: str) -> None:
         """6-panel PNG of image 0 of a train batch (model.py:150-158),
         computed by the eval step; sparse-label batches carry no dense
-        target, dense ones show theirs."""
+        target, dense ones show theirs. A device pipeline's image is
+        normalised f32 on the device: it is brought back to uint8, as JAX's
+        ``_image0`` does (``driver.py:532-538``)."""
         x0, y = batch["x"][:1], batch.get("y")
+        if isinstance(x0, torch.Tensor):
+            x0 = np.clip((x0.cpu().numpy() * np.asarray(self.args.std)
+                          + np.asarray(self.args.mean)) * 255.0,
+                         0, 255).astype(np.uint8)
         y0 = np.zeros(x0.shape[:3], np.int32) if y is None else y[:1]
         feed = {"x": torch.from_numpy(x0).to(self.device),
                 "y": torch.from_numpy(y0.astype(np.int32)).to(self.device)}

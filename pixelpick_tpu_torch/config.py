@@ -233,8 +233,6 @@ def check_supported(args: Namespace) -> None:
     missing = []
     if args.network_name == "FPN":
         missing.append("--network_name FPN (Queue 1: FPN/ResNet)")
-    if args.device_augment:
-        missing.append("--device_augment (Queue 1: device augmentation)")
     if args.s2d_backbone:
         missing.append("--s2d_backbone (Queue 1: TPU-only rewrites)")
     if args.conv3x3_matmul:
@@ -245,9 +243,9 @@ def check_supported(args: Namespace) -> None:
         missing.append("--dist_coordinator (Queue 1: multi-GPU)")
     if args.data_parallel > 1:
         missing.append("--data_parallel > 1 (Queue 1: multi-GPU)")
-    if args.dataset_name in ("cs", "voc"):
-        missing.append(f"--dataset_name {args.dataset_name} "
-                       "(Queue 1: other datasets)")
+    if args.dataset_name == "voc":
+        missing.append("--dataset_name voc (Queue 1 item 9: VOC, with the "
+                       "device pipeline's variable-size branch)")
     if missing:
         raise NotImplementedError(
             "not ported to the PyTorch package yet: " + "; ".join(missing))

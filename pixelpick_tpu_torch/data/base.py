@@ -19,8 +19,8 @@ Counterpart of ``pixelpick_tpu/data/base.py`` (reference
   map (``extract_sparse_from_map``); or with ``fully_sup`` the augmented
   dense label map for the dense step (``base.py:286-325``);
 - ``val_sample`` / ``query_sample``: uint8 images and int32 labels, decoded
-  once and cached in RAM; normalisation happens on the device
-  (``engine/trainer.py:normalize_images``).
+  once and cached in RAM (``cache_images``); normalisation happens on the
+  device (``engine/trainer.py:normalize_images``).
 """
 
 from __future__ import annotations
@@ -118,6 +118,9 @@ class SegDatasetBase:
         self.crop_size: Tuple[int, int] = (0, 0)
         self._x_cache: dict = {}
         self._y_cache: dict = {}
+        # decoded images and labels stay in RAM unless a subclass or the
+        # device pipeline's staging turns this off
+        self.cache_images = True
         augs = getattr(args, "augmentations", {})
         self.geometric_augmentations = dict(augs.get("geometric", {}))
         self.photometric_augmentations = dict(augs.get("photometric", {}))
@@ -219,16 +222,21 @@ class SegDatasetBase:
     # ----------------------------- IO -----------------------------
 
     def _load_x(self, i: int) -> np.ndarray:
-        if i not in self._x_cache:
-            self._x_cache[i] = np.asarray(
-                Image.open(self.list_inputs[i]).convert("RGB"), dtype=np.uint8)
-        return self._x_cache[i]
+        if i in self._x_cache:
+            return self._x_cache[i]
+        x = np.asarray(Image.open(self.list_inputs[i]).convert("RGB"),
+                       dtype=np.uint8)
+        if self.cache_images:
+            self._x_cache[i] = x
+        return x
 
     def _load_y(self, i: int) -> np.ndarray:
-        if i not in self._y_cache:
-            self._y_cache[i] = np.asarray(Image.open(self.list_labels[i]),
-                                          dtype=np.int32)
-        return self._y_cache[i]
+        if i in self._y_cache:
+            return self._y_cache[i]
+        y = np.asarray(Image.open(self.list_labels[i]), dtype=np.int32)
+        if self.cache_images:
+            self._y_cache[i] = y
+        return y
 
     def __len__(self):
         return len(self.list_inputs)

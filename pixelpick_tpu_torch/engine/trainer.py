@@ -34,6 +34,9 @@ from pixelpick_tpu_torch.ops.resize import (
 from pixelpick_tpu_torch.ops.uncertainty import vis_maps
 from pixelpick_tpu_torch.utils.metrics import confusion_matrix
 
+# the batch keys the sparse train step reads
+SPARSE_KEYS = ("x", "coords", "labels", "valid")
+
 
 @lru_cache(maxsize=None)
 def _constant(values: tuple, device: torch.device) -> torch.Tensor:
@@ -86,14 +89,18 @@ def batch_to_device(batch: dict, device) -> dict:
 
 
 def make_train_step(model, optimizer, *, n_classes: int, mean, std,
+                    normalize: bool = True,
                     gather_impl: str = "matmul") -> Callable:
     """Sparse-label train step. batch (device tensors): x uint8 (B, H, W, 3),
-    coords (B, K, 2), labels (B, K), valid (B, K). Returns (loss, hist), both
-    on the device."""
+    or with ``normalize=False`` the normalised f32 of the device pipeline
+    (``data/device_pipeline.py``; ``trainer.py:125-133``), coords (B, K, 2),
+    labels (B, K), valid (B, K). Returns (loss, hist), both on the
+    device."""
 
     def train_step(batch):
         model.train()
-        x = normalize_images(batch["x"], mean, std)
+        x = normalize_images(batch["x"], mean, std) if normalize \
+            else batch["x"]
         out = model(x, upsample=False)
         loss, hist = sparse_ce_and_hist(
             out["pred"], batch["coords"], batch["labels"], batch["valid"],
@@ -108,6 +115,7 @@ def make_train_step(model, optimizer, *, n_classes: int, mean, std,
 
 def make_microbatch_train_step(model, optimizer, *, micro_bs: int,
                                n_classes: int, mean, std,
+                               normalize: bool = True,
                                gather_impl: str = "matmul") -> Callable:
     """Megabatch step: ``B // micro_bs`` sequential bs-``micro_bs`` updates,
     each :func:`make_train_step`'s body on rows ``[m*M, (m+1)*M)``.
@@ -115,7 +123,10 @@ def make_microbatch_train_step(model, optimizer, *, micro_bs: int,
     ``train_step(batch)`` takes the HOST batch (NumPy, the sparse keys of
     :func:`make_train_step`, B a multiple of ``micro_bs``; the driver pads a
     remainder with ``parallel/mesh.py:pad_batch_to_devices``), uploads it
-    once and returns ``(losses (n_micro,), hist summed)`` on the device.
+    once and returns ``(losses (n_micro,), hist summed)`` on the device. A
+    device pipeline's batch (``data/device_pipeline.py:sample_batch``,
+    already on the device, padded there, with ``normalize=False``) is used
+    as it is.
 
     As the JAX scan: the same update count, sample order, per-update
     BatchNorm moments, optimizer and schedule stepping and dropout draws
@@ -126,18 +137,28 @@ def make_microbatch_train_step(model, optimizer, *, micro_bs: int,
     running statistics stay), no optimizer step (its count, the schedule
     and the moments stay), and NaN in its loss slot, which the driver's
     epoch mean skips. That is decided from the host copy of ``valid``, so
-    nothing syncs the device per micro-batch."""
+    nothing syncs the device per micro-batch. A device batch has no host
+    copy of ``valid``: its ``rows_real`` (which rows hold a valid pick) is
+    copied to the host as the batch is drawn and read once per megabatch;
+    a real micro-batch whose crops kept no labelled pixel is a no-op too,
+    as JAX's scan makes it (``trainer.py:197-201``)."""
     step = make_train_step(model, optimizer, n_classes=n_classes, mean=mean,
-                           std=std, gather_impl=gather_impl)
+                           std=std, normalize=normalize,
+                           gather_impl=gather_impl)
 
     def train_step(batch):
         b = batch["x"].shape[0]
         if b % micro_bs:
             raise ValueError(f"a megabatch of {b} rows is not a multiple of "
                              f"the micro-batch size {micro_bs}")
-        any_real = batch["valid"].reshape(b // micro_bs, -1).any(1)
         device = next(model.parameters()).device
-        dev = batch_to_device(batch, device)
+        if "rows_real" in batch:
+            rows = batch["rows_real"].get()
+            dev = {k: batch[k] for k in SPARSE_KEYS}
+        else:
+            rows = batch["valid"].any(1)
+            dev = batch_to_device(batch, device)
+        any_real = rows.reshape(b // micro_bs, -1).any(1)
         losses = []
         hist = torch.zeros((n_classes, n_classes), dtype=torch.long,
                            device=device)

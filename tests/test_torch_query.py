@@ -137,10 +137,10 @@ def test_flag_surface_matches_jax():
     ["--s2d_backbone", "true"],
     ["--s2d_backbone", "1"], ["--conv3x3_matmul"],
     ["--spatial_query_sharding"], ["--dist_coordinator", "localhost:1"],
-    ["--data_parallel", "2"], ["--dataset_name", "cs"],
-    ["--dataset_name", "voc"], ["--dataset_name", "cs", "--n_pixels_by_us",
-                                "0"],
-    ["--device_augment"]])
+    ["--data_parallel", "2"], ["--dataset_name", "voc", "--device_augment"],
+    ["--dataset_name", "voc"], ["--network_name", "FPN", "--dataset_name",
+                                "cs"],
+    ["--dataset_name", "voc", "--n_pixels_by_us", "0"]])
 def test_unported_flags_raise(flags):
     args = config.build_parser().parse_args(flags)
     with pytest.raises(NotImplementedError, match="ROADMAP|Queue"):
@@ -150,11 +150,15 @@ def test_unported_flags_raise(flags):
 @pytest.mark.parametrize("flags", [
     ["--use_mc_dropout"], ["--micro_batch_size", "2"],
     ["--n_pixels_by_us", "0"], ["--pretrained_ckpt", "backbone.ckpt"],
-    ["--stage_ckpt_interval", "1"], ["--resume_campaign"]])
+    ["--stage_ckpt_interval", "1"], ["--resume_campaign"],
+    ["--dataset_name", "cs"], ["--dataset_name", "cs", "--n_pixels_by_us",
+                               "0"],
+    ["--device_augment"]])
 def test_ported_round_modes_pass(flags):
     """The micro-batch step, the dense step, the MC-dropout committee, the
-    pretrained overlay, stage snapshots and the campaign fast-forward are
-    ported: their flags pass the check."""
+    pretrained overlay, stage snapshots, the campaign fast-forward, the
+    Cityscapes dataset and device augmentation are ported: their flags
+    pass the check."""
     config.check_supported(config.build_parser().parse_args(flags))
 
 
