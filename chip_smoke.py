@@ -11,15 +11,18 @@ It builds the hand-written kernels from the sources in the checkout (one
 (query) path, its training round and its other round modes (micro-batch,
 dense, MC-dropout committee), its train and eval CLIs with stage
 snapshots, JAX-layout checkpoint files, ``--resume_campaign`` and
-``--pretrained_ckpt``, and device augmentation on CamVid and Cityscapes,
-at full width, in phases; any failure exits nonzero:
+``--pretrained_ckpt``, device augmentation on CamVid and Cityscapes, and
+PASCAL VOC with DeepLab and with the ResNet-50 FPN, at full width, in
+phases; any failure exits nonzero:
 
 1. card: name and power limit, torch and CUDA versions, the kernel builds;
 2. kernels vs plain: the depthwise 3x3 kernel at every shape one
    DeepLabv3+/MobileNetV2 forward (batch 32, 360x480) gives it, in f32 and
-   bf16, plus ragged shapes, held against its plain PyTorch version; the
-   kernel's, the plain version's and the library's (grouped ``F.conv2d``)
-   times, and the bound;
+   bf16, and, in f32, at the shapes of a VOC query bucket (batch 32,
+   304x400) and of a VOC train batch (10 crops of 320x320), plus ragged
+   shapes, held against its plain PyTorch version; the kernel's, the plain
+   version's and the library's (grouped ``F.conv2d``) times, and the
+   bound;
 3. oracle query round, as ``main_al`` runs it after a stage: a seeded
    synthetic CamVid-layout pool (367 images at 360x480, labels 0-10, void
    11), the full-width model in f32 with ``--pallas_dw``, margin sampling,
@@ -37,7 +40,9 @@ at full width, in phases; any failure exits nonzero:
    leaving that state's bytes unchanged, and controls (dx zeroed, a
    gradient 5% off) refused; the kernels', the plain versions' and the
    library-built block's times (its backward alone, from a graph built
-   beforehand), and the bounds;
+   beforehand), and the bounds; then the 13 blocks of VOC's train step
+   (batch 10, 320x320 crops, one ghost-BN group) timed in f32, checked in
+   bf16, and at VOC's remainder batch of 4;
 6. train step: the full-width model at 360x480, batch 4, f32, dropout off
    for this check, at well-conditioned weights: the loss and every
    parameter gradient with the kernels (``--fused_ir --pallas_dw``) against
@@ -107,7 +112,22 @@ at full width, in phases; any failure exits nonzero:
    cs --device_augment`` at bs 48 / micro 4 for 2 epochs and one round
    with its sweep, which builds the ds-4 train and ds-2 val caches: every
    cached label in 0-19, 10 picks per image and none void, 13 updates per
-   epoch and their launches.
+   epoch and their launches;
+16. VOC: a synthetic ``VOCdevkit/VOC2012`` tree (100 train, 20 val JPEGs
+   at 375x500, 500x375, 333x500 and 500x500; palette-mode labels 0-20 in
+   64x64 blocks with void borders), and ``main_al --dataset_name voc
+   --fused_ir --pallas_dw`` at bs 10 with 320x320 crops, 3 epochs and one
+   round with its sweep, validation and sweep in shape buckets: 10
+   non-void picks per image inside the image, 13 fused launches of each
+   kind and one depthwise dx per update; the warm epoch's train images/s,
+   device ms per step and busy share (profiler), peak device memory, the
+   sweep's and validation's images/s;
+17. FPN: ``main_al --network_name FPN --n_layers 50`` (dilated ResNet-50)
+   on phase 16's tree, the same measures; the eval CLI on its best
+   checkpoint (the stage's best mIoU again); a ``--debug`` round with
+   ``--pretrained_ckpt`` from a file that the port's convert CLI wrote
+   from a random torchvision-layout ResNet-50: every encoder entry
+   overlaid.
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. The details go to
@@ -116,9 +136,9 @@ line, ``launches`` counts every main-path run: the depthwise kernel's
 (forward and dx) over the sweeps of phases 3 and 10, the campaign of phase
 7, the epoch runs of phases 8 and 9, the train CLI's runs of phase 11, the
 eval CLI's of phase 12, the ``--pretrained_ckpt`` round of phase 13 and
-the runs of phases 14 and 15; the fused kernels' over phases 7, 8, 9, 11,
-13, 14 and 15 (their counters zeroed just before each run and read just
-after).
+the runs of phases 14, 15 and 16; the fused kernels' over phases 7, 8, 9,
+11, 13, 14, 15 and 16 (their counters zeroed just before each run and
+read just after). Phase 17's path reaches none of them.
 """
 
 from __future__ import annotations
@@ -190,6 +210,12 @@ GRAD_NAMES = ("dx", "dwe", "dwd", "dwp", "dg1", "db1", "dg2", "db2", "dg3",
 N_IMAGES, IMAGE_HW, POOL_BATCH, N_CLASSES, VOID = 367, (360, 480), 32, 11, 11
 N_VAL, TRAIN_BATCH = 101, 4
 DEVICE = "cuda"
+# the VOC path (phases 2, 5, 16, 17): a query bucket of base-resized
+# 500x375 images (300x400, padded to stride 8), the train crops and batch
+# (voc.py, args.py:133-152), and the remainder batch of VOC's 1464 train
+# images at batch 10
+VOC_QUERY_HW, VOC_CROP_HW, VOC_BATCH, VOC_REMAINDER = (304, 400), (320, 320), \
+    10, 1464 % 10
 
 
 class SmokeFailure(RuntimeError):
@@ -289,9 +315,9 @@ def phase_card() -> dict:
 
 # ------------------------------ phase 2 ------------------------------
 
-def main_path_dw_shapes(model, batch: int) -> list:
+def main_path_dw_shapes(model, batch: int, hw=IMAGE_HW) -> list:
     """The (x shape, dilation) of every kernel launch of one forward of
-    ``model`` on a (batch, 360, 480) input, recorded at the wrapper."""
+    ``model`` on a (batch, *hw) input, recorded at the wrapper."""
     import torch
 
     from pixelpick_tpu_torch.ops import depthwise as dw
@@ -306,7 +332,7 @@ def main_path_dw_shapes(model, batch: int) -> list:
     dw._launch_kernel = spy
     try:
         with torch.no_grad():
-            model(torch.zeros((batch, *IMAGE_HW, 3), device=DEVICE),
+            model(torch.zeros((batch, *hw, 3), device=DEVICE),
                   upsample=False)
         torch.cuda.synchronize()
     finally:
@@ -314,13 +340,13 @@ def main_path_dw_shapes(model, batch: int) -> list:
     return seen
 
 
-def expected_dw_shapes(batch: int) -> list:
+def expected_dw_shapes(batch: int, hw=IMAGE_HW) -> list:
     """The stride-1 depthwise inputs that the MobileNetV2 plan implies
     (os 16, width 1.0): the (fixed-)padded block input after expansion."""
     from pixelpick_tpu_torch.models.mobilenet_v2 import block_plan
 
     plan, _ = block_plan(16, 1.0)
-    h, w = IMAGE_HW[0] // 2, IMAGE_HW[1] // 2  # after the stride-2 stem
+    h, w = hw[0] // 2, hw[1] // 2  # after the stride-2 stem
     shapes = []
     for inp, _oup, stride, d, t in plan:
         hidden = int(round(inp * t))
@@ -402,6 +428,24 @@ def phase_kernels(model) -> dict:
                   f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
             check(r["ok"], f"kernel disagrees with its plain version at "
                            f"{shape} d={d} {name}: {r['max_abs_err']}")
+    # the VOC path's shapes, f32: one query forward over a pool batch of a
+    # bucket, and one forward of a train batch of crops (whose first
+    # launch, block 0's, is the one a --fused_ir train step makes, forward
+    # and dx)
+    results["voc"] = []
+    for batch, hw in ((POOL_BATCH, VOC_QUERY_HW), (VOC_BATCH, VOC_CROP_HW)):
+        seen = main_path_dw_shapes(model, batch, hw)
+        check(seen == expected_dw_shapes(batch, hw),
+              f"VOC launches {seen} differ from the plan's")
+        for i, (shape, d) in enumerate(seen):
+            r = measure_dw_shape(shape, d, torch.float32, seed=200 + i)
+            results["voc"].append(r)
+            print(f"[2] voc float32 x{tuple(shape)} d={d}: err "
+                  f"{r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, "
+                  f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
+            check(r["ok"], f"kernel disagrees with its plain version at "
+                           f"VOC {shape} d={d}: {r['max_abs_err']}")
     # ragged extras: odd widths, C not a multiple of 8 (narrower vector
     # paths), dilation 2 and 3, and a misaligned base pointer
     extras = [((2, 19, 25, 20), 1), ((3, 15, 17, 7), 2),
@@ -689,13 +733,13 @@ def phase_human_cli(work: Path, model, args) -> dict:
 
 # ------------------------------ phase 5 ------------------------------
 
-def fused_block_shapes(batch: int) -> list:
+def fused_block_shapes(batch: int, hw=IMAGE_HW) -> list:
     """(B, H, W, Cin, Cout, dilation) of the 13 stride-1 t=6 blocks of one
-    train step at 360x480 (os 16, width 1.0), in order."""
+    train step at ``hw`` (os 16, width 1.0), in order."""
     from pixelpick_tpu_torch.models.mobilenet_v2 import block_plan
 
     plan, _ = block_plan(16, 1.0)
-    h, w = IMAGE_HW[0] // 2, IMAGE_HW[1] // 2  # after the stride-2 stem
+    h, w = hw[0] // 2, hw[1] // 2  # after the stride-2 stem
     shapes = []
     for inp, oup, stride, d, t in plan:
         if stride == 2:
@@ -997,6 +1041,29 @@ def phase_fused_kernels() -> dict:
         worst = max(r["grad_worst"] for r in results["remainder"][-13:])
         print(f"[5] {name}: the 13 blocks at the remainder batch of 3, worst "
               f"gradient at {worst:.3g} of its tolerance")
+    # VOC's train step: the 13 blocks at batch 10 on 320x320 crops (one
+    # ghost-BN group of 10; 40x40 to 20x20 maps), f32 timed and bf16, and
+    # the remainder batch of 4, f32
+    results["voc"], results["voc_bf16"], results["voc_remainder"] = [], [], []
+    for i, shape in enumerate(fused_block_shapes(VOC_BATCH, VOC_CROP_HW)):
+        for key, b, dtype, timed in (
+                ("voc", VOC_BATCH, torch.float32, True),
+                ("voc_bf16", VOC_BATCH, torch.bfloat16, False),
+                ("voc_remainder", VOC_REMAINDER, torch.float32, False)):
+            shp = (b, *shape[1:])
+            r = measure_fused(shp, b, dtype, seed=200 + i, timed=timed)
+            results[key].append(r)
+            judge(r, f"VOC {key} {shp}")
+        r = results["voc"][-1]
+        print(f"[5] voc float32 block x{tuple(shape)}: y err "
+              f"{r['y_max_abs_err']:.3g}/{r['y_max_abs']:.3g}, worst "
+              f"gradient at {r['grad_worst']:.3g} of its tolerance (bf16 "
+              f"{results['voc_bf16'][-1]['grad_worst']:.3g}, remainder "
+              f"{results['voc_remainder'][-1]['grad_worst']:.3g}); fwd "
+              f"{r['fwd_ms']:.4f} ms (bound {r['fwd_bound_ms']:.4f}, "
+              f"library {r.get('library_fwd_ms', float('nan')):.4f}), bwd "
+              f"{r['bwd_ms']:.4f} ms (bound {r['bwd_bound_ms']:.4f}, "
+              f"library {r.get('library_bwd_ms', float('nan')):.4f})")
     # ragged: 1, 2, 3 and 12 groups (batch 48 in ghost-BN groups of 4), odd
     # sizes, channels off the 32/64 tiles
     extras = [((8, 23, 30, 64, 64, 1), 4), ((8, 11, 13, 20, 28, 1), 4),
@@ -1233,8 +1300,8 @@ def write_cfg(work: Path, name: str, dataset: str = "cv",
 
     cfg = {k: v for k, v in DATASET_DEFAULTS[dataset].items()
            if k != "dir_dataset_name"}
-    cfg["optimizer_params"] = dict(cfg["optimizer_params"],
-                                   betas=list(cfg["optimizer_params"]["betas"]))
+    cfg["optimizer_params"] = {k: list(v) if isinstance(v, tuple) else v
+                               for k, v in cfg["optimizer_params"].items()}
     cfg.update(dataset_name=dataset, dir_dataset=str(work / "camvid"))
     cfg.update(overrides)
     path = work / f"{name}.yaml"
@@ -1959,89 +2026,18 @@ def phase_train_cli(work: Path) -> dict:
 
 # ------------------------------ phase 12 ------------------------------
 
-def _pack(obj) -> bytes:
-    """msgpack of the subset ``flax.serialization`` writes for a checkpoint:
-    str-keyed maps, str, non-negative int, bin and the ndarray extension
-    (type 1: ``(shape, dtype name, C-order bytes)``)."""
-    import struct
-
-    def sized(n, small_tag, fix_max, tags):
-        if small_tag is not None and n <= fix_max:
-            return bytes([small_tag | n])
-        for tag, fmt, top in tags:
-            if n <= top:
-                return bytes([tag]) + struct.pack(fmt, n)
-        raise ValueError(f"length {n}")
-
-    if isinstance(obj, dict):
-        return sized(len(obj), 0x80, 15, ((0xde, ">H", 0xffff),
-                                           (0xdf, ">I", 0xffffffff))) \
-            + b"".join(_pack(k) + _pack(v) for k, v in obj.items())
-    if isinstance(obj, (list, tuple)):
-        return sized(len(obj), 0x90, 15, ((0xdc, ">H", 0xffff),
-                                           (0xdd, ">I", 0xffffffff))) \
-            + b"".join(_pack(v) for v in obj)
-    if isinstance(obj, str):
-        b = obj.encode()
-        return sized(len(b), 0xa0, 31, ((0xd9, ">B", 0xff), (0xda, ">H", 0xffff),
-                                         (0xdb, ">I", 0xffffffff))) + b
-    if isinstance(obj, bytes):
-        return sized(len(obj), None, 0, ((0xc4, ">B", 0xff),
-                                          (0xc5, ">H", 0xffff),
-                                          (0xc6, ">I", 0xffffffff))) + obj
-    if isinstance(obj, int) and obj >= 0:
-        return sized(obj, 0x00, 127, ((0xcc, ">B", 0xff), (0xcd, ">H", 0xffff),
-                                       (0xce, ">I", 0xffffffff)))
-    if isinstance(obj, np.ndarray):
-        payload = _pack([list(obj.shape), obj.dtype.name,
-                         np.ascontiguousarray(obj).tobytes()])
-        n = len(payload)
-        head = {1: b"\xd4", 2: b"\xd5", 4: b"\xd6", 8: b"\xd7", 16: b"\xd8"}
-        if n in head:
-            return head[n] + b"\x01" + payload
-        return sized(n, None, 0, ((0xc7, ">B", 0xff), (0xc8, ">H", 0xffff),
-                                  (0xc9, ">I", 0xffffffff))) + b"\x01" + payload
-    raise TypeError(type(obj))
-
-
 def write_flax_checkpoint(state: dict, path: Path) -> None:
     """The JAX package's best-model layout (``save_checkpoint``:
-    ``{"params", "batch_stats"}`` of its DeepLab, kernels HWIO) from a
-    port ``state_dict``: the bridge ``models/convert.py`` inverted."""
-    from pixelpick_tpu_torch.models.convert import MODULE_KEYS
+    ``{"params", "batch_stats"}``, kernels HWIO) from a port ``state_dict``,
+    through the bridge's inverse (``models/convert.py``) and the msgpack
+    writer (``engine/flax_msgpack.py``)."""
+    from pixelpick_tpu_torch.engine.flax_msgpack import msgpack_serialize
+    from pixelpick_tpu_torch.models.convert import jax_tree_from_state_dict
 
-    params, stats = {}, {}
-
-    def put(tree, path, value):
-        for k in path[:-1]:
-            tree = tree.setdefault(k, {})
-        tree[path[-1]] = value
-
-    done = set()
-    for scope, key in MODULE_KEYS.items():
-        if f"{key}.weight" not in state:
-            continue
-        w = state[f"{key}.weight"].float().numpy()
-        if f"{key}.running_mean" in state:
-            put(params, scope + ("bn", "scale"), w)
-            put(params, scope + ("bn", "bias"),
-                state[f"{key}.bias"].float().numpy())
-            put(stats, scope + ("bn", "mean"),
-                state[f"{key}.running_mean"].float().numpy())
-            put(stats, scope + ("bn", "var"),
-                state[f"{key}.running_var"].float().numpy())
-            done |= {f"{key}.{n}" for n in ("weight", "bias", "running_mean",
-                                             "running_var",
-                                             "num_batches_tracked")}
-        else:
-            put(params, scope + ("kernel",), w.transpose(2, 3, 1, 0))
-            done.add(f"{key}.weight")
-            if f"{key}.bias" in state:
-                put(params, scope + ("bias",),
-                    state[f"{key}.bias"].float().numpy())
-                done.add(f"{key}.bias")
-    check(done == set(state), f"unwritten: {sorted(set(state) - done)[:3]}")
-    path.write_bytes(_pack({"params": params, "batch_stats": stats}))
+    params, stats, skipped = jax_tree_from_state_dict(state)
+    check(not skipped, f"unwritten: {skipped[:3]}")
+    path.write_bytes(msgpack_serialize({"params": params,
+                                        "batch_stats": stats}))
 
 
 def default_args_cv(work: Path):
@@ -2512,6 +2508,252 @@ def phase_cityscapes(work: Path) -> dict:
             "cached_label_maps": len(labels), "timing": timing}
 
 
+# ------------------------------ phase 16 ------------------------------
+
+VOC_TRAIN, VOC_VAL = 100, 20
+# (h, w) at VOC's spread: landscape, portrait, wide and square
+VOC_SIZES = ((375, 500), (500, 375), (333, 500), (500, 500))
+
+
+def make_synthetic_voc(root: Path, seed: int = 0) -> None:
+    """A ``VOCdevkit/VOC2012`` tree: JPEGs at ``VOC_SIZES`` in turn,
+    palette-mode (``P``) PNG labels of 64x64 class blocks 0-20 whose
+    borders are void (255, 3 pixels wide), images coloured by class plus
+    noise; ``VOC_TRAIN`` train and ``VOC_VAL`` val names."""
+    from PIL import Image
+
+    from pixelpick_tpu_torch.utils.palettes import PALETTE_VOC
+
+    base = root / "VOCdevkit" / "VOC2012"
+    for d in ("ImageSets/Segmentation", "JPEGImages", "SegmentationClass"):
+        (base / d).mkdir(parents=True, exist_ok=True)
+    palette = np.zeros((256, 3), np.uint8)
+    for k, c in PALETTE_VOC.items():
+        palette[k] = c
+    rng = np.random.default_rng(seed)
+    colours = rng.integers(0, 256, (21, 3))
+    names = []
+    for i in range(VOC_TRAIN + VOC_VAL):
+        h, w = VOC_SIZES[i % len(VOC_SIZES)]
+        tiles = rng.integers(0, 21, (-(-h // 64), -(-w // 64)))
+        lab = np.kron(tiles, np.ones((64, 64), np.int64))[:h, :w]
+        edge = np.zeros((h, w), bool)
+        edge[1:] |= lab[1:] != lab[:-1]
+        edge[:, 1:] |= lab[:, 1:] != lab[:, :-1]
+        for _ in range(1):  # widen the borders to 3 pixels
+            edge[1:] |= edge[:-1].copy()
+            edge[:, 1:] |= edge[:, :-1].copy()
+            edge[:-1] |= edge[1:].copy()
+        x = np.clip(colours[lab] + rng.normal(0, 25, (h, w, 3)), 0, 255)
+        name = f"2012_{i:06d}"
+        Image.fromarray(x.astype(np.uint8)).save(
+            base / "JPEGImages" / f"{name}.jpg", quality=90)
+        y = Image.frombytes("P", (w, h),
+                            np.where(edge, 255, lab).astype(np.uint8).tobytes())
+        y.putpalette(palette.reshape(-1).tolist())
+        y.save(base / "SegmentationClass" / f"{name}.png")
+        names.append(name)
+    for split, part in (("train", names[:VOC_TRAIN]),
+                        ("val", names[VOC_TRAIN:])):
+        (base / "ImageSets" / "Segmentation" / f"{split}.txt").write_text(
+            "\n".join(part) + "\n")
+
+
+# the library's dense products by kernel name: cuDNN's convolutions (direct,
+# implicit-GEMM, FFT and Winograd, their data and weight gradients) and
+# cuBLAS's GEMMs (the 1x1 convs, resizes and the FFT convs' complex GEMMs)
+PRODUCT_KERNELS = ("gemm", "xmma", "fft", "conv", "dgrad", "wgrad",
+                   "winograd", "region_transform", "cudnn")
+
+
+def product_share(by_name: dict) -> float:
+    """The share of a trace's kernel time in the library's products."""
+    total = sum(t for t, _ in by_name.values())
+    prod = sum(t for name, (t, _) in by_name.items()
+               if any(k in name.lower() for k in PRODUCT_KERNELS))
+    return prod / total if total else float("nan")
+
+
+def voc_round(work: Path, name: str, flags: list) -> dict:
+    """``main_al`` on the synthetic VOC tree at bs 10 and 320x320 crops, 3
+    epochs and one round with its sweep (``flags`` choose the network):
+    epoch 2 timed with the peak device memory, epoch 3 under the profiler;
+    the sweep timed. Checks the artifacts, finite losses and 10 non-void
+    picks per image inside the image (none in a bucket's padding)."""
+    from PIL import Image
+
+    from pixelpick_tpu_torch.active import driver
+
+    run = work / name
+    cfg = write_cfg(work, "voc_bs10", dataset="voc", n_epochs=3,
+                    dir_dataset=str(work / "voc"))
+    record, sweeps = {}, []
+    call = driver.QuerySelector.__call__
+
+    def timed_sweep(self, *a, **k):
+        import torch
+
+        t0 = time.perf_counter()
+        out = call(self, *a, **k)
+        torch.cuda.synchronize()
+        sweeps.append(time.perf_counter() - t0)
+        return out
+
+    driver.QuerySelector.__call__ = timed_sweep
+    try:
+        al, wall_s, counts = run_main_al([
+            "-pdc", str(cfg), "--dir_checkpoints", str(run), "--device",
+            DEVICE, *flags, "--n_pixels_by_us", "10", "--max_budget", "10",
+            "-qs", "margin_sampling", "--pool_batch_size", str(POOL_BATCH),
+            "--n_workers", "8", "--seed", "0"], record,
+            timed={(0, 2)}, traced={(0, 3)})
+    finally:
+        driver.QuerySelector.__call__ = call
+    for f in ("0_query/log_train.txt", "0_query/log_val.txt", "0_query/best_miou_model.ckpt",
+              "0_query/timing.json", "0_query/query_stats.pkl",
+              "1_query/label.pkl"):
+        check((run / f).is_file(), f"{name}: {f} not written")
+    rows = (run / "0_query" / "log_train.txt").read_text().split()[1:]
+    check(len(rows) == 3 and all(np.isfinite(float(r.split(",")[3]))
+                                 for r in rows), f"{name} losses {rows}")
+    # the initial picks, cached beside the data by the first run
+    with open(work / "voc" / "init_labelled_pixels_0.pkl", "rb") as f:
+        first = pkl.load(f)
+    with open(run / "1_query" / "label.pkl", "rb") as f:
+        merged = pkl.load(f)
+    check(len(merged) == VOC_TRAIN, f"{name}: {len(merged)} masks")
+    for i, (q0, q1) in enumerate(zip(first, merged)):
+        y = Image.open(al.dataset.list_labels[i])
+        gt = np.asarray(y.resize(q1.shape[::-1], Image.NEAREST))
+        new = q1 & ~q0
+        check(q0.sum() == 10 and int(new.sum()) == 10 and (q0 <= q1).all(),
+              f"{name} image {i}: {int(new.sum())} new picks")
+        check(not (gt[new] == 255).any(), f"{name} image {i}: a void pick")
+    steps = 3 * (VOC_TRAIN // VOC_BATCH)
+    busy, busy_us, by_name = record["busy"]
+    timing = json.loads((run / "0_query" / "timing.json").read_text())
+    out = {"run_s": wall_s, "launches": counts, "steps": steps,
+           "warm_epoch_s": record["warm_epoch_s"],
+           "train_images_per_s": VOC_TRAIN / record["warm_epoch_s"],
+           "peak_device_gb": record["peak_device_gb"],
+           "traced_epoch_s": record["traced_epoch_s"],
+           "device_busy_share": busy,
+           "device_ms_per_step": busy_us / 1e3 / (VOC_TRAIN // VOC_BATCH),
+           "device_busy_share_untraced_epoch":
+               busy_us / 1e6 / record["warm_epoch_s"],
+           "sweep_s": sweeps[0], "sweep_images_per_s": VOC_TRAIN / sweeps[0],
+           "val_images_per_s": timing["val"]["items_per_sec"],
+           "best_miou": max(float(r.split(",")[1]) for r in (
+               run / "0_query" / "log_val.txt").read_text().split()[1:]),
+           "product_share": product_share(by_name),
+           "top_device_ms": print_top(f"[{name}]", by_name, 8)}
+    print(f"[{name}] {wall_s:.1f} s for 3 epochs and the sweep; warm epoch "
+          f"{out['train_images_per_s']:.1f} train images/s, "
+          f"{out['device_ms_per_step']:.1f} device ms per step, device busy "
+          + (f"{100 * busy:.1f}% (traced), "
+             f"{100 * out['device_busy_share_untraced_epoch']:.1f}% of the "
+             f"untraced epoch" if busy is not None else "not measured")
+          + f", {100 * out['product_share']:.1f}% of it in the library's "
+          f"convolutions and GEMMs; peak {out['peak_device_gb']:.2f} GB; sweep "
+          f"{out['sweep_images_per_s']:.1f} images/s, validation "
+          f"{out['val_images_per_s']:.1f} images/s; launches {counts}; 10 "
+          f"non-void picks per image, none in padding")
+    return out
+
+
+def phase_voc_deeplab(work: Path) -> dict:
+    """``main_al --dataset_name voc --fused_ir --pallas_dw``: the three
+    kernels at VOC's shapes on the main path (13 fused launches of each
+    kind and one depthwise dx per update)."""
+    t0 = time.perf_counter()
+    make_synthetic_voc(work / "voc")
+    write_s = time.perf_counter() - t0
+    out = voc_round(work, "voc_deeplab", ["--fused_ir", "--pallas_dw"])
+    c, steps = out["launches"], out["steps"]
+    check(c["fused_fwd"] == 13 * steps and c["fused_bwd"] == 13 * steps
+          and c["depthwise_kernel_dx"] == steps
+          and c["depthwise_kernel"] >= steps, f"VOC launches {c}")
+    out["write_s"] = write_s
+    return out
+
+
+# ------------------------------ phase 17 ------------------------------
+
+def phase_voc_fpn(work: Path) -> dict:
+    """``main_al --network_name FPN --n_layers 50`` (dilated) on phase 16's
+    tree; the eval CLI on its best checkpoint (the stage's best mIoU
+    again); a --debug round with ``--pretrained_ckpt`` from a file the
+    port's convert CLI wrote from a random torchvision-layout ResNet-50
+    (every encoder entry overlaid, the stem's weights the file's)."""
+    import torch
+
+    from pixelpick_tpu_torch.active import driver
+    from pixelpick_tpu_torch.cli.eval import main as eval_main
+    from pixelpick_tpu_torch.models import convert
+    from pixelpick_tpu_torch.models.resnet import ResNetBackbone
+
+    fpn = ["--network_name", "FPN", "--n_layers", "50"]
+    out = voc_round(work, "voc_fpn", fpn)
+    check(sum(out["launches"].values()) == 0,
+          f"the FPN path launched {out['launches']}")
+    cfg = work / "voc_bs10.yaml"
+    t0 = time.perf_counter()
+    scores, _ = eval_main([
+        "-pdc", str(cfg), "--dir_checkpoints", str(work / "voc_fpn_eval"),
+        "--device", DEVICE, *fpn, "--n_workers", "8", "--p_state_dict",
+        str(work / "voc_fpn" / "0_query" / "best_miou_model.ckpt")])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    check(abs(scores["Mean IoU"] - out["best_miou"]) <= 1e-4,
+          f"eval CLI mIoU {scores['Mean IoU']} vs the stage's best "
+          f"{out['best_miou']}")
+
+    g = torch.Generator().manual_seed(5)
+    tv = {k.replace("prefix.", ""): torch.randn(v.shape, generator=g)
+          if v.is_floating_point() else v
+          for k, v in ResNetBackbone(50).state_dict().items()}
+    tv["fc.weight"] = torch.randn((1000, 2048), generator=g)
+    tv["fc.bias"] = torch.zeros(1000)
+    torch.save(tv, work / "resnet50_tv.pth")
+    ckpt = convert.main([str(work / "resnet50_tv.pth"),
+                         str(work / "resnet50.ckpt"), "--kind", "resnet"])
+    seen = {}
+    load = driver.load_pretrained_ckpt
+
+    def kept(model, path):
+        seen["keys"] = load(model, path)
+        seen["encoder"] = [k for k in model.state_dict()
+                           if k.startswith("encoder.")]
+        seen["stem"] = model.encoder.base.prefix.conv1.weight.detach().cpu() \
+            .clone()
+        return seen["keys"]
+
+    driver.load_pretrained_ckpt = kept
+    try:
+        _, pre_s, _ = run_main_al([
+            "-pdc", str(cfg), "--dir_checkpoints", str(work / "voc_fpn_pre"),
+            "--device", DEVICE, *fpn, "--n_pixels_by_us", "10",
+            "--max_budget", "10", "--pool_batch_size", str(POOL_BATCH),
+            "--n_workers", "8", "--seed", "0", "--debug",
+            "--pretrained_ckpt", ckpt], {})
+    finally:
+        driver.load_pretrained_ckpt = load
+    check(sorted(seen["keys"]) == sorted(seen["encoder"]),
+          f"{len(seen['keys'])} entries overlaid, the encoder has "
+          f"{len(seen['encoder'])}")
+    check(torch.equal(seen["stem"], tv["conv1.weight"]),
+          "the stem's weights are not the file's")
+    print(f"[17] eval CLI on the best checkpoint: mIoU "
+          f"{scores['Mean IoU']:.4f} (the stage's best {out['best_miou']:.4f})"
+          f", {VOC_VAL / eval_s:.1f} validation images/s with the model "
+          f"build; --pretrained_ckpt from the convert CLI's resnet file: "
+          f"{len(seen['keys'])} entries overlaid = the encoder's, a --debug "
+          f"round in {pre_s:.1f} s")
+    out.update(eval_s=eval_s, eval_miou=scores["Mean IoU"],
+               pretrained_s=pre_s, pretrained_keys=len(seen["keys"]))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="chiprun_out",
@@ -2559,6 +2801,8 @@ def main(argv=None) -> int:
     resume = phase_resume_and_pretrained(work, eval_cli["flax_ckpt"])
     devaug = phase_device_augment(work, micro)
     city = phase_cityscapes(work)
+    voc = phase_voc_deeplab(work)
+    voc_fpn = phase_voc_fpn(work)
     phases_s = time.perf_counter() - t_start
 
     f32 = kernels["float32"]
@@ -2571,7 +2815,7 @@ def main(argv=None) -> int:
         # campaign of phase 7, the epoch runs of phases 8 and 9, the train
         # CLI's straight and resumed runs of phase 11, the eval CLI's of
         # phase 12, the --pretrained_ckpt round of phase 13 and the
-        # device-augment runs of phases 14 and 15
+        # device-augment runs of phases 14 and 15, and phase 16's VOC run
         "launches": sum(c[f"{pre}kernel"] + c[f"{pre}kernel_dx"]
                         for c, pre in ((oracle["launches"], ""),
                                        (committee["launches"], ""),
@@ -2592,7 +2836,8 @@ def main(argv=None) -> int:
                                        (devaug["launches"], "depthwise_"),
                                        (devaug["host_loader_launches"],
                                         "depthwise_"),
-                                       (city["launches"], "depthwise_"))),
+                                       (city["launches"], "depthwise_"),
+                                       (voc["launches"], "depthwise_"))),
         "max_abs_err": max(r["max_abs_err"] for r in f32),
         # per forward of the main path: the 14 launches at batch 32, f32
         "ms": sum(r["ms"] for r in f32),
@@ -2604,7 +2849,7 @@ def main(argv=None) -> int:
     }
     # the fused kernels: per train step of the main path, the 13 blocks at
     # batch 4 in f32, summed; launches over the main-path train runs of
-    # phases 7, 8, 9, 11 (both arms), 13, 14 and 15
+    # phases 7, 8, 9, 11 (both arms), 13, 14, 15 and 16
     f32 = fused["float32"]
     fused_entries = []
     for k, name, line in (("fwd", "fused_ir_fwd", 221),
@@ -2618,7 +2863,8 @@ def main(argv=None) -> int:
                 campaign["launches"], micro["launches"], dense["launches"],
                 train_cli["launches"], train_cli["launches_resume"],
                 resume["pretrained_launches"], devaug["launches"],
-                devaug["host_loader_launches"], city["launches"])),
+                devaug["host_loader_launches"], city["launches"],
+                voc["launches"])),
             "max_abs_err": max(r["y_max_abs_err" if k == "fwd"
                                  else "grad_max_abs_err"] for r in f32),
             "ms": sum(r[f"{k}_ms"] for r in f32),
@@ -2628,7 +2874,7 @@ def main(argv=None) -> int:
             else "operations",
             "library_ms": sum(r[f"library_{k}_ms"] for r in f32),
         })
-    print(f"[15] phases 2-15 took {phases_s:.1f} s")
+    print(f"[17] phases 2-17 took {phases_s:.1f} s")
     out = Path(opts.out)
     if not out.is_absolute():
         out = HERE / out
@@ -2641,6 +2887,7 @@ def main(argv=None) -> int:
                    "committee": committee, "train_cli": train_cli,
                    "eval_cli": eval_cli, "resume_pretrained": resume,
                    "device_augment": devaug, "cityscapes": city,
+                   "voc_deeplab": voc, "voc_fpn": voc_fpn,
                    "phases_s": phases_s,
                    "summary": [entry, *fused_entries]}, f, indent=1)
     shutil.rmtree(work, ignore_errors=True)

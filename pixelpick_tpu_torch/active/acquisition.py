@@ -20,15 +20,19 @@ Randomness (the sub-sample draws, the ``reverse_order`` candidate draws,
 the ``random`` strategy's scores) comes from a ``torch.Generator``, or is
 injected by the caller, so tests can feed both frameworks the same draws.
 The committee's dropout masks come from the model's dropout generator
-(``DeepLab.set_dropout_generator``). The bucket-padding masks of
-variable-size pools come later (ROADMAP.md, Queue 1).
+(``DeepLab.set_dropout_generator``).
+
+A bucketed pool batch (VOC; ``data/loader.py``) carries ``hw``, each
+image's true size: the padding beyond it is never picked, and the
+candidate pool's size comes from the true area, as the reference computes
+``k = int(h * w * top_n_percent)`` from the image itself
+(``acquisition.py:49-58, 163-176``).
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional
 
-import numpy as np
 import torch
 
 from pixelpick_tpu_torch.engine.trainer import normalize_images
@@ -46,40 +50,56 @@ def _full_res_pred(model, x: torch.Tensor, **kw) -> torch.Tensor:
     return pred
 
 
-def candidate_count(n: int, n_pixels: int, top_n_percent: float) -> int:
-    """Size of the candidate pool the sub-sample draws from. The JAX
-    function bounds it by ``int(n * p)`` in double and masks ranks beyond
-    ``int(f32(n) * f32(p))`` (acquisition.py:73-80); the smaller of the two
-    is the effective pool. Both are clamped to >= n_pixels."""
+def candidate_counts(n: int, true_n: torch.Tensor, n_pixels: int,
+                     top_n_percent: float):
+    """Sizes of the candidate pool the sub-sample draws from: a bound
+    ``int(n * p)`` in double over the (padded) map of ``n`` pixels, and per
+    image ``int(f32(true_n) * f32(p))`` (``true_n`` (B,) the true pixel
+    counts), both clamped to >= n_pixels (``acquisition.py:71-80``).
+    Returns (bound, (B,) counts)."""
     k_bucket = max(n_pixels, int(n * top_n_percent))
-    k_true = max(n_pixels, int(np.float32(n) * np.float32(top_n_percent)))
-    return min(k_bucket, k_true)
+    k_true = (true_n.float() * top_n_percent).long().clamp(min=n_pixels)
+    return k_bucket, k_true
 
 
 def _select_topk(uc_flat: torch.Tensor, uniforms: Optional[torch.Tensor], *,
                  strategy: str, n_pixels: int, top_n_percent: float,
-                 reverse_order: bool) -> torch.Tensor:
+                 reverse_order: bool, pad_mask: Optional[torch.Tensor] = None,
+                 true_n: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-image selection over flattened uncertainty maps (B, n)
     (query.py:33-69). ``uniforms`` (B, n) are U[0,1) draws, one per pixel:
     the sub-sample keys (highest n_pixels among the candidates win, which is
     choice without replacement keyed to pixel identity), or the
     ``reverse_order`` candidate draws. Unused when ``top_n_percent <= 0``.
+    ``pad_mask`` (B, n) marks bucket padding, never picked; ``true_n`` (B,)
+    the images' true pixel counts (default n).
 
     Returns (B, n_pixels) int64 flat indices."""
     signed = uc_flat if strategy in MAXIMIZING else -uc_flat
+    if pad_mask is not None:
+        signed = signed.masked_fill(pad_mask, float("-inf"))
     if top_n_percent <= 0.0:
         return torch.topk(signed, n_pixels, dim=1).indices
 
-    k = candidate_count(uc_flat.shape[1], n_pixels, top_n_percent)
+    bsz, n = uc_flat.shape
+    if true_n is None:
+        true_n = torch.full((bsz,), n, device=uc_flat.device)
+    k, k_true = candidate_counts(n, true_n, n_pixels, top_n_percent)
+    # ranks beyond an image's own count are no candidates
+    rank_ok = torch.arange(k, device=uc_flat.device)[None] < k_true[:, None]
     if reverse_order:
-        # a uniform candidate subset of size k (query.py:39-42), then the
-        # top-n_pixels by score among it (query.py:44-54)
-        cand = torch.topk(uniforms, k, dim=1).indices
-        picked = torch.topk(torch.gather(signed, 1, cand), n_pixels,
-                            dim=1).indices
+        # a uniform candidate subset of the image's count (query.py:39-42),
+        # then the top-n_pixels by score among it (query.py:44-54)
+        r = uniforms if pad_mask is None \
+            else uniforms.masked_fill(pad_mask, float("-inf"))
+        cand = torch.topk(r, k, dim=1).indices
+        scores = torch.gather(signed, 1, cand).masked_fill(~rank_ok,
+                                                           float("-inf"))
+        picked = torch.topk(scores, n_pixels, dim=1).indices
         return torch.gather(cand, 1, picked)
     idx = torch.topk(signed, k, dim=1).indices
-    sel = torch.topk(torch.gather(uniforms, 1, idx), n_pixels, dim=1).indices
+    r = torch.gather(uniforms, 1, idx).masked_fill(~rank_ok, float("-inf"))
+    sel = torch.topk(r, n_pixels, dim=1).indices
     return torch.gather(idx, 1, sel)
 
 
@@ -123,7 +143,8 @@ def make_score_fn(model, *, strategy: str, mean, std,
       x:        (B, H, W, 3) uint8
       excluded: (B, H, W) bool — already-labelled pixels
       y:        (B, H, W) int ground truth (oracle mode; all zeros in
-                human-label mode) — the void exclusion and the stats.
+                human-label mode) — the void exclusion and the stats;
+      hw:       (B, 2) int, optional — the true sizes of a bucketed batch.
     ``uniforms`` may inject the draws: ``{"select": (B, H*W)}`` and, for the
     random strategy, ``{"score": (B, H, W)}`` (the plain sweep and the hard
     vote) and ``{"member_scores": (mc_n_steps, B, H, W)}`` (the committee's
@@ -161,15 +182,27 @@ def make_score_fn(model, *, strategy: str, mean, std,
             uc = uncertainty_map(prob, strategy, uniforms.get("score"))
         excluded = batch["excluded"] | (batch["y"] == ignore_index)
         uc = uc.masked_fill(excluded, fill_value(strategy))
+        if "hw" in batch:
+            hw = batch["hw"].long()
+            rows = torch.arange(big_h, device=dev)[None, :, None]
+            cols = torch.arange(big_w, device=dev)[None, None, :]
+            pad = (rows >= hw[:, 0, None, None]) \
+                | (cols >= hw[:, 1, None, None])
+            true_n = hw[:, 0] * hw[:, 1]
+        else:
+            pad = torch.zeros_like(excluded)
+            true_n = None
         idx = _select_topk(uc.reshape(bsz, -1), uniforms.get("select"),
                            strategy=strategy, n_pixels=n_pixels,
                            top_n_percent=top_n_percent,
-                           reverse_order=reverse_order)
+                           reverse_order=reverse_order,
+                           pad_mask=pad.reshape(bsz, -1), true_n=true_n)
 
         # acquisition stats at the picked pixels (QueryStats,
         # query.py:250-308). picked_valid masks picks that spilled into
-        # excluded/void pixels (an image with < n_pixels candidates)
-        picked_valid = torch.gather((~excluded).reshape(bsz, -1), 1, idx)
+        # excluded/void/pad pixels (an image with < n_pixels candidates)
+        picked_valid = torch.gather((~(excluded | pad)).reshape(bsz, -1), 1,
+                                    idx)
         c = prob.shape[-1]
         picked_prob = torch.gather(prob.reshape(bsz, -1, c), 1,
                                    idx[..., None].expand(-1, -1, c))

@@ -36,8 +36,14 @@ train set on the device (``data/device_pipeline.py``) and draws each sparse
 batch there; the host only plans the batches' indices. Each batch's draws
 come from a generator seeded with (round seed, epoch, batch index), so a
 resumed stage draws the straight run's augmentations. The flag is inert in
-the dense and human-label stages, as in the JAX package. Not ported yet
-(``config.check_supported`` refuses them): meshes.
+the dense and human-label stages, as in the JAX package.
+
+Variable-size datasets (VOC) validate and sweep the pool through bucketed
+loaders (``data/loader.py``, ``driver.py:80-104``): each batch is padded to
+its bucket, a multiple of ``stride_total``, with ignore-index labels and
+excluded pixels, and the eval step reads it as it is (``driver.py:450-470``).
+Not ported yet (``config.check_supported`` refuses them): meshes, and
+``--device_augment`` on VOC.
 """
 
 from __future__ import annotations
@@ -120,12 +126,19 @@ class ALModel:
                              shuffle=True, n_workers=args.n_workers,
                              seed=args.seed, human_labels=human_labels,
                              drop_unit=self._micro_bs() or None)
+        # variable-size datasets (VOC) load val and query in shape buckets
+        bucket = args.stride_total \
+            if getattr(self.dataset_val, "variable_size", False) else None
         self.loader_query = Loader(self.dataset_query, args.pool_batch_size,
                                    mode="query", n_workers=args.n_workers,
-                                   human_labels=human_labels)
+                                   human_labels=human_labels,
+                                   bucket_stride=bucket,
+                                   pad_label=args.ignore_index)
         self.loader_val = Loader(self.dataset_val,
                                  getattr(args, "val_batch_size", 1),
-                                 mode="val", n_workers=args.n_workers)
+                                 mode="val", n_workers=args.n_workers,
+                                 bucket_stride=bucket,
+                                 pad_label=args.ignore_index)
         self.vis = Visualiser(args.dataset_name)
         self.running_loss = AverageMeter()
         self.model = None
@@ -345,7 +358,10 @@ class ALModel:
         score = RunningScore(args.n_classes)
         last = None
         for batch in self.loader_val:
-            hist, _, vis = eval_fn(batch_to_device(batch, self.device))
+            # a bucket batch is already padded to a stride multiple, its pad
+            # labels the ignore index, which the confusion matrix drops
+            feed = {k: v for k, v in batch.items() if k not in ("index", "hw")}
+            hist, _, vis = eval_fn(batch_to_device(feed, self.device))
             score.merge(hist)
             last = (batch, vis)
             if args.debug:
@@ -412,3 +428,15 @@ class ALModel:
         _, _, vis = eval_fn(feed)
         render_vis_panels(self.vis, x0[0], None if y is None else y[0], vis,
                           fp)
+
+
+def pad_to_stride(batch: dict, stride: int):
+    """Reflect-pad a batch's x, bottom and right, to a multiple of
+    ``stride`` (VOC evaluation, reference ``model.py:185-191``;
+    ``driver.py:569-577``). Returns (batch, the unpadded (h, w))."""
+    x = batch["x"]
+    h, w = x.shape[1:3]
+    ph, pw = (stride - h % stride) % stride, (stride - w % stride) % stride
+    if ph or pw:
+        x = np.pad(x, ((0, 0), (0, ph), (0, pw), (0, 0)), mode="reflect")
+    return {**batch, "x": x}, (h, w)

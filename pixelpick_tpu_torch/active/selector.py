@@ -7,7 +7,10 @@ human_labels)`` scores the pool batch by batch with
 mode, dumps the round's stats and labels the pool dataset's masks. With
 ``--use_mc_dropout`` the MC-dropout committee scores (``mc_n_steps``
 members, ``--vote_type``; ``selector.py:55-56``), its dropout masks drawn
-from the round's generator.
+from the round's generator. A bucketed pool (VOC) gives batches with
+``index`` and ``hw``: rows with index -1 fill a bucket's last batch and are
+skipped, and each image's picks are cropped back to its true size before
+encoding (``selector.py:74-120``).
 """
 
 from __future__ import annotations
@@ -63,21 +66,27 @@ class QuerySelector:
         # of its batch.
         for batch in self.loader:
             dev_batch = {k: torch.from_numpy(batch[k]).to(self.device)
-                         for k in ("x", "excluded", "y")}
+                         for k in ("x", "excluded", "y", "hw") if k in batch}
             indices, dev_stats = self._score_fn(dev_batch, generator)
             indices = indices.cpu().numpy()
-            h, w = batch["x"].shape[1:3]
-            for b in range(indices.shape[0]):
-                q = np.zeros(h * w, bool)
+            big_h, big_w = batch["x"].shape[1:3]
+            index = batch.get("index", np.arange(
+                sample_idx, sample_idx + indices.shape[0]))
+            rows = [b for b in range(indices.shape[0]) if index[b] >= 0]
+            for b in rows:
+                q = np.zeros(big_h * big_w, bool)
                 q[indices[b]] = True
-                q = q.reshape(h, w)
+                q = q.reshape(big_h, big_w)
+                h, w = (int(v) for v in batch["hw"][b]) if "hw" in batch \
+                    else (big_h, big_w)
+                q = q[:h, :w]  # the bucket's padding cropped off
                 n_pixels_total += int(q.sum())
                 dict_queries.update(codec.encode_query(
-                    ds.list_inputs[sample_idx + b], (h, w), q))
+                    ds.list_inputs[int(index[b])], (h, w), q))
             if not human_labels:
-                stats.update_batch({k: v.cpu().numpy()
+                stats.update_batch({k: v.cpu().numpy()[rows]
                                     for k, v in dev_stats.items()})
-            sample_idx += indices.shape[0]
+            sample_idx += len(rows)
 
         if not dict_queries:
             raise RuntimeError("no queries are chosen: the pool is empty")

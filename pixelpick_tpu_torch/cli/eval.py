@@ -13,12 +13,20 @@ JAX package's msgpack files (``engine/checkpoint.py``). The PNGs come from
 the eval step's own maps, which it computes for one image per batch: an
 interval below the batch size writes at most one PNG per batch, named by
 the image's index in the val set (``eval.py:94-136``).
+
+Variable-size val sets (VOC) run through the shape-bucketed loader
+(``data/loader.py``); its pad labels carry the ignore index, which the
+confusion matrix drops, and its fill rows (index -1) never advance the
+PNG cadence. A VOC loader built without buckets is reflect-padded to a
+stride multiple per batch and its logits cropped back
+(``active/driver.py:pad_to_stride``; ``eval.py:55-127``).
 """
 
 from __future__ import annotations
 
 import os
 
+from pixelpick_tpu_torch.active.driver import pad_to_stride
 from pixelpick_tpu_torch.config import Arguments
 from pixelpick_tpu_torch.data.factory import get_dataset
 from pixelpick_tpu_torch.data.loader import Loader
@@ -36,9 +44,12 @@ def evaluate(args, model, loader=None, debug: bool = False,
     ``(scores, cls_iu)``."""
     own_loader = loader is None
     if own_loader:
-        loader = Loader(get_dataset(args, val=True),
-                        getattr(args, "val_batch_size", 1), mode="val",
-                        n_workers=args.n_workers)
+        dataset = get_dataset(args, val=True)
+        loader = Loader(dataset, getattr(args, "val_batch_size", 1),
+                        mode="val", n_workers=args.n_workers,
+                        bucket_stride=args.stride_total
+                        if getattr(dataset, "variable_size", False) else None,
+                        pad_label=args.ignore_index)
     device = next(model.parameters()).device
     eval_fn = make_eval_step(model, n_classes=args.n_classes, mean=args.mean,
                              std=args.std)
@@ -54,12 +65,20 @@ def evaluate(args, model, loader=None, debug: bool = False,
     n_img = 0
     try:
         for batch in loader:
-            n_real = batch["x"].shape[0]
+            # a bucket's fill rows (index -1) come after its real images
+            n_real = int((batch["index"] >= 0).sum()) if "index" in batch \
+                else batch["x"].shape[0]
             # the first image of the batch on the cadence, if any
             off = (-n_img) % visualize_interval
             hit = dir_vis is not None and off < n_real
-            hist, _, maps = eval_fn(batch_to_device(batch, device),
-                                    vis_index=off if hit else 0)
+            feed = {k: v for k, v in batch.items() if k not in ("index", "hw")}
+            valid_hw = None
+            if getattr(loader, "bucket_stride", None) is None \
+                    and args.dataset_name == "voc":
+                feed, valid_hw = pad_to_stride(feed, args.stride_total)
+            hist, _, maps = eval_fn(batch_to_device(feed, device),
+                                    vis_index=off if hit else 0,
+                                    valid_hw=valid_hw)
             score.merge(hist)
             if hit:
                 render_vis_panels(vis, batch["x"][off], batch["y"][off], maps,

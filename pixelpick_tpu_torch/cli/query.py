@@ -9,6 +9,8 @@ mode, and dump ``{nth}_query/queries.pkl`` for the annotation tools.
 
 The checkpoint is the reference's torch format ``{"model": state_dict}``
 or a JAX package msgpack file (``engine/checkpoint.py:load_checkpoint``).
+A variable-size pool (VOC) is swept in shape buckets
+(``data/loader.py``), mixed shapes in one sweep, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -54,8 +56,11 @@ def main(argv=None) -> str:
     dataset.update_labelled_queries(list_merged)
 
     nth_query = len(prev_files)
+    bucket = args.stride_total \
+        if getattr(dataset, "variable_size", False) else None
     with Loader(dataset, args.pool_batch_size, mode="query",
-                n_workers=args.n_workers, human_labels=True) as loader:
+                n_workers=args.n_workers, human_labels=True,
+                bucket_stride=bucket, pad_label=args.ignore_index) as loader:
         dict_queries = QuerySelector(args, loader, model, device)(
             nth_query=nth_query, human_labels=True)
 

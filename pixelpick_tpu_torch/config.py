@@ -231,8 +231,6 @@ def check_supported(args: Namespace) -> None:
     """Raise on flags whose code path the port does not have yet. Each
     message names the ROADMAP.md item that ports it."""
     missing = []
-    if args.network_name == "FPN":
-        missing.append("--network_name FPN (Queue 1: FPN/ResNet)")
     if args.s2d_backbone:
         missing.append("--s2d_backbone (Queue 1: TPU-only rewrites)")
     if args.conv3x3_matmul:
@@ -243,9 +241,9 @@ def check_supported(args: Namespace) -> None:
         missing.append("--dist_coordinator (Queue 1: multi-GPU)")
     if args.data_parallel > 1:
         missing.append("--data_parallel > 1 (Queue 1: multi-GPU)")
-    if args.dataset_name == "voc":
-        missing.append("--dataset_name voc (Queue 1 item 9: VOC, with the "
-                       "device pipeline's variable-size branch)")
+    if args.dataset_name == "voc" and args.device_augment:
+        missing.append("--device_augment with --dataset_name voc (Queue 1 "
+                       "item 9: the device pipeline's variable-size branch)")
     if missing:
         raise NotImplementedError(
             "not ported to the PyTorch package yet: " + "; ".join(missing))

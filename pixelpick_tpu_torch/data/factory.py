@@ -1,6 +1,5 @@
 """Dataset factory (reference ``utils/utils.py:75-109 get_dataloader``;
-counterpart of ``pixelpick_tpu/data/factory.py``). VOC comes later
-(ROADMAP.md, Queue 1 item 9)."""
+counterpart of ``pixelpick_tpu/data/factory.py``)."""
 
 from __future__ import annotations
 
@@ -17,8 +16,9 @@ def get_dataset(args, val: bool = False, query: bool = False,
         return CamVidDataset(args, val=val, query=query,
                              generate_init_queries=generate_init_queries)
     if name == "voc":
-        raise NotImplementedError("dataset 'voc' is not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 9)")
+        from pixelpick_tpu_torch.data.voc import VOC2012Segmentation
+        return VOC2012Segmentation(args, val=val, query=query,
+                                   generate_init_queries=generate_init_queries)
     from pixelpick_tpu_torch.data.custom import CustomDataset
     return CustomDataset(args, val=val, query=query,
                          generate_init_queries=generate_init_queries)

@@ -1,4 +1,5 @@
-"""A reader of the msgpack files that ``flax.serialization`` writes.
+"""A reader and a writer of the msgpack files that ``flax.serialization``
+writes.
 
 The JAX package saves its checkpoints with ``flax.serialization.to_bytes``
 / ``msgpack_serialize`` (``pixelpick_tpu/engine/checkpoint.py``,
@@ -166,3 +167,52 @@ def flatten(tree: dict, prefix: Tuple[str, ...] = ()) -> dict:
         else:
             out[prefix + (k,)] = v
     return out
+
+
+def _sized(n: int, fix_tag, fix_max: int, tags) -> bytes:
+    if fix_tag is not None and n <= fix_max:
+        return bytes([fix_tag | n])
+    for tag, fmt, top in tags:
+        if n <= top:
+            return bytes([tag]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack: length {n} too large")
+
+
+def msgpack_serialize(obj: Any) -> bytes:
+    """msgpack of a checkpoint tree, as ``flax.serialization.
+    msgpack_serialize`` encodes it: an ndarray is extension type 1 over the
+    msgpack of ``(shape, dtype name, C-order bytes)``."""
+    if isinstance(obj, dict):
+        return _sized(len(obj), 0x80, 15, ((0xde, ">H", 0xffff),
+                                            (0xdf, ">I", 0xffffffff))) \
+            + b"".join(msgpack_serialize(k) + msgpack_serialize(v)
+                       for k, v in obj.items())
+    if isinstance(obj, (list, tuple)):
+        return _sized(len(obj), 0x90, 15, ((0xdc, ">H", 0xffff),
+                                            (0xdd, ">I", 0xffffffff))) \
+            + b"".join(msgpack_serialize(v) for v in obj)
+    if isinstance(obj, str):
+        b = obj.encode()
+        return _sized(len(b), 0xa0, 31, ((0xd9, ">B", 0xff),
+                                          (0xda, ">H", 0xffff),
+                                          (0xdb, ">I", 0xffffffff))) + b
+    if isinstance(obj, bytes):
+        return _sized(len(obj), None, 0, ((0xc4, ">B", 0xff),
+                                           (0xc5, ">H", 0xffff),
+                                           (0xc6, ">I", 0xffffffff))) + obj
+    if isinstance(obj, (int, np.integer)) and not isinstance(obj, bool) \
+            and obj >= 0:
+        return _sized(int(obj), 0x00, 127, ((0xcc, ">B", 0xff),
+                                             (0xcd, ">H", 0xffff),
+                                             (0xce, ">I", 0xffffffff),
+                                             (0xcf, ">Q", 2 ** 64 - 1)))
+    if isinstance(obj, np.ndarray):
+        payload = msgpack_serialize([list(obj.shape), obj.dtype.name,
+                                     np.ascontiguousarray(obj).tobytes()])
+        n = len(payload)
+        fixext = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+        head = bytes([fixext[n]]) if n in fixext else _sized(
+            n, None, 0, ((0xc7, ">B", 0xff), (0xc8, ">H", 0xffff),
+                         (0xc9, ">I", 0xffffffff)))
+        return head + bytes([EXT_NDARRAY]) + payload
+    raise TypeError(f"msgpack: cannot write a {type(obj).__name__}")

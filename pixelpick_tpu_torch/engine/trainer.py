@@ -213,15 +213,19 @@ def make_dense_train_step(model, optimizer, *, n_classes: int,
 def make_eval_step(model, *, n_classes: int, mean, std) -> Callable:
     """Validation step: full-resolution argmax and device confusion matrix.
     Returns (hist, pred, vis) with ``vis`` the visualisation maps of image
-    ``vis_index``, all on the device."""
+    ``vis_index``, all on the device. ``valid_hw`` crops the logits to the
+    unpadded size of an x padded to a stride multiple (``trainer.py:
+    256-293``; ``active/driver.py:pad_to_stride``)."""
 
     @torch.no_grad()
-    def eval_step(batch, vis_index: int = 0):
+    def eval_step(batch, vis_index: int = 0, valid_hw=None):
         model.eval()
         x = normalize_images(batch["x"], mean, std)
         logits = model(x, upsample=False)["pred"].float()
         if logits.shape[1:3] != x.shape[1:3]:
             logits = resize_align_corners(logits, x.shape[1:3])
+        if valid_hw is not None:
+            logits = logits[:, :valid_hw[0], :valid_hw[1]]
         pred = logits.argmax(-1)
         hist = confusion_matrix(batch["y"], pred, n_classes)
         return hist, pred, vis_maps(logits[vis_index:vis_index + 1])

@@ -133,14 +133,15 @@ def test_flag_surface_matches_jax():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--network_name", "FPN"],
+    ["--network_name", "FPN", "--s2d_backbone", "true"],
     ["--s2d_backbone", "true"],
     ["--s2d_backbone", "1"], ["--conv3x3_matmul"],
     ["--spatial_query_sharding"], ["--dist_coordinator", "localhost:1"],
     ["--data_parallel", "2"], ["--dataset_name", "voc", "--device_augment"],
-    ["--dataset_name", "voc"], ["--network_name", "FPN", "--dataset_name",
-                                "cs"],
-    ["--dataset_name", "voc", "--n_pixels_by_us", "0"]])
+    ["--dataset_name", "voc", "--network_name", "FPN", "--device_augment"],
+    ["--network_name", "FPN", "--dataset_name", "cs", "--data_parallel",
+     "2"],
+    ["--dataset_name", "voc", "--n_pixels_by_us", "0", "--device_augment"]])
 def test_unported_flags_raise(flags):
     args = config.build_parser().parse_args(flags)
     with pytest.raises(NotImplementedError, match="ROADMAP|Queue"):
@@ -153,12 +154,18 @@ def test_unported_flags_raise(flags):
     ["--stage_ckpt_interval", "1"], ["--resume_campaign"],
     ["--dataset_name", "cs"], ["--dataset_name", "cs", "--n_pixels_by_us",
                                "0"],
-    ["--device_augment"]])
+    ["--device_augment"], ["--network_name", "FPN"],
+    ["--network_name", "FPN", "--use_dilated_resnet", "false"],
+    ["--dataset_name", "voc"], ["--network_name", "FPN", "--dataset_name",
+                                "cs"],
+    ["--dataset_name", "voc", "--n_pixels_by_us", "0"],
+    ["--dataset_name", "voc", "--network_name", "FPN", "--fused_ir",
+     "--pallas_dw"]])
 def test_ported_round_modes_pass(flags):
     """The micro-batch step, the dense step, the MC-dropout committee, the
     pretrained overlay, stage snapshots, the campaign fast-forward, the
-    Cityscapes dataset and device augmentation are ported: their flags
-    pass the check."""
+    Cityscapes and VOC datasets, the FPN and device augmentation (not on
+    VOC) are ported: their flags pass the check."""
     config.check_supported(config.build_parser().parse_args(flags))
 
 

@@ -3,6 +3,7 @@ random BatchNorm statistics, as NumPy trees, for the weight bridge; and the
 train-step tests' sparse batches, SGD settings, well-conditioned weights
 and ReLU-kink margin recorder (tests/test_torch_train_step.py says why)."""
 
+import functools
 from types import SimpleNamespace
 
 import numpy as np
@@ -55,6 +56,41 @@ def port_deeplab(params, stats, n_classes, width_mult):
     from pixelpick_tpu_torch.models.deeplab import DeepLab
 
     model = DeepLab(n_classes, width_mult=width_mult)
+    model.load_state_dict(state_dict_from_jax(params, stats))
+    return model.to(memory_format=torch.channels_last).eval()
+
+
+@functools.lru_cache(maxsize=None)
+def jax_fpn_variables(n_classes, n_layers, width_multiplier):
+    """(params, batch_stats) of a JAX FPN, NumPy trees, with random
+    BatchNorm/GroupNorm statistics, scales and biases; made once per
+    configuration and process."""
+    import jax
+    import jax.numpy as jnp
+
+    from pixelpick_tpu.models.fpn import FPNSeg
+
+    model = FPNSeg(n_classes=n_classes, n_layers=n_layers,
+                   width_multiplier=width_multiplier)
+    x = jnp.zeros((1, 64, 64, 3), jnp.float32)
+    v = jax.jit(lambda k: model.init(k, x, train=False))(
+        jax.random.PRNGKey(n_layers))
+    rng = np.random.default_rng(n_layers)
+    return (randomise_bn(jax.tree.map(np.asarray, v["params"]), rng),
+            randomise_bn(jax.tree.map(np.asarray, v["batch_stats"]), rng))
+
+
+def port_fpn(params, stats, n_classes, n_layers, width_multiplier,
+             dtype=None):
+    """The port's dilated FPN at the JAX weights, CPU, eval,
+    channels_last."""
+    import torch
+
+    from pixelpick_tpu_torch.models.convert import state_dict_from_jax
+    from pixelpick_tpu_torch.models.fpn import FPNSeg
+
+    model = FPNSeg(n_classes, n_layers, width_multiplier,
+                   dtype=dtype or torch.float32)
     model.load_state_dict(state_dict_from_jax(params, stats))
     return model.to(memory_format=torch.channels_last).eval()
 
