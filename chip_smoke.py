@@ -11,9 +11,10 @@ It builds the hand-written kernels from the sources in the checkout (one
 (query) path, its training round and its other round modes (micro-batch,
 dense, MC-dropout committee), its train and eval CLIs with stage
 snapshots, JAX-layout checkpoint files, ``--resume_campaign`` and
-``--pretrained_ckpt``, device augmentation on CamVid and Cityscapes, and
-PASCAL VOC with DeepLab and with the ResNet-50 FPN, at full width, in
-phases; any failure exits nonzero:
+``--pretrained_ckpt``, device augmentation on CamVid, Cityscapes and VOC,
+PASCAL VOC with DeepLab and with the ResNet-50 FPN, and data parallelism
+over ``torch.distributed``, at full width, in phases; any failure exits
+nonzero:
 
 1. card: name and power limit, torch and CUDA versions, the kernel builds;
 2. kernels vs plain: the depthwise 3x3 kernel at every shape one
@@ -127,7 +128,21 @@ phases; any failure exits nonzero:
    checkpoint (the stage's best mIoU again); a ``--debug`` round with
    ``--pretrained_ckpt`` from a file that the port's convert CLI wrote
    from a random torchvision-layout ResNet-50: every encoder entry
-   overlaid.
+   overlaid;
+18. VOC with ``--device_augment``: phase 16's round with the train set
+   staged on the card, padded to the largest base-resized size beside each
+   image's true size; the same measures beside phase 16's host loader, the
+   kernels' launches, the staged bytes, the pipeline's device and host ms
+   per batch of 10, and the card's pipeline against its CPU run on a padded
+   remainder (``pipeline_card_vs_cpu``);
+19. data parallelism: two ranks on the one card over gloo (``python3
+   chip_smoke.py --worker JOB`` each): a full-width bs-8 step with
+   ``--pallas_dw``, 4 rows per rank, held to the single-process step (the
+   loss and every gradient to phase 6's limits, the running statistics,
+   the confusion matrices exactly; the depthwise launches of every rank);
+   ``main_al`` as two ranks, 1 epoch and 2 rounds at bs 8 on a 48-image
+   CamVid, every artifact written once; an NCCL world of one through
+   ``init_process_group``. A rank that fails fails the run.
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. The details go to
@@ -136,9 +151,10 @@ line, ``launches`` counts every main-path run: the depthwise kernel's
 (forward and dx) over the sweeps of phases 3 and 10, the campaign of phase
 7, the epoch runs of phases 8 and 9, the train CLI's runs of phase 11, the
 eval CLI's of phase 12, the ``--pretrained_ckpt`` round of phase 13 and
-the runs of phases 14, 15 and 16; the fused kernels' over phases 7, 8, 9,
-11, 13, 14, 15 and 16 (their counters zeroed just before each run and
-read just after). Phase 17's path reaches none of them.
+the runs of phases 14, 15, 16 and 18, and phase 19's ranks (each counts
+in its own process and reports its counts); the fused kernels' over phases
+7, 8, 9, 11, 13, 14, 15, 16 and 18 (their counters zeroed just before each
+run and read just after). Phase 17's path reaches none of them.
 """
 
 from __future__ import annotations
@@ -1939,11 +1955,11 @@ def phase_train_cli(work: Path) -> dict:
                 return train_epoch(self, epoch, step_fn)
             n = [0]
 
-            def step(batch):
+            def step(*batch_and_shard):
                 if n[0] == INTERRUPT_AFTER_STEPS:
                     raise Interrupted
                 n[0] += 1
-                return step_fn(batch)
+                return step_fn(*batch_and_shard)
 
             return train_epoch(self, epoch, step)
 
@@ -2211,7 +2227,7 @@ PIPE_X_TOL, PIPE_TIE_SHARE = 1e-4, 1e-4
 
 def sample_with(pipe, indices, draws) -> dict:
     """``pipe.sample_batch(indices)`` on the given draws."""
-    pipe.draw = lambda n, generator: draws
+    pipe.draw = lambda n, generator, hw=None: draws
     try:
         return pipe.sample_batch(indices, None)
     finally:
@@ -2228,7 +2244,13 @@ def pipeline_card_vs_cpu(pipe, indices, seed: int) -> dict:
     import torch
 
     rows = -(-len(indices) // pipe.pad_multiple) * pipe.pad_multiple
-    draws = pipe.draw(rows, torch.Generator(device=DEVICE).manual_seed(seed))
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    if pipe.hw is None:
+        draws = pipe.draw(rows, gen)
+    else:  # a variable-size set's geometry from each row's true size
+        padded = list(indices) + [indices[-1]] * (rows - len(indices))
+        draws = pipe.draw(rows, gen, pipe.hw[torch.as_tensor(
+            padded, device=DEVICE)])
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
@@ -2574,12 +2596,13 @@ def product_share(by_name: dict) -> float:
     return prod / total if total else float("nan")
 
 
-def voc_round(work: Path, name: str, flags: list) -> dict:
+def voc_round(work: Path, name: str, flags: list):
     """``main_al`` on the synthetic VOC tree at bs 10 and 320x320 crops, 3
     epochs and one round with its sweep (``flags`` choose the network):
     epoch 2 timed with the peak device memory, epoch 3 under the profiler;
     the sweep timed. Checks the artifacts, finite losses and 10 non-void
-    picks per image inside the image (none in a bucket's padding)."""
+    picks per image inside the image (none in a bucket's padding).
+    Returns (the measures, the driver)."""
     from PIL import Image
 
     from pixelpick_tpu_torch.active import driver
@@ -2658,7 +2681,7 @@ def voc_round(work: Path, name: str, flags: list) -> dict:
           f"{out['sweep_images_per_s']:.1f} images/s, validation "
           f"{out['val_images_per_s']:.1f} images/s; launches {counts}; 10 "
           f"non-void picks per image, none in padding")
-    return out
+    return out, al
 
 
 def phase_voc_deeplab(work: Path) -> dict:
@@ -2668,7 +2691,7 @@ def phase_voc_deeplab(work: Path) -> dict:
     t0 = time.perf_counter()
     make_synthetic_voc(work / "voc")
     write_s = time.perf_counter() - t0
-    out = voc_round(work, "voc_deeplab", ["--fused_ir", "--pallas_dw"])
+    out, _ = voc_round(work, "voc_deeplab", ["--fused_ir", "--pallas_dw"])
     c, steps = out["launches"], out["steps"]
     check(c["fused_fwd"] == 13 * steps and c["fused_bwd"] == 13 * steps
           and c["depthwise_kernel_dx"] == steps
@@ -2693,7 +2716,7 @@ def phase_voc_fpn(work: Path) -> dict:
     from pixelpick_tpu_torch.models.resnet import ResNetBackbone
 
     fpn = ["--network_name", "FPN", "--n_layers", "50"]
-    out = voc_round(work, "voc_fpn", fpn)
+    out, _ = voc_round(work, "voc_fpn", fpn)
     check(sum(out["launches"].values()) == 0,
           f"the FPN path launched {out['launches']}")
     cfg = work / "voc_bs10.yaml"
@@ -2754,10 +2777,366 @@ def phase_voc_fpn(work: Path) -> dict:
     return out
 
 
+# ------------------------------ phase 18 ------------------------------
+
+def phase_voc_device_augment(work: Path, voc: dict) -> dict:
+    """``main_al --dataset_name voc --device_augment --fused_ir
+    --pallas_dw`` on phase 16's tree, phase 16's measures beside its host
+    loader's in the same call: the train set staged padded to the largest
+    base-resized size beside the true sizes, 13 fused launches of each
+    kind and one depthwise dx per update, no labelled pixel dropped; the
+    card's pipeline against its CPU run on a padded remainder (TF32 on in
+    the process); the pipeline's device ms per batch of 10 (CUDA events)
+    and its host ms to enqueue one."""
+    import torch
+
+    from pixelpick_tpu_torch.data import base as data_base
+
+    dropped = data_base.SPARSE_OVERFLOW_PIXELS
+    out, al = voc_round(work, "voc_devaug",
+                        ["--fused_ir", "--pallas_dw", "--device_augment"])
+    overflow = data_base.SPARSE_OVERFLOW_PIXELS - dropped
+    pipe = al.device_pipe
+    c, steps = out["launches"], out["steps"]
+    check(pipe is not None and pipe.hw is not None,
+          "--device_augment on VOC staged no variable-size pipeline")
+    check(c["fused_fwd"] == 13 * steps and c["fused_bwd"] == 13 * steps
+          and c["depthwise_kernel_dx"] == steps
+          and c["depthwise_kernel"] >= steps, f"VOC device launches {c}")
+    check(overflow == 0, f"the pipeline dropped {overflow} labelled pixels")
+    hw = pipe.hw.cpu().numpy()
+    staging = tuple(pipe.images.shape[1:3])
+    check(staging == tuple(hw.max(0)) and (hw.max(1) == 400).all(),
+          f"staging {staging}, true sizes {sorted(set(map(tuple, hw)))}")
+    plan = al.loader.batch_index_plan(4)
+    gens = [(torch.Generator(device=DEVICE).manual_seed(i),)
+            for i in range(4)]
+    pipe_ms = time_ms(lambda g: pipe.sample_batch(plan[0], g), gens, reps=10)
+    enqueue_ms = []
+    for g, in gens:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.sample_batch(plan[0], g)
+        enqueue_ms.append((time.perf_counter() - t0) * 1e3)
+    host_ms = statistics.median(enqueue_ms)
+    torch.cuda.synchronize()
+    pipe.pad_multiple = 4  # a remainder of 7 padded to 8
+    cmp = pipeline_card_vs_cpu(pipe, plan[1][:7], seed=5)
+    staged = pipe.staged_bytes
+    del pipe, al
+    torch.cuda.empty_cache()
+    out.update(overflow=overflow, staged_bytes=staged, staging_hw=staging,
+               pipeline_ms_per_batch=pipe_ms,
+               pipeline_host_ms_per_batch=host_ms, card_vs_cpu=cmp,
+               host_loader_images_per_s=voc["train_images_per_s"],
+               host_loader_busy_share=voc["device_busy_share_untraced_epoch"])
+    print(f"[18] VOC --device_augment: {out['train_images_per_s']:.1f} train "
+          f"images/s, device busy "
+          f"{100 * out['device_busy_share_untraced_epoch']:.1f}% of the "
+          f"untraced warm epoch; phase 16's host loader in this call "
+          f"{voc['train_images_per_s']:.1f} images/s, "
+          f"{100 * voc['device_busy_share_untraced_epoch']:.1f}%; staged "
+          f"{staged} bytes at {staging[0]}x{staging[1]}; the pipeline "
+          f"{pipe_ms:.3f} device ms and {host_ms:.2f} host ms per batch of "
+          f"{VOC_BATCH}; overflow {overflow}")
+    print(f"[18] the card's pipeline against its CPU run, {cmp['n_real']} "
+          f"rows padded to {cmp['rows']} (TF32 on in the process): picks "
+          f"equal {cmp['picks_equal']} ({cmp['valid_picks']} valid), "
+          f"overflow {cmp['overflow']}, x within "
+          f"{cmp['x_max_abs_err_outside_ties']:.3g} outside "
+          f"{cmp['tie_pixels']} tie pixels of {cmp['pixels']} (largest "
+          f"{cmp['x_max_abs_err']:.3g})")
+    check(cmp["ok"], f"the card's VOC pipeline differs from its CPU run: "
+                     f"{cmp}")
+    return out
+
+
+# ------------------------------ phase 19 ------------------------------
+
+DP_WORLD, DP_BATCH, DP_TIMEOUT = 2, 8, 600
+DP_TRAIN, DP_VAL = 48, 8
+
+
+def dp_args(work: Path, **overrides):
+    """The CamVid arguments of phase 19's step (width 1.0, --pallas_dw)."""
+    from pixelpick_tpu_torch.config import default_args
+
+    return default_args(
+        dataset_name="cv", dir_dataset=str(work / "camvid"),
+        dir_checkpoints=str(work / "dp_step"), device=DEVICE, pallas_dw=True,
+        width_multiplier=1.0, precision="f32", **overrides)
+
+
+def run_workers(jobs: list, log: Path) -> None:
+    """``chip_smoke.py --worker JOB`` for each job at once; waits for all,
+    stops them all if one fails or outlasts DP_TIMEOUT, and fails then
+    with the end of their log."""
+    procs = []
+    with open(log, "w") as out:
+        try:
+            for job in jobs:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(HERE / "chip_smoke.py"), "--worker",
+                     json.dumps(job)], cwd=HERE, stdout=out,
+                    stderr=subprocess.STDOUT))
+            deadline = time.monotonic() + DP_TIMEOUT
+            while any(p.poll() is None for p in procs):
+                if any(p.returncode not in (None, 0) for p in procs) \
+                        or time.monotonic() > deadline:
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+    rcs = [p.returncode for p in procs]
+    check(all(rc == 0 for rc in rcs),
+          f"ranks exited {rcs}:\n{log.read_text()[-6000:]}")
+
+
+def _join(job: dict, backend: str = "gloo") -> None:
+    from types import SimpleNamespace
+
+    from pixelpick_tpu_torch.parallel import distributed
+
+    distributed.initialize_from_args(SimpleNamespace(
+        dist_coordinator=f"localhost:{job['port']}",
+        dist_num_processes=job["world"], dist_process_id=job["rank"],
+        device=DEVICE, dist_backend=backend, data_parallel=0))
+
+
+def dp_step(model, args, batch: dict, shard=None) -> dict:
+    """One sparse step of ``model`` on ``batch`` (this rank's rows under
+    ``shard``), the depthwise kernel's launches counted: the loss, the
+    confusion matrix, every gradient and the state after the update, on
+    the CPU; then five more steps, each timed to its synchronisation."""
+    import torch
+
+    from pixelpick_tpu_torch.engine.optim import make_optimizer
+    from pixelpick_tpu_torch.engine.trainer import (
+        batch_to_device, make_train_step,
+    )
+    from pixelpick_tpu_torch.ops import depthwise as dw
+
+    step = make_train_step(model, make_optimizer(args, model, 92),
+                           n_classes=N_CLASSES, mean=args.mean, std=args.std)
+    dev = batch_to_device(batch, DEVICE)
+    torch.cuda.synchronize()
+    dw.reset_launch_counts()
+    loss, hist = step(dev, shard)
+    torch.cuda.synchronize()
+    out = {"loss": float(loss), "hist": hist.cpu().numpy(),
+           "launches": dict(dw.launch_counts),
+           "grads": {n: p.grad.detach().cpu() for n, p in
+                     model.named_parameters() if p.grad is not None},
+           "state": {k: v.detach().cpu().clone()
+                     for k, v in model.state_dict().items()}}
+    out["step_ms"] = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step(dev, shard)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def dp_model(args, weights):
+    """The full-width DeepLab at ``weights`` in train mode, its dropouts on
+    a card generator seeded 5."""
+    import torch
+
+    from pixelpick_tpu_torch.models.factory import get_model
+
+    model = get_model(args, DEVICE, seed=11)
+    model.load_state_dict(weights)
+    model.set_dropout_generator(
+        torch.Generator(device=DEVICE).manual_seed(5))
+    return model.train()
+
+
+def worker_main(job: dict) -> int:
+    """One rank of phase 19 (``--worker``): ``step`` runs the bs-8 step on
+    its rows over gloo; ``campaign`` calls ``cli.main_al.main`` with the
+    ranks' flags, its kernels' launches counted; ``nccl`` joins an NCCL
+    world of one and runs its collectives."""
+    import torch
+
+    import_port()
+    from pixelpick_tpu_torch.ops import depthwise as dw, fused_ir
+    from pixelpick_tpu_torch.parallel import distributed, mesh
+
+    out = {"rank": job["rank"]}
+    if job["kind"] == "step":
+        _join(job)
+        args = dp_args(Path(job["work"]))
+        payload = torch.load(job["input"], weights_only=False)
+        model = dp_model(args, payload["weights"])
+        shard = mesh.row_shard(DP_BATCH)
+        res = dp_step(model, args, mesh.shard_batch(payload["batch"], shard),
+                      shard)
+        out["launches"], out["step_ms"] = res["launches"], res["step_ms"]
+        if distributed.is_primary():
+            torch.save(res, job["output"])
+        distributed.shutdown()
+    elif job["kind"] == "campaign":
+        from pixelpick_tpu_torch.cli.main_al import main as main_al
+
+        fused_ir.reset_launch_counts()
+        dw.reset_launch_counts()
+        main_al(job["argv"] + [
+            "--dist_coordinator", f"localhost:{job['port']}",
+            "--dist_num_processes", str(job["world"]), "--dist_process_id",
+            str(job["rank"]), "--dist_backend", "gloo"])
+        torch.cuda.synchronize()
+        out["launches"] = {**fused_ir.launch_counts, **{
+            f"depthwise_{k}": v for k, v in dw.launch_counts.items()}}
+    else:
+        _join(job, backend="auto")
+        t = torch.arange(4.0, device=DEVICE)
+        torch.distributed.all_reduce(t)
+        distributed.barrier()
+        out.update(backend=torch.distributed.get_backend(),
+                   all_reduce_ok=bool(torch.equal(t.cpu(), torch.arange(4.0))),
+                   gathered=distributed.all_gather_object(job["rank"]))
+        distributed.shutdown()
+    Path(job["report"]).write_text(json.dumps(out))
+    return 0
+
+
+def phase_data_parallel(work: Path) -> dict:
+    """Two ranks on the one card over gloo (``--dist_backend gloo``; NCCL
+    refuses two ranks on one device): a bs-8 step at full width with
+    ``--pallas_dw``, each rank on 4 rows, against the single-process step
+    at the same weights, batch and dropout stream (the loss and every
+    gradient to phase 6's limits, the running statistics within 1e-4 of
+    their scale, the confusion matrices exactly; the depthwise kernel's
+    launches on every rank); then ``main_al`` as two ranks, 1 epoch and 2
+    rounds on a 48-image CamVid at bs 8, which writes every artifact once;
+    then an NCCL world of one through ``init_process_group``. The ranks'
+    times share one card: they say nothing of scaling."""
+    import torch
+
+    from pixelpick_tpu_torch.parallel.distributed import free_port
+
+    from pixelpick_tpu_torch.models.factory import get_model
+
+    dpw = work / "dp"
+    dpw.mkdir()
+    args = dp_args(work)
+    model = get_model(args, DEVICE, seed=11)
+    well_conditioned_(model, seed=12)
+    weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    model = dp_model(args, weights)
+    batch = train_batch(np.random.default_rng(19), DP_BATCH)
+    torch.save({"weights": weights, "batch": batch}, dpw / "step_in.pt")
+    ref = dp_step(model, args, batch)
+    del model
+    port = free_port()
+    jobs = [dict(kind="step", rank=r, world=DP_WORLD, port=port,
+                 work=str(work), input=str(dpw / "step_in.pt"),
+                 output=str(dpw / "step_out.pt"),
+                 report=str(dpw / f"step_{r}.json"))
+            for r in range(DP_WORLD)]
+    run_workers(jobs, dpw / "step.log")
+    got = torch.load(dpw / "step_out.pt", weights_only=False)
+    reports = [json.loads((dpw / f"step_{r}.json").read_text())
+               for r in range(DP_WORLD)]
+    rank_launches = [r["launches"] for r in reports]
+    single_ms = statistics.median(ref["step_ms"])
+    ranks_ms = statistics.median(reports[0]["step_ms"])
+    loss_err = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    gmax = max(float(g.abs().max()) for g in ref["grads"].values())
+    grad_err = max(float((got["grads"][n] - g).abs().max())
+                   / (STEP_GRAD_TOL * float(g.abs().max())
+                      + STEP_GRAD_FLOOR * gmax)
+                   for n, g in ref["grads"].items())
+    stat_err = max(float((got["state"][k] - v).abs().max())
+                   / (1e-4 * max(float(v.abs().max()), 1.0))
+                   for k, v in ref["state"].items()
+                   if k.endswith(("running_mean", "running_var")))
+    print(f"[19] a bs-{DP_BATCH} step on two ranks of one card (gloo) "
+          f"against one process: loss {got['loss']:.7f} vs "
+          f"{ref['loss']:.7f} (relative {loss_err:.3g}); the worst "
+          f"gradient leaf at {grad_err:.3g} of its limit, the running "
+          f"statistics at {stat_err:.3g} of theirs; confusion matrices "
+          f"equal {np.array_equal(got['hist'], ref['hist'])}; depthwise "
+          f"launches per rank {rank_launches} (one process "
+          f"{ref['launches']}); a step of 8 rows {ranks_ms:.2f} ms on the "
+          f"two ranks sharing the card (median of 5), {single_ms:.2f} ms in "
+          f"one process: not a measure of scaling")
+    check(set(got["grads"]) == set(ref["grads"]), "gradient leaves differ")
+    check(loss_err <= STEP_LOSS_TOL, f"loss {got['loss']} vs {ref['loss']}")
+    check(grad_err <= 1, f"gradients off: {grad_err}")
+    check(stat_err <= 1, f"running statistics off: {stat_err}")
+    check(np.array_equal(got["hist"], ref["hist"]), "histograms differ")
+    check(all(c == ref["launches"] and c["kernel"] > 0 and c["kernel_dx"] > 0
+              for c in rank_launches), f"depthwise launches {rank_launches}")
+
+    make_synthetic_camvid(work / "camvid_dp", DP_TRAIN, DP_VAL, seed=3)
+    cfg = write_cfg(work, "cv_dp", n_epochs=1, batch_size=DP_BATCH,
+                    dir_dataset=str(work / "camvid_dp"))
+    run = work / "dp_campaign"
+    argv = ["-pdc", str(cfg), "--dir_checkpoints", str(run), "--device",
+            DEVICE, "--pallas_dw", "--n_pixels_by_us", "10", "--max_budget",
+            "20", "-qs", "margin_sampling", "--pool_batch_size",
+            str(POOL_BATCH), "--n_workers", "4", "--seed", "0"]
+    port = free_port()
+    jobs = [dict(kind="campaign", rank=r, world=DP_WORLD, port=port,
+                 argv=argv, report=str(dpw / f"campaign_{r}.json"))
+            for r in range(DP_WORLD)]
+    t0 = time.perf_counter()
+    run_workers(jobs, dpw / "campaign.log")
+    campaign_s = time.perf_counter() - t0
+    camp_launches = [json.loads((dpw / f"campaign_{r}.json").read_text())
+                     ["launches"] for r in range(DP_WORLD)]
+    files = sorted(str(p.relative_to(run)) for p in run.rglob("*")
+                   if p.is_file())
+    stage = ["1_train.png", "1_val.png", "best_miou_model.ckpt",
+             "log_train.txt", "log_val.txt", "queries.pkl",
+             "query_stats.pkl", "timing.json"]
+    want = sorted(["args.txt", "2_query/queries.pkl",
+                   *(f"{r}_query/{f}" for r in (0, 1) for f in stage)])
+    rows = {f"{r}_query/{f}": (run / f"{r}_query" / f).read_text().split()
+            for r in (0, 1) for f in ("log_train.txt", "log_val.txt")}
+    print(f"[19] main_al as two ranks, 1 epoch and 2 rounds at bs "
+          f"{DP_BATCH} on {DP_TRAIN} images: {campaign_s:.1f} s with the "
+          f"ranks' start; {len(files)} files (each log one row per epoch: "
+          f"{ {k: len(v) - 1 for k, v in rows.items()} }); launches per rank "
+          f"{camp_launches}")
+    check(files == want, f"campaign files {files}")
+    check(all(len(v) == 2 and np.isfinite(float(v[1].split(",")[-1]))
+              for v in rows.values()), f"campaign logs {rows}")
+    # the primary alone renders the train PNGs, with the eval step
+    check(all(c["depthwise_kernel"] > 0 and c["depthwise_kernel_dx"] > 0
+              and c["depthwise_kernel_dx"]
+              == camp_launches[0]["depthwise_kernel_dx"]
+              for c in camp_launches), f"campaign launches {camp_launches}")
+
+    jobs = [dict(kind="nccl", rank=0, world=1, port=free_port(),
+                 report=str(dpw / "nccl.json"))]
+    run_workers(jobs, dpw / "nccl.log")
+    nccl = json.loads((dpw / "nccl.json").read_text())
+    print(f"[19] an NCCL world of one: backend {nccl['backend']}, "
+          f"all-reduce {nccl['all_reduce_ok']}, gathered {nccl['gathered']}")
+    check(nccl["backend"] == "nccl" and nccl["all_reduce_ok"]
+          and nccl["gathered"] == [0], f"NCCL world of one: {nccl}")
+    return {"step_loss": [got["loss"], ref["loss"]], "loss_rel_err": loss_err,
+            "grad_err_over_tol": grad_err, "stat_err_over_tol": stat_err,
+            "step_launches_per_rank": rank_launches,
+            "step_launches_single": ref["launches"],
+            "step_ms_two_ranks_one_card": [r["step_ms"] for r in reports],
+            "step_ms_single": ref["step_ms"],
+            "campaign_s": campaign_s, "campaign_launches": camp_launches,
+            "campaign_files": files, "nccl": nccl}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="chiprun_out",
                     help="directory for chip_smoke.json")
+    ap.add_argument("--worker", default="",
+                    help="run one rank of phase 19 (a JSON job) and exit")
     opts = ap.parse_args(argv)
 
     import torch
@@ -2766,6 +3145,8 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs a CUDA card", file=sys.stderr)
         return 2
+    if opts.worker:
+        return worker_main(json.loads(opts.worker))
     import_port()
     from pixelpick_tpu_torch.config import default_args
     from pixelpick_tpu_torch.models.factory import get_model
@@ -2803,7 +3184,13 @@ def main(argv=None) -> int:
     city = phase_cityscapes(work)
     voc = phase_voc_deeplab(work)
     voc_fpn = phase_voc_fpn(work)
+    voc_dev = phase_voc_device_augment(work, voc)
+    dp = phase_data_parallel(work)
     phases_s = time.perf_counter() - t_start
+    # phase 19's ranks count in their own processes
+    dp_counts = [{f"depthwise_{k}": v for k, v in c.items()}
+                 for c in dp["step_launches_per_rank"]] \
+        + dp["campaign_launches"]
 
     f32 = kernels["float32"]
     entry = {
@@ -2837,7 +3224,10 @@ def main(argv=None) -> int:
                                        (devaug["host_loader_launches"],
                                         "depthwise_"),
                                        (city["launches"], "depthwise_"),
-                                       (voc["launches"], "depthwise_"))),
+                                       (voc["launches"], "depthwise_"),
+                                       (voc_dev["launches"], "depthwise_"),
+                                       *((c, "depthwise_")
+                                         for c in dp_counts))),
         "max_abs_err": max(r["max_abs_err"] for r in f32),
         # per forward of the main path: the 14 launches at batch 32, f32
         "ms": sum(r["ms"] for r in f32),
@@ -2864,7 +3254,8 @@ def main(argv=None) -> int:
                 train_cli["launches"], train_cli["launches_resume"],
                 resume["pretrained_launches"], devaug["launches"],
                 devaug["host_loader_launches"], city["launches"],
-                voc["launches"])),
+                voc["launches"], voc_dev["launches"],
+                *dp["campaign_launches"])),
             "max_abs_err": max(r["y_max_abs_err" if k == "fwd"
                                  else "grad_max_abs_err"] for r in f32),
             "ms": sum(r[f"{k}_ms"] for r in f32),
@@ -2874,7 +3265,7 @@ def main(argv=None) -> int:
             else "operations",
             "library_ms": sum(r[f"library_{k}_ms"] for r in f32),
         })
-    print(f"[17] phases 2-17 took {phases_s:.1f} s")
+    print(f"[19] phases 2-19 took {phases_s:.1f} s")
     out = Path(opts.out)
     if not out.is_absolute():
         out = HERE / out
@@ -2888,6 +3279,7 @@ def main(argv=None) -> int:
                    "eval_cli": eval_cli, "resume_pretrained": resume,
                    "device_augment": devaug, "cityscapes": city,
                    "voc_deeplab": voc, "voc_fpn": voc_fpn,
+                   "voc_device_augment": voc_dev, "data_parallel": dp,
                    "phases_s": phases_s,
                    "summary": [entry, *fused_entries]}, f, indent=1)
     shutil.rmtree(work, ignore_errors=True)

@@ -40,6 +40,7 @@ from pixelpick_tpu_torch.ops.resize import resize_align_corners
 from pixelpick_tpu_torch.ops.uncertainty import (
     MAXIMIZING, fill_value, uncertainty_map, xlogx,
 )
+from pixelpick_tpu_torch.parallel import mesh
 
 
 def _full_res_pred(model, x: torch.Tensor, **kw) -> torch.Tensor:
@@ -149,7 +150,8 @@ def make_score_fn(model, *, strategy: str, mean, std,
     random strategy, ``{"score": (B, H, W)}`` (the plain sweep and the hard
     vote) and ``{"member_scores": (mc_n_steps, B, H, W)}`` (the committee's
     members); otherwise they are drawn from ``generator`` (on the batch's
-    device).
+    device). Under a row shard (``parallel/mesh.py:sharded``) the batch is
+    this rank's rows and every draw is the global batch's, sliced.
 
     Returns (indices (B, n_pixels) int64 flat, stats dict of tensors).
     """
@@ -160,16 +162,17 @@ def make_score_fn(model, *, strategy: str, mean, std,
         dev = batch["x"].device
         if uniforms is None:
             uniforms = {}
+            # under a row shard, the global batch's draws, sliced
             if top_n_percent > 0.0:
-                uniforms["select"] = torch.rand(
-                    (bsz, big_h * big_w), generator=generator, device=dev)
+                uniforms["select"] = mesh.rand_rows(
+                    (bsz, big_h * big_w), generator, dev)
             if strategy == "random":
-                uniforms["score"] = torch.rand(
-                    (bsz, big_h, big_w), generator=generator, device=dev)
+                uniforms["score"] = mesh.rand_rows(
+                    (bsz, big_h, big_w), generator, dev)
                 if mc_n_steps > 0:
-                    uniforms["member_scores"] = torch.rand(
-                        (mc_n_steps, bsz, big_h, big_w), generator=generator,
-                        device=dev)
+                    uniforms["member_scores"] = mesh.rand_rows(
+                        (mc_n_steps, bsz, big_h, big_w), generator, dev,
+                        axis=1)
 
         x = normalize_images(batch["x"], mean, std)
         if mc_n_steps > 0:

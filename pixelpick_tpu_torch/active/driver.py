@@ -42,12 +42,24 @@ Variable-size datasets (VOC) validate and sweep the pool through bucketed
 loaders (``data/loader.py``, ``driver.py:80-104``): each batch is padded to
 its bucket, a multiple of ``stride_total``, with ignore-index labels and
 excluded pixels, and the eval step reads it as it is (``driver.py:450-470``).
-Not ported yet (``config.check_supported`` refuses them): meshes, and
-``--device_augment`` on VOC.
+With ``--device_augment`` they stage padded images beside their true sizes
+(``data/device_pipeline.py``).
+
+Data parallelism (``parallel/``; JAX ``driver.py:91-101, 193-563``): every
+rank builds the same datasets, loaders and round models from the same
+seeds, holds each global batch and computes its rows of it. A remainder
+train batch pads to a multiple of the world size when the full batches
+shard (``_train_pad_multiple``); the validation batch rounds up to a
+multiple of it, its remainder padded with ignore-labelled rows, and its
+confusion matrix is summed over the ranks, so that every rank takes the
+same best-mIoU decisions. Logs, PNGs, ``best_miou_model.ckpt``, stage
+snapshots, ``timing.json`` and the round's picks are written by the
+primary rank only.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import pickle as pkl
 import time
@@ -70,6 +82,7 @@ from pixelpick_tpu_torch.engine.trainer import (
 )
 from pixelpick_tpu_torch.models.convert import load_pretrained_ckpt
 from pixelpick_tpu_torch.models.factory import get_model, resolve_device
+from pixelpick_tpu_torch.parallel import distributed, mesh
 from pixelpick_tpu_torch.parallel.mesh import pad_batch_to_devices
 from pixelpick_tpu_torch.utils.logging import write_log
 from pixelpick_tpu_torch.utils.metrics import AverageMeter, RunningScore
@@ -119,8 +132,12 @@ class ALModel:
             else:
                 self.device_pipe = DevicePipeline(self.dataset, args,
                                                   self.device)
-                # a remainder megabatch pads to a micro multiple
+                # a remainder megabatch pads to a micro multiple, and to a
+                # world-size multiple when the full batches shard
                 self.device_pipe.pad_multiple = self._micro_bs() or 1
+                self.device_pipe.micro_bs = self._micro_bs()
+                self.device_pipe.pad_to_devices = \
+                    args.batch_size % distributed.world_size() == 0
         self.loader = Loader(self.dataset, args.batch_size,
                              mode="train_dense" if self.fully_sup else "train",
                              shuffle=True, n_workers=args.n_workers,
@@ -134,8 +151,11 @@ class ALModel:
                                    human_labels=human_labels,
                                    bucket_stride=bucket,
                                    pad_label=args.ignore_index)
-        self.loader_val = Loader(self.dataset_val,
-                                 getattr(args, "val_batch_size", 1),
+        # under data parallelism the validation batch rounds up to a
+        # multiple of the world size (driver.py:91-101)
+        world = distributed.world_size()
+        val_bs = -(-getattr(args, "val_batch_size", 1) // world) * world
+        self.loader_val = Loader(self.dataset_val, val_bs,
                                  mode="val", n_workers=args.n_workers,
                                  bucket_stride=bucket,
                                  pad_label=args.ignore_index)
@@ -159,6 +179,7 @@ class ALModel:
         n_stages += 1 if args.n_init_pixels > 0 else 0
         print("n_stages:", n_stages)
         profile_dir = getattr(args, "profile_dir", "")
+        distributed.barrier()  # every rank reads the same files below
         for nth_query in range(n_stages):
             self.nth_query = nth_query
             # a round whose next queries.pkl exists ran to its end: merge
@@ -194,8 +215,10 @@ class ALModel:
         self.log_val = f"{dir_stage}/log_val.txt"
         stage_ckpt = int(getattr(args, "stage_ckpt_interval", 0) or 0)
         p_stage_state = f"{dir_stage}/stage_state.ckpt"
+        distributed.barrier()
         resuming = stage_ckpt > 0 and os.path.isfile(p_stage_state)
-        if not resuming:  # a resumed stage appends to its logs
+        if not resuming and distributed.is_primary():
+            # a resumed stage appends to its logs
             write_log(self.log_train,
                       header=["epoch", "mIoU", "pixel_acc", "loss"])
             write_log(self.log_val, header=["epoch", "mIoU", "pixel_acc"])
@@ -205,6 +228,7 @@ class ALModel:
         model = get_model(args, self.device, seed=seed)
         if getattr(args, "pretrained_ckpt", ""):
             load_pretrained_ckpt(model, args.pretrained_ckpt)
+        distributed.check_replicated(model)
         # the dropout masks' one stateful stream; a snapshot carries its
         # state, so a resumed stage draws the masks of the straight run
         generator = torch.Generator(device=self.device).manual_seed(
@@ -248,7 +272,8 @@ class ALModel:
                     trace(f"{profile_dir}/train" if epoch == trace_epoch
                           else None):
                 last_batch = self._train_epoch(epoch, step_fn)
-            if last_batch is not None and not args.debug:
+            if last_batch is not None and not args.debug \
+                    and distributed.is_primary():
                 with self.timer.phase("vis"):
                     self._visualise(eval_fn, last_batch,
                                     f"{dir_stage}/{epoch}_train.png")
@@ -263,9 +288,10 @@ class ALModel:
                                      generator, epoch, self.best_miou)
             if args.debug:
                 break
-        if stage_ckpt and os.path.isfile(p_stage_state):
-            os.remove(p_stage_state)  # a complete stage starts afresh
-        self.timer.dump(f"{dir_stage}/timing.json")
+        if distributed.is_primary():
+            if stage_ckpt and os.path.isfile(p_stage_state):
+                os.remove(p_stage_state)  # a complete stage starts afresh
+            self.timer.dump(f"{dir_stage}/timing.json")
         return model
 
     # ----------------------------- epochs -----------------------------
@@ -284,21 +310,25 @@ class ALModel:
         overflows = []
         last_batch = None
         micro = self._micro_bs()
+        pad_mult = self._train_pad_multiple()
         for batch in self._epoch_batches(epoch):
-            n_real = batch["x"].shape[0]
             if self.device_pipe is not None:
                 n_real = batch["n_real"]
                 overflows.append(batch["overflow"])
-                loss, hist = step_fn(batch)
-            elif micro:
-                # a remainder megabatch (CamVid 367 % 48 = 31) pads to a
-                # micro multiple with inert rows; the step uploads it once
-                batch, n_real = pad_batch_to_devices(
-                    batch, pad_label=args.ignore_index,
-                    target_rows=-(-n_real // micro) * micro)
-                loss, hist = step_fn(batch)
+                loss, hist = step_fn(batch) if micro \
+                    else step_fn(batch, batch["shard"])
             else:
-                loss, hist = step_fn(batch_to_device(batch, self.device))
+                # a remainder batch (CamVid 367 % 48 = 31) pads with inert
+                # rows to a micro multiple, and to a world-size multiple
+                # when the full batches shard
+                batch, n_real = pad_batch_to_devices(
+                    batch, pad_label=args.ignore_index, multiple=pad_mult)
+                if micro:  # the step shards and uploads the megabatch once
+                    loss, hist = step_fn(batch)
+                else:
+                    shard = mesh.row_shard(batch["x"].shape[0])
+                    loss, hist = step_fn(batch_to_device(
+                        mesh.shard_batch(batch, shard), self.device), shard)
             losses.append(loss.reshape(-1))
             score.merge(hist)
             n_imgs += n_real
@@ -327,8 +357,9 @@ class ALModel:
         print(f"({self.experim_name}) Epoch {epoch} | mIoU: {miou:.3f} | "
               f"pixel acc: {pixel_acc:.3f} | loss: {self.running_loss.avg:.3f} "
               f"| {n_imgs / max(dt, 1e-9):.1f} imgs/s")
-        write_log(self.log_train, list_entities=[
-            epoch, miou, pixel_acc, self.running_loss.avg])
+        if distributed.is_primary():
+            write_log(self.log_train, list_entities=[
+                epoch, miou, pixel_acc, self.running_loss.avg])
         return last_batch
 
     def _epoch_batches(self, epoch: int):
@@ -361,7 +392,15 @@ class ALModel:
             # a bucket batch is already padded to a stride multiple, its pad
             # labels the ignore index, which the confusion matrix drops
             feed = {k: v for k, v in batch.items() if k not in ("index", "hw")}
-            hist, _, vis = eval_fn(batch_to_device(feed, self.device))
+            if distributed.world_size() > 1:
+                # a remainder pads to the full batch with ignore-labelled
+                # rows, so that it shards (driver.py:468-477)
+                feed, _ = pad_batch_to_devices(
+                    feed, pad_label=args.ignore_index,
+                    target_rows=self.loader_val.batch_size)
+            shard = mesh.row_shard(feed["x"].shape[0])
+            hist, _, vis = eval_fn(batch_to_device(
+                mesh.shard_batch(feed, shard), self.device), shard=shard)
             score.merge(hist)
             last = (batch, vis)
             if args.debug:
@@ -373,11 +412,13 @@ class ALModel:
             print(f"best model saved (epoch {epoch} | prev miou "
                   f"{self.best_miou:.4f} => {miou:.4f})")
             self.best_miou = miou
-        write_log(self.log_val, list_entities=[epoch, miou, pixel_acc])
+        if distributed.is_primary():
+            write_log(self.log_val, list_entities=[epoch, miou, pixel_acc])
         print(f"\n{'=' * 80}\nExperim name: {self.experim_name}\n"
               f"Epoch {epoch} | miou: {miou:.3f} | pixel_acc: {pixel_acc:.3f}\n"
               f"{'=' * 80}\n")
-        if last is not None and not args.debug:
+        if last is not None and not args.debug and distributed.is_primary():
+            # image 0 of the batch is the primary's first row
             batch, vis = last
             render_vis_panels(self.vis, batch["x"][0], batch["y"][0], vis,
                               f"{dir_stage}/{epoch}_val.png")
@@ -399,6 +440,17 @@ class ALModel:
                 f"{micro} schedule); a non-divisor would pad every batch "
                 f"with duplicate rows and change the BN moments")
         return micro
+
+    def _train_pad_multiple(self) -> int:
+        """Remainder train batches pad to a multiple of lcm(world size,
+        micro-batch size), the world size only when the full batches shard
+        (``batch_size % W == 0``): padding every batch of a size W does not
+        divide would change its BatchNorm moments (``driver.py:416-437``).
+        An all-pad micro-batch this padding can make is a no-op."""
+        w = distributed.world_size()
+        n = w if self.args.batch_size % w == 0 else 1
+        micro = self._micro_bs()
+        return math.lcm(n, micro) if micro else n
 
     def _iters_per_epoch(self) -> int:
         """Optimizer updates per epoch, which the LR schedule steps by:

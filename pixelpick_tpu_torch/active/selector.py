@@ -11,6 +11,13 @@ from the round's generator. A bucketed pool (VOC) gives batches with
 ``index`` and ``hw``: rows with index -1 fill a bucket's last batch and are
 skipped, and each image's picks are cropped back to its true size before
 encoding (``selector.py:74-120``).
+
+Under data parallelism (``parallel/mesh.py``) each pool batch is sharded
+by images over the ranks (JAX ``selector.py:30-41, 87-92``); a batch the
+world size does not divide is scored whole on every rank. Each rank scores
+its images whole, in eval mode, on the global batch's draws; the picks and
+stats are gathered in image order over gloo, so every rank labels the same
+masks, and the primary writes the stats.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 from pixelpick_tpu_torch.active import codec
 from pixelpick_tpu_torch.active.acquisition import make_score_fn
 from pixelpick_tpu_torch.active.stats import QueryStats
+from pixelpick_tpu_torch.parallel import distributed, mesh
 
 
 class QuerySelector:
@@ -65,10 +73,19 @@ class QuerySelector:
         # and in eval mode every image is scored independently of the rest
         # of its batch.
         for batch in self.loader:
-            dev_batch = {k: torch.from_numpy(batch[k]).to(self.device)
-                         for k in ("x", "excluded", "y", "hw") if k in batch}
-            indices, dev_stats = self._score_fn(dev_batch, generator)
+            shard = mesh.row_shard(batch["x"].shape[0])
+            local = mesh.shard_batch(batch, shard)
+            dev_batch = {k: torch.from_numpy(local[k]).to(self.device)
+                         for k in ("x", "excluded", "y", "hw") if k in local}
+            with mesh.sharded(shard):
+                indices, dev_stats = self._score_fn(dev_batch, generator)
             indices = indices.cpu().numpy()
+            dev_stats = {k: v.cpu().numpy() for k, v in dev_stats.items()}
+            if shard is not None:  # every rank's rows, in image order
+                parts = distributed.all_gather_object((indices, dev_stats))
+                indices = np.concatenate([i for i, _ in parts])
+                dev_stats = {k: np.concatenate([st[k] for _, st in parts])
+                             for k in dev_stats}
             big_h, big_w = batch["x"].shape[1:3]
             index = batch.get("index", np.arange(
                 sample_idx, sample_idx + indices.shape[0]))
@@ -84,14 +101,14 @@ class QuerySelector:
                 dict_queries.update(codec.encode_query(
                     ds.list_inputs[int(index[b])], (h, w), q))
             if not human_labels:
-                stats.update_batch({k: v.cpu().numpy()[rows]
-                                    for k, v in dev_stats.items()})
+                stats.update_batch({k: v[rows] for k, v in dev_stats.items()})
             sample_idx += len(rows)
 
         if not dict_queries:
             raise RuntimeError("no queries are chosen: the pool is empty")
         if not human_labels:
-            stats.save(nth_query)
+            if distributed.is_primary():
+                stats.save(nth_query)
             print(f"{n_pixels_total} labelled pixels are chosen by "
                   f"{self.args.query_strategy} strategy")
             # keep the pool dataset's masks in sync (query.py:220); as in

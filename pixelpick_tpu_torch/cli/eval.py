@@ -20,6 +20,12 @@ confusion matrix drops, and its fill rows (index -1) never advance the
 PNG cadence. A VOC loader built without buckets is reflect-padded to a
 stride multiple per batch and its logits cropped back
 (``active/driver.py:pad_to_stride``; ``eval.py:55-127``).
+
+``--data_parallel N`` evaluates on N local ranks (``parallel/
+distributed.py``): the batch rounds up to a multiple of N, a remainder
+pads to the full batch with ignore-labelled rows and each rank takes its
+rows; the confusion matrix is summed over the ranks, and the primary
+writes the PNGs and the log (JAX ``cli/eval.py:58-81, 156``).
 """
 
 from __future__ import annotations
@@ -27,12 +33,13 @@ from __future__ import annotations
 import os
 
 from pixelpick_tpu_torch.active.driver import pad_to_stride
-from pixelpick_tpu_torch.config import Arguments
 from pixelpick_tpu_torch.data.factory import get_dataset
 from pixelpick_tpu_torch.data.loader import Loader
 from pixelpick_tpu_torch.engine.checkpoint import load_checkpoint
 from pixelpick_tpu_torch.engine.trainer import batch_to_device, make_eval_step
 from pixelpick_tpu_torch.models.factory import get_model, resolve_device
+from pixelpick_tpu_torch.parallel import distributed, mesh
+from pixelpick_tpu_torch.parallel.mesh import pad_batch_to_devices
 from pixelpick_tpu_torch.utils.logging import write_log
 from pixelpick_tpu_torch.utils.metrics import RunningScore
 from pixelpick_tpu_torch.utils.visualiser import Visualiser, render_vis_panels
@@ -43,9 +50,12 @@ def evaluate(args, model, loader=None, debug: bool = False,
     """One pass of the eval step over the val set; returns
     ``(scores, cls_iu)``."""
     own_loader = loader is None
+    world = distributed.world_size()
     if own_loader:
         dataset = get_dataset(args, val=True)
-        loader = Loader(dataset, getattr(args, "val_batch_size", 1),
+        loader = Loader(dataset,
+                        -(-getattr(args, "val_batch_size", 1) // world)
+                        * world,
                         mode="val", n_workers=args.n_workers,
                         bucket_stride=args.stride_total
                         if getattr(dataset, "variable_size", False) else None,
@@ -76,11 +86,24 @@ def evaluate(args, model, loader=None, debug: bool = False,
             if getattr(loader, "bucket_stride", None) is None \
                     and args.dataset_name == "voc":
                 feed, valid_hw = pad_to_stride(feed, args.stride_total)
-            hist, _, maps = eval_fn(batch_to_device(feed, device),
-                                    vis_index=off if hit else 0,
-                                    valid_hw=valid_hw)
+            if world > 1:  # a remainder pads to the full batch and shards
+                feed, _ = pad_batch_to_devices(
+                    feed, pad_label=args.ignore_index,
+                    target_rows=loader.batch_size)
+            shard = mesh.row_shard(feed["x"].shape[0])
+            lo, hi = (0, feed["x"].shape[0]) if shard is None \
+                else shard[:2]
+            own = lo <= off < hi  # this rank holds the cadence's image
+            hist, _, maps = eval_fn(
+                batch_to_device(mesh.shard_batch(feed, shard), device),
+                vis_index=off - lo if hit and own else 0, valid_hw=valid_hw,
+                shard=shard)
             score.merge(hist)
-            if hit:
+            if hit and shard is not None:  # its maps, to the primary
+                maps = next(m for m in distributed.all_gather_object(
+                    {k: v.cpu() for k, v in maps.items()} if own else None)
+                    if m is not None)
+            if hit and distributed.is_primary():
                 render_vis_panels(vis, batch["x"][off], batch["y"][off], maps,
                                   f"{dir_vis}/{n_img + off}.png")
             n_img += n_real
@@ -93,8 +116,13 @@ def evaluate(args, model, loader=None, debug: bool = False,
 
 
 def main(argv=None):
-    """Returns ``(scores, cls_iu)``."""
-    args = Arguments().parse_args(argv)
+    """Returns ``(scores, cls_iu)``; None in a launcher that started the
+    ranks of ``--data_parallel``."""
+    return distributed.run_entry("pixelpick_tpu_torch.cli.eval", argv,
+                                 _main)
+
+
+def _main(args):
     model = get_model(args, resolve_device(args.device))
     if args.p_state_dict:
         load_checkpoint(args.p_state_dict, model)
@@ -103,9 +131,10 @@ def main(argv=None):
     scores, cls_iu = evaluate(
         args, model, debug=args.debug, dir_vis=dir_vis,
         visualize_interval=getattr(args, "visualize_interval", 100))
-    write_log(f"{dir_vis}/log_val.txt",
-              list_entities=[0, scores["Mean IoU"], scores["Pixel Acc"]],
-              header=["epoch", "miou", "pixel_acc"])
+    if distributed.is_primary():
+        write_log(f"{dir_vis}/log_val.txt",
+                  list_entities=[0, scores["Mean IoU"], scores["Pixel Acc"]],
+                  header=["epoch", "miou", "pixel_acc"])
     print(scores)
     print("per-class IoU:", cls_iu)
     return scores, cls_iu

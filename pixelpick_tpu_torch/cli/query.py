@@ -11,6 +11,9 @@ The checkpoint is the reference's torch format ``{"model": state_dict}``
 or a JAX package msgpack file (``engine/checkpoint.py:load_checkpoint``).
 A variable-size pool (VOC) is swept in shape buckets
 (``data/loader.py``), mixed shapes in one sweep, as the JAX CLI does.
+``--data_parallel N`` sweeps on N local ranks (``parallel/
+distributed.py``; JAX ``cli/query.py:58-68``): every rank gets every pick,
+and the primary writes the file.
 """
 
 from __future__ import annotations
@@ -22,16 +25,21 @@ from pixelpick_tpu_torch.active.codec import (
     gather_previous_query_files, merge_previous_query_files,
 )
 from pixelpick_tpu_torch.active.selector import QuerySelector
-from pixelpick_tpu_torch.config import Arguments
 from pixelpick_tpu_torch.data.factory import get_dataset
 from pixelpick_tpu_torch.data.loader import Loader
 from pixelpick_tpu_torch.engine.checkpoint import load_checkpoint
 from pixelpick_tpu_torch.models.factory import get_model, resolve_device
+from pixelpick_tpu_torch.parallel import distributed
 
 
-def main(argv=None) -> str:
-    """Run one standalone query round; returns the path it wrote."""
-    args = Arguments().parse_args(argv)
+def main(argv=None):
+    """Run one standalone query round; returns the path it wrote (None in
+    a launcher that started the ranks of ``--data_parallel``)."""
+    return distributed.run_entry("pixelpick_tpu_torch.cli.query", argv,
+                                 _query)
+
+
+def _query(args) -> str:
     if not args.p_state_dict:
         raise SystemExit("--p_state_dict is required for standalone querying")
     device = resolve_device(args.device)
@@ -65,11 +73,12 @@ def main(argv=None) -> str:
             nth_query=nth_query, human_labels=True)
 
     d = f"{args.dir_checkpoints}/{nth_query}_query"
-    os.makedirs(d, exist_ok=True)
     path = f"{d}/queries.pkl"
-    with open(path, "wb") as f:
-        pkl.dump(dict_queries, f)
-    print(f"Queries are saved at {path}")
+    if distributed.is_primary():
+        os.makedirs(d, exist_ok=True)
+        with open(path, "wb") as f:
+            pkl.dump(dict_queries, f)
+        print(f"Queries are saved at {path}")
     return path
 
 

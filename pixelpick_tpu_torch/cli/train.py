@@ -12,7 +12,10 @@ picks, or ``fully_sup`` under ``--n_pixels_by_us 0``. Validation runs every
 
     python -m pixelpick_tpu_torch.cli.train -pdc CONFIG.yaml \\
         --dir_checkpoints RUN_DIR [--device cuda|cpu] [--fused_ir] \\
-        [--pallas_dw] [--stage_ckpt_interval 1]
+        [--pallas_dw] [--stage_ckpt_interval 1] [--data_parallel N]
+
+``--data_parallel N`` trains on N local ranks, one per card
+(``parallel/distributed.py``).
 """
 
 from __future__ import annotations
@@ -23,11 +26,17 @@ from pixelpick_tpu_torch.active.codec import (
     gather_previous_query_files, merge_previous_query_files,
 )
 from pixelpick_tpu_torch.active.driver import ALModel
-from pixelpick_tpu_torch.config import Arguments
+from pixelpick_tpu_torch.parallel import distributed
 
 
-def main(argv=None) -> ALModel:
-    args = Arguments().parse_args(argv)
+def main(argv=None):
+    """The driver after its stage; None in a launcher that started the
+    ranks of ``--data_parallel`` (``parallel/distributed.py``)."""
+    return distributed.run_entry("pixelpick_tpu_torch.cli.train", argv,
+                                 _train)
+
+
+def _train(args) -> ALModel:
     human = False
     inputs = maps = None
     prev_files = gather_previous_query_files(args.dir_checkpoints)

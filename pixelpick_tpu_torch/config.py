@@ -5,7 +5,8 @@ choices, which follow the reference ``args.py:10-205``), the per-dataset
 hyper-parameter blocks, the YAML overlay and the experiment-name builder —
 kept here as an own copy so the port imports nothing of the JAX package.
 
-One flag is the port's own: ``--device {cuda,cpu}`` (default ``cuda``).
+Two flags are the port's own: ``--device {cuda,cpu}`` (default ``cuda``)
+and ``--dist_backend {auto,nccl,gloo}`` (``parallel/distributed.py``).
 
 Flags whose code path is not ported yet raise ``NotImplementedError`` naming
 the ROADMAP item that ports it (see ``check_supported``); nothing quietly
@@ -178,6 +179,11 @@ def build_parser() -> ArgumentParser:
                         choices=["cuda", "cpu"],
                         help="where the model runs; cuda raises if no card "
                              "is visible (nothing falls back to the CPU)")
+    parser.add_argument("--dist_backend", type=str, default="auto",
+                        choices=["auto", "nccl", "gloo"],
+                        help="torch.distributed backend of the ranks: auto "
+                             "is nccl on cuda and gloo on the cpu (gloo "
+                             "also lets two ranks share one card)")
     return parser
 
 
@@ -236,14 +242,8 @@ def check_supported(args: Namespace) -> None:
     if args.conv3x3_matmul:
         missing.append("--conv3x3_matmul (Queue 1: TPU-only rewrites)")
     if args.spatial_query_sharding:
-        missing.append("--spatial_query_sharding (Queue 1: multi-GPU)")
-    if args.dist_coordinator:
-        missing.append("--dist_coordinator (Queue 1: multi-GPU)")
-    if args.data_parallel > 1:
-        missing.append("--data_parallel > 1 (Queue 1: multi-GPU)")
-    if args.dataset_name == "voc" and args.device_augment:
-        missing.append("--device_augment with --dataset_name voc (Queue 1 "
-                       "item 9: the device pipeline's variable-size branch)")
+        missing.append("--spatial_query_sharding (Queue 1 item 8's last "
+                       "piece: model parallelism over image height)")
     if missing:
         raise NotImplementedError(
             "not ported to the PyTorch package yet: " + "; ".join(missing))
@@ -252,8 +252,11 @@ def check_supported(args: Namespace) -> None:
 def finalize_args(args: Namespace, write_files: bool = True) -> Namespace:
     """Apply derived fields, dataset blocks, YAML overlay, naming and seeding
     (reference ``args.py:59-205``; ``pixelpick_tpu.config.finalize_args``
-    without its jax set-up)."""
+    without its jax set-up). Joins the ranks ``--dist_coordinator`` names
+    (``parallel/distributed.py``); only the primary writes ``args.txt``."""
     check_supported(args)
+    from pixelpick_tpu_torch.parallel import distributed
+    distributed.initialize_from_args(args)
     if args.pallas_dw:
         from pixelpick_tpu_torch.models.layers import set_depthwise_impl
         set_depthwise_impl("pallas")
@@ -323,7 +326,7 @@ def finalize_args(args: Namespace, write_files: bool = True) -> Namespace:
 
     if not args.dir_checkpoints:
         args.dir_checkpoints = f"{args.dir_root}/checkpoints/{args.experim_name}"
-    if write_files:
+    if write_files and distributed.is_primary():
         os.makedirs(args.dir_checkpoints, exist_ok=True)
         with open(f"{args.dir_checkpoints}/args.txt", "w") as f:
             f.write(pformat(vars(args)))

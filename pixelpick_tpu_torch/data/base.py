@@ -28,6 +28,7 @@ from __future__ import annotations
 import os
 import pickle as pkl
 import random
+import time
 import warnings
 from typing import Dict, List, Optional, Tuple
 
@@ -35,6 +36,22 @@ import numpy as np
 from PIL import Image
 
 from pixelpick_tpu_torch.active import codec
+from pixelpick_tpu_torch.parallel.distributed import is_primary
+
+
+def wait_for_primary_file(path: str, timeout: float = 1800.0) -> None:
+    """Under data parallelism, block a rank other than the primary until
+    the primary has published ``path`` (``atomic_publish``); a no-op on
+    the primary (JAX ``data/base.py:38-52``). The path must lie on a
+    filesystem every rank sees."""
+    if is_primary():
+        return
+    deadline = time.time() + timeout
+    while not os.path.isfile(path):
+        if time.time() > deadline:
+            raise TimeoutError(f"waited {timeout:.0f} s for the primary rank "
+                               f"to publish {path}")
+        time.sleep(0.2)
 
 
 def atomic_publish(path: str, write_fn) -> None:
@@ -148,7 +165,7 @@ class SegDatasetBase:
         self.n_pixels_total = int(sum(int(q.sum()) for q in self.queries))
         print(f"# labelled pixels is changed from {previous} to "
               f"{self.n_pixels_total} (delta: {self.n_pixels_total - previous})")
-        if isinstance(nth_query, int):
+        if isinstance(nth_query, int) and is_primary():
             d = f"{self.dir_checkpoints}/{nth_query}_query"
             os.makedirs(d, exist_ok=True)
             with open(f"{d}/queries.pkl", "wb") as f:
@@ -188,7 +205,10 @@ class SegDatasetBase:
                               void_filter: bool = True) -> None:
         """Seeded random non-void initial picks, cached (camvid.py:50-96).
         ``void_filter=False`` samples uniformly over ALL pixels — the
-        custom-dataset semantics (reference custom_dataset.py:66-79)."""
+        custom-dataset semantics (reference custom_dataset.py:66-79).
+        Under data parallelism the primary publishes the file and the other
+        ranks read it."""
+        wait_for_primary_file(path_queries)
         if os.path.isfile(path_queries):
             with open(path_queries, "rb") as f:
                 self.queries = codec.decode_queries(pkl.load(f))

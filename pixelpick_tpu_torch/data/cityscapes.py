@@ -21,7 +21,10 @@ from glob import glob
 import numpy as np
 from PIL import Image
 
-from pixelpick_tpu_torch.data.base import SegDatasetBase, atomic_publish
+from pixelpick_tpu_torch.data.base import (
+    SegDatasetBase, atomic_publish, wait_for_primary_file,
+)
+from pixelpick_tpu_torch.parallel.distributed import is_primary
 
 IGNORE = 19
 # cityscapes labelIds -> 19 train ids (cityscapes.py:137-175)
@@ -80,13 +83,14 @@ class CityscapesDataset(SegDatasetBase):
         factor = ds if not val else 2
         dir_dataset = f"{args.dir_dataset}_d{factor}"
         sentinel = f"{dir_dataset}/.downsample_complete"
-        if not os.path.isfile(sentinel):
+        if is_primary() and not os.path.isfile(sentinel):
             print(f"Downsampling Cityscapes images (x1/{factor})...")
             for split_val in (False, True):
                 make_downsampled_cityscapes(args.dir_dataset,
                                             downsample=factor, val=split_val)
             with open(sentinel, "w") as f:
                 f.write("ok\n")
+        wait_for_primary_file(sentinel, timeout=7200.0)
         mode = "val" if val else "train"
         self.list_inputs = sorted(
             glob(f"{dir_dataset}/leftImg8bit/{mode}/**/*.png"))
@@ -117,12 +121,16 @@ class CityscapesDataset(SegDatasetBase):
                 self.queries = [stacked[i] for i in range(stacked.shape[0])]
                 self.n_pixels_total = int(stacked.sum())
             else:
+                # under data parallelism the other ranks read the
+                # primary's queries.pkl (generate_init_queries)
                 self.generate_init_queries(
                     args.n_pixels_by_us,
                     f"{self.dir_checkpoints}/0_query/queries.pkl")
-                atomic_publish(npy, self._write_npy)
-            atomic_publish(f"{self.dir_checkpoints}/0_query/label.npy",
-                           self._write_npy)
+                if is_primary():
+                    atomic_publish(npy, self._write_npy)
+            if is_primary():
+                atomic_publish(f"{self.dir_checkpoints}/0_query/label.npy",
+                               self._write_npy)
 
     def _write_npy(self, path: str) -> None:
         # np.save appends '.npy' to a bare path, which would break the

@@ -24,17 +24,28 @@ tests can feed it the draws that JAX's keys give. Every function works on
 the whole batch at once. The products run in strict f32 whatever the
 process's TF32 setting, as JAX's run at ``precision="highest"``.
 
-Variable-size datasets (VOC) are not ported yet: ``DevicePipeline`` raises
-for them (ROADMAP.md, Queue 1 item 9).
+Variable-size datasets (VOC; JAX ``_stack_dataset`` :417-440,
+``set_queries`` :447-456) stage each base-resized image zero-padded to the
+set's largest (h, w), labels filled with the ignore index and query masks
+with False, beside an ``hw`` tensor of the true sizes. The warp's
+interpolation matrices span the staging extent, but every tap and every
+nearest tap is clipped to the row's true extent, and the scale and crop
+are drawn from it: the pad region is never read.
+
+Under data parallelism (``parallel/mesh.py``) every rank stages the whole
+set, draws for the whole global batch and augments only its rows.
 """
 
 from __future__ import annotations
 
 import copy
+import math
 from contextlib import contextmanager
 
 import numpy as np
 import torch
+
+from pixelpick_tpu_torch.parallel import distributed, mesh
 
 
 @contextmanager
@@ -51,45 +62,59 @@ def strict_f32():
 
 # --------------------------- geometric warp ---------------------------
 
-def scaled_size(src_len: int, rs: torch.Tensor) -> torch.Tensor:
-    """int(src_len * rs), the scaled extent, computed in f32 as JAX does."""
+def scaled_size(src_len, rs: torch.Tensor) -> torch.Tensor:
+    """int(src_len * rs), the scaled extent, computed in f32 as JAX does.
+    ``src_len``: an int, or (B,) per-row true extents."""
     return torch.floor(src_len * rs).to(torch.int32)
 
 
-def _warp_coords(src_len: int, scaled_len, offset, coords_out):
+def _rows(src_len, ndim: int):
+    """An int as it is; per-row (B,) extents shaped to broadcast against
+    (B, ...) of ``ndim`` dimensions."""
+    if isinstance(src_len, int):
+        return src_len
+    return src_len.reshape(-1, *(1,) * (ndim - 1))
+
+
+def _warp_coords(src_len, scaled_len, offset, coords_out):
     """Output index -> continuous source coordinate through scale and crop
     (JAX ``_warp_coords`` :64-70, the same f32 operations in the same
-    order). ``coords_out`` (n,) or (B, n); ``scaled_len``, ``offset``
-    (B,). Returns (u, pos), both (B, n)."""
+    order). ``coords_out`` (n,) or (B, n); ``src_len`` an int or (B,);
+    ``scaled_len``, ``offset`` (B,). Returns (u, pos), both (B, n)."""
     pos = coords_out.to(torch.float32) + offset.to(torch.float32)[:, None]
     scaled = scaled_len.to(torch.float32)
     # a true division (a number over a tensor is a reciprocal and a product
     # in torch, rounded twice)
-    scale = torch.full_like(scaled, float(src_len)) / scaled
-    return (pos + 0.5) * scale[:, None] - 0.5, pos
+    src = torch.full_like(scaled, float(src_len)) \
+        if isinstance(src_len, int) else src_len.to(torch.float32)
+    return (pos + 0.5) * (src / scaled)[:, None] - 0.5, pos
 
 
-def _tap_weights(u, src_len: int, fscale, n_taps: int = 4):
+def _tap_weights(u, src_len, fscale, n_taps: int = 4):
     """PIL's BILINEAR taps for one axis (JAX ``_tap_weights`` :73-92): the
     triangle filter's support widened by ``fscale = max(1/rs, 1)`` on a
     downscale, taps floor(u)-1 .. floor(u)+2, out-of-image taps dropped and
-    the rest renormalised. Returns (idx clipped, weights), (..., n_taps)."""
+    the rest renormalised. ``src_len``: the true extent, an int or (B,)
+    per row; taps are clipped to it. Returns (idx clipped, weights),
+    (..., n_taps)."""
     base = torch.floor(u).to(torch.int32)
     offs = torch.arange(-1, n_taps - 1, dtype=torch.int32, device=u.device)
     idx = base[..., None] + offs
     dist = (idx.to(torch.float32) - u[..., None]) / fscale[..., None]
     wt = torch.clamp(1.0 - dist.abs(), min=0.0)
-    wt = wt * ((idx >= 0) & (idx < src_len))
+    lim = _rows(src_len, idx.ndim)
+    wt = wt * ((idx >= 0) & (idx < lim))
     wt = wt / torch.clamp(wt.sum(-1, keepdim=True), min=1e-8)
-    return idx.clamp(0, src_len - 1), wt
+    return idx.clamp(min=0).clamp(max=lim - 1), wt
 
 
-def _interp_matrix(u, src_len: int, fscale) -> torch.Tensor:
-    """(B, n, src_len): row i holds output i's tap weights. The in-image
-    taps of a row are distinct, so each entry is one weight (plus zeros of
-    dropped taps) and the build is deterministic."""
+def _interp_matrix(u, src_len, fscale, extent: int) -> torch.Tensor:
+    """(B, n, extent): row i holds output i's tap weights over a staging
+    extent of ``extent`` pixels, the taps clipped to the true ``src_len``.
+    The in-image taps of a row are distinct, so each entry is one weight
+    (plus zeros of dropped taps) and the build is deterministic."""
     idx, wt = _tap_weights(u, src_len, fscale)
-    m = torch.zeros((*u.shape, src_len), dtype=torch.float32, device=u.device)
+    m = torch.zeros((*u.shape, extent), dtype=torch.float32, device=u.device)
     return m.scatter_add_(-1, idx.long(), wt)
 
 
@@ -106,14 +131,19 @@ def _apply_cols(m, x):
     return torch.bmm(m, xt).reshape(b, -1, s, c).permute(0, 2, 1, 3)
 
 
-def warp(x, y, q, draws: dict, crop_hw, *, mean_fill, ignore_index: int):
+def warp(x, y, q, draws: dict, crop_hw, *, mean_fill, ignore_index: int,
+         src_hw=None):
     """Apply each sample's scale, crop and flip (JAX ``warp_sample``).
 
     x uint8 (B, H, W, 3), y int (B, H, W), q bool (B, H, W); ``draws``
-    holds rs (B,) f32, top, left (B,) int and flip (B,) bool. Returns x f32
-    (B, ch, cw, 3) with ``mean_fill`` outside the scaled image, y int32
-    (``ignore_index`` outside) and q bool (False outside)."""
-    _, h, w = x.shape[:3]
+    holds rs (B,) f32, top, left (B,) int and flip (B,) bool. ``src_hw``
+    (B, 2) int: each row's true (h, w) when the arrays are padded to a
+    common staging shape; every tap is clipped to it, so the pad is never
+    read. Returns x f32 (B, ch, cw, 3) with ``mean_fill`` outside the
+    scaled image, y int32 (``ignore_index`` outside) and q bool (False
+    outside)."""
+    _, hs, ws = x.shape[:3]  # the staging extent
+    h, w = (hs, ws) if src_hw is None else (src_hw[:, 0], src_hw[:, 1])
     ch, cw = crop_hw
     dev = x.device
     rs = draws["rs"]
@@ -129,16 +159,18 @@ def warp(x, y, q, draws: dict, crop_hw, *, mean_fill, ignore_index: int):
 
     fscale = torch.clamp(torch.reciprocal(rs), min=1.0)[:, None]
     with strict_f32():
-        xo = _apply_rows(_interp_matrix(u, h, fscale), x.to(torch.float32))
-        xo = _apply_cols(_interp_matrix(v, w, fscale), xo)
+        xo = _apply_rows(_interp_matrix(u, h, fscale, hs),
+                         x.to(torch.float32))
+        xo = _apply_cols(_interp_matrix(v, w, fscale, ws), xo)
     fill = torch.as_tensor(np.asarray(mean_fill, np.float32), device=dev)
     xo = torch.where(inside[..., None], xo, fill)
 
-    un = torch.round(u).to(torch.int64).clamp(0, h - 1)  # half to even
-    vn = torch.round(v).to(torch.int64).clamp(0, w - 1)
+    # half to even, clipped to the true extent
+    un = torch.round(u).to(torch.int64).clamp(min=0).clamp(max=_rows(h, 2) - 1)
+    vn = torch.round(v).to(torch.int64).clamp(min=0).clamp(max=_rows(w, 2) - 1)
 
     def nearest(a):
-        rows = torch.gather(a, 1, un[:, :, None].expand(-1, -1, w))
+        rows = torch.gather(a, 1, un[:, :, None].expand(-1, -1, ws))
         return torch.gather(rows, 2, vn[:, None, :].expand(-1, ch, -1))
 
     yo = torch.where(inside, nearest(y).to(torch.int32), ignore_index)
@@ -313,37 +345,38 @@ class HostCopy:
 
 
 class DevicePipeline:
-    """A uniform-shape train set staged on ``device``, and augmented sparse
-    batches drawn from it (JAX ``DevicePipeline`` :295-490, one device).
+    """A train set staged on ``device``, and augmented sparse batches drawn
+    from it (JAX ``DevicePipeline`` :295-490).
 
     ``pad_multiple``: remainder batches are padded with duplicate indices
-    to a multiple of it (the driver sets the micro-batch size); the pad
-    rows are masked out of ``valid`` and the overflow."""
+    to a multiple of it (the driver sets the micro-batch size), and of the
+    world size too when ``pad_to_devices`` (the driver sets it when the
+    full batches shard, JAX :458-486); the pad rows are masked out of
+    ``valid`` and the overflow. ``micro_bs``: under data parallelism each
+    micro-batch of a megabatch is sharded on its own (0: the batch is one
+    update)."""
 
     def __init__(self, dataset, args, device):
-        if getattr(dataset, "variable_size", False):
-            raise NotImplementedError(
-                "--device_augment on a variable-size dataset (VOC) is not "
-                "ported yet (ROADMAP.md, Queue 1 item 9)")
         self.device = torch.device(device)
         self.pad_multiple = 1
-        n = len(dataset)
+        self.pad_to_devices = False
+        self.micro_bs = 0
+        self.ignore_index = dataset.ignore_index
         # staging reads every image once: keep those reads out of the
         # dataset's host caches, which this path never reads again
         prev_cache = dataset.cache_images
         dataset.cache_images = False
         try:
-            xs = np.stack([dataset._load_x(i) for i in range(n)])
-            ys = np.stack([dataset._load_y(i) for i in range(n)]) \
-                .astype(np.int32)
+            xs, ys, hw = self._stack(dataset)
         finally:
             dataset.cache_images = prev_cache
         self.images = torch.from_numpy(xs).to(self.device)   # uint8
         self.labels = torch.from_numpy(ys).to(self.device)   # int32
+        # the true (h, w) of each staged image of a variable-size set
+        self.hw = None if hw is None else torch.from_numpy(hw).to(self.device)
         self.queries = None
         self.crop_hw = tuple(dataset.crop_size)
         self.k_max = int(dataset.k_max)
-        self.ignore_index = dataset.ignore_index
         self.mean = torch.tensor(np.asarray(args.mean, np.float32),
                                  device=self.device)
         self.std = torch.tensor(np.asarray(args.std, np.float32),
@@ -355,35 +388,68 @@ class DevicePipeline:
         self.blur_kernel = int((0.1 * min(self.crop_hw)) // 2 * 2 + 1) \
             if self.photo.get("random_gaussian_blur", True) else 0
 
+    def _stack(self, dataset):
+        """(images, labels, hw) host stacks. A variable-size set's
+        base-resized images are zero-padded to the largest (h, w), labels
+        with the ignore index, beside their true sizes (JAX
+        ``_stack_dataset``); hw is None for a uniform set."""
+        n = len(dataset)
+        if not getattr(dataset, "variable_size", False):
+            xs = np.stack([dataset._load_x(i) for i in range(n)])
+            ys = np.stack([dataset._load_y(i) for i in range(n)])
+            return xs, ys.astype(np.int32), None
+        samples = []
+        for i in range(n):
+            x, y = dataset._base_resized(i)
+            samples.append((np.asarray(x, np.uint8), np.asarray(y, np.int32)))
+        hw = np.array([x.shape[:2] for x, _ in samples], np.int32)
+        sh, sw = hw.max(0)
+        xs = np.zeros((n, sh, sw, 3), np.uint8)
+        ys = np.full((n, sh, sw), self.ignore_index, np.int32)
+        for i, (x, y) in enumerate(samples):
+            xs[i, :x.shape[0], :x.shape[1]] = x
+            ys[i, :y.shape[0], :y.shape[1]] = y
+        return xs, ys, hw
+
     @property
     def staged_bytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in
-                   (self.images, self.labels, self.queries) if t is not None)
+                   (self.images, self.labels, self.queries, self.hw)
+                   if t is not None)
 
     def to(self, device) -> "DevicePipeline":
         """A copy whose staged tensors lie on ``device`` (to hold the card's
         batches against the CPU's on the same draws)."""
         out = copy.copy(self)
         out.device = torch.device(device)
-        for k in ("images", "labels", "queries", "mean", "std"):
+        for k in ("images", "labels", "queries", "hw", "mean", "std"):
             t = getattr(self, k)
             setattr(out, k, None if t is None else t.to(out.device))
         return out
 
     def set_queries(self, queries_list) -> None:
-        self.queries = torch.from_numpy(np.stack(queries_list)).to(
-            self.device)
+        """Stage the query masks; a variable-size set's padded to the
+        staging shape with False (JAX ``set_queries`` :447-456)."""
+        if self.hw is None:
+            qs = np.stack(queries_list)
+        else:
+            qs = np.zeros((len(queries_list), *self.images.shape[1:3]), bool)
+            for i, q in enumerate(queries_list):
+                qs[i, :q.shape[0], :q.shape[1]] = q
+        self.queries = torch.from_numpy(qs).to(self.device)
 
-    def draw(self, n: int, generator: torch.Generator) -> dict:
+    def draw(self, n: int, generator: torch.Generator, hw=None) -> dict:
         """Each sample's draws, on the device: every draw is made whatever
-        the gates, so a batch consumes the same stream in every mode."""
+        the gates, so a batch consumes the same stream in every mode.
+        ``hw`` (n, 2): the samples' true sizes, from which the crop
+        offsets are drawn (default: the staged extent)."""
         dev = self.device
 
         def uniform(lo=0.0, hi=1.0, shape=(n,)):
             return lo + (hi - lo) * torch.rand(shape, generator=generator,
                                                device=dev)
 
-        h, w = self.images.shape[1:3]
+        h, w = self.images.shape[1:3] if hw is None else (hw[:, 0], hw[:, 1])
         ch, cw = self.crop_hw
         bf, cf, sf, hf = self.jitter
         d = {"rs": uniform(0.5, 2.0), "u_top": uniform(), "u_left": uniform(),
@@ -410,41 +476,60 @@ class DevicePipeline:
         return d
 
     def augment(self, indices: torch.Tensor, draws: dict,
-                n_real: int) -> dict:
-        """The batch of ``indices`` (device int64) under ``draws``; rows from
-        ``n_real`` on are padding. Returns x normalised f32 (B, ch, cw, 3),
-        coords, labels, valid (pad rows False) and overflow (a device
-        scalar over the real rows)."""
+                real: torch.Tensor) -> dict:
+        """The batch of ``indices`` (device int64) under ``draws``; ``real``
+        (B,) bool marks the rows that are not padding. Returns x normalised
+        f32 (B, ch, cw, 3), coords, labels, valid (pad rows False) and
+        overflow (a device scalar over the real rows)."""
         xa, ya, qa = warp(self.images[indices], self.labels[indices],
                           self.queries[indices], draws, self.crop_hw,
                           mean_fill=self.mean_fill,
-                          ignore_index=self.ignore_index)
+                          ignore_index=self.ignore_index,
+                          src_hw=None if self.hw is None
+                          else self.hw[indices])
         xa = photometric(xa, draws, blur_kernel=self.blur_kernel,
                          enabled=self.photo)
         xn = (xa / 255.0 - self.mean) / self.std
         coords, labels, valid, over = sparse_coords(
             qa, ya, self.ignore_index, self.k_max)
-        real = torch.arange(len(indices), device=self.device) < n_real
         valid = valid & real[:, None]
         return {"x": xn, "coords": coords, "labels": labels, "valid": valid,
                 "overflow": (over * real).sum()}
 
     def sample_batch(self, indices, generator: torch.Generator) -> dict:
         """An augmented batch of the dataset ``indices``, padded to a
-        multiple of ``pad_multiple`` with copies of the last index. Besides
-        ``augment``'s keys: ``n_real``, and ``rows_real``, a ``HostCopy`` of
-        which rows hold a valid pick, for the micro-batch step's no-op
+        multiple of ``pad_multiple`` (and of the world size when
+        ``pad_to_devices``) with copies of the last index. Under data
+        parallelism the draws are the whole padded batch's, and only this
+        rank's rows are augmented (``parallel/mesh.py:megabatch_rows``).
+        Besides ``augment``'s keys: ``n_real``; ``global_rows``, the padded
+        batch's row count; ``shard``, this rank's rows of a one-update
+        batch (None: all); and ``rows_real``, a ``HostCopy`` of which of
+        the rank's rows hold a valid pick, for the micro-batch step's no-op
         rule."""
         if self.queries is None:
             raise RuntimeError("DevicePipeline.set_queries() was not called")
         indices = np.array(indices, np.int64)  # a copy: any strides
         n_real = len(indices)
-        target = -(-n_real // self.pad_multiple) * self.pad_multiple
+        mult = self.pad_multiple
+        if self.pad_to_devices:
+            mult = math.lcm(mult, distributed.world_size())
+        target = -(-n_real // mult) * mult
         if target != n_real:
             indices = np.concatenate(
                 [indices, np.repeat(indices[-1:], target - n_real)])
         idx = torch.from_numpy(indices).to(self.device)
-        batch = self.augment(idx, self.draw(len(indices), generator), n_real)
-        batch["n_real"] = n_real
-        batch["rows_real"] = HostCopy(batch["valid"].any(1))
+        draws = self.draw(target, generator) if self.hw is None \
+            else self.draw(target, generator, self.hw[idx])
+        pos, shard = mesh.megabatch_rows(target, self.micro_bs or target)
+        rows = torch.arange(target, device=self.device)
+        if pos is not None:
+            rows = torch.from_numpy(pos).to(self.device)
+            idx, draws = idx[rows], {k: v[rows] for k, v in draws.items()}
+        batch = self.augment(idx, draws, rows < n_real)
+        if pos is not None:  # the global batch's overflow
+            torch.distributed.all_reduce(batch["overflow"])
+        batch.update(n_real=n_real, global_rows=target,
+                     shard=None if self.micro_bs else shard,
+                     rows_real=HostCopy(batch["valid"].any(1)))
         return batch

@@ -40,8 +40,9 @@ from pixelpick_tpu_torch.data.augment import (
 )
 from pixelpick_tpu_torch.data.base import (
     SegDatasetBase, atomic_publish, extract_sparse_from_map,
-    extract_sparse_labels,
+    extract_sparse_labels, wait_for_primary_file,
 )
+from pixelpick_tpu_torch.parallel.distributed import is_primary
 
 
 def compute_base_size(h: int, w: int, size_base: int) -> Tuple[int, int]:
@@ -116,6 +117,7 @@ class VOC2012Segmentation(SegDatasetBase):
         init_n = args.n_init_pixels if args.n_init_pixels > 0 else n_px
         if n_px != 0 and not val and generate_init_queries:
             path = f"{args.dir_dataset}/init_labelled_pixels_{self.seed}.pkl"
+            wait_for_primary_file(path)  # data parallelism: the primary writes
             if os.path.isfile(path):
                 with open(path, "rb") as f:
                     self.queries = pkl.load(f)
@@ -161,7 +163,7 @@ class VOC2012Segmentation(SegDatasetBase):
         self.queries = [np.logical_or(q, m)
                         for q, m in zip(queries, self.queries)]
         self.n_pixels_total = int(sum(int(q.sum()) for q in self.queries))
-        if isinstance(nth_query, int):
+        if isinstance(nth_query, int) and is_primary():
             d = f"{self.dir_checkpoints}/{nth_query}_query"
             os.makedirs(d, exist_ok=True)
             self._write_queries(f"{d}/label.pkl")

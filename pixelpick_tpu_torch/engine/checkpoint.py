@@ -18,6 +18,11 @@ Counterpart of ``pixelpick_tpu/engine/checkpoint.py``.
   step count), the dropout generator's state, the completed epoch and the
   best validation mIoU. A snapshot the JAX package wrote (a msgpack map,
   whose optax state has another layout) is refused, not mis-loaded.
+
+Under data parallelism (``parallel/distributed.py``) only the primary
+rank writes (JAX ``checkpoint.py:92``), and every load waits at a barrier
+first, so that no rank reads a file the primary is still writing. Every
+rank holds the same weights, optimizer state and dropout generator.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 from pixelpick_tpu_torch.engine.flax_msgpack import (
     is_msgpack_map, msgpack_restore,
 )
+from pixelpick_tpu_torch.parallel import distributed
 
 TORCH_ZIP = b"PK\x03\x04"
 STAGE_STATE_FORMAT = "pixelpick_tpu_torch.stage_state/1"
@@ -41,6 +47,8 @@ def _head(path: str) -> bytes:
 
 
 def save_checkpoint(path: str, model: torch.nn.Module) -> None:
+    if not distributed.is_primary():
+        return
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     torch.save({"model": state}, path)
@@ -50,6 +58,7 @@ def load_checkpoint(path: str, model: torch.nn.Module) -> torch.nn.Module:
     """Load a best-model file into ``model`` (strict): the torch
     ``{"model": state_dict}`` format, or a JAX msgpack
     ``{"params", "batch_stats"}`` file."""
+    distributed.barrier()
     if not os.path.isfile(path) \
             and os.path.isdir(os.path.abspath(path) + ".orbax"):
         raise NotImplementedError(
@@ -83,6 +92,8 @@ def save_stage_state(path: str, model: torch.nn.Module, optimizer,
                      best_miou: float) -> None:
     """Write the mid-stage snapshot to a tmp file and rename it into place,
     so that a crash mid-save keeps the previous one."""
+    if not distributed.is_primary():
+        return
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     payload = {
         "format": STAGE_STATE_FORMAT,
@@ -101,6 +112,7 @@ def load_stage_state(path: str, model: torch.nn.Module, optimizer,
                      generator: torch.Generator) -> Tuple[int, float]:
     """Restore a ``save_stage_state`` snapshot into a freshly built model,
     optimizer and generator; returns ``(epoch, best_miou)``."""
+    distributed.barrier()
     head = _head(path)
     if is_msgpack_map(head):
         raise NotImplementedError(

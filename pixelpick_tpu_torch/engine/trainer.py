@@ -18,6 +18,14 @@ Counterpart of ``pixelpick_tpu/engine/trainer.py``:
   over the full-resolution label map (``trainer.py:229-255``);
 - :func:`make_eval_step`: full-resolution argmax and confusion matrix, and
   one image's visualisation maps (``trainer.py:256-293``).
+
+Data parallelism (``parallel/mesh.py``): a step given a ``shard`` holds
+that rank's rows of the global batch. The loss divides by the global valid
+count, the gradients are summed over the ranks once per update (one flat
+buffer) before the optimizer adds its weight decay, and the loss and the
+confusion matrix returned are the global batch's. Averaging per-rank mean
+losses, ``DistributedDataParallel``'s rule, would be wrong whenever the
+ranks' valid counts differ (remainder pads, void pixels, human labels).
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from pixelpick_tpu_torch.ops.resize import (
     resize_align_corners,
 )
 from pixelpick_tpu_torch.ops.uncertainty import vis_maps
+from pixelpick_tpu_torch.parallel import mesh
 from pixelpick_tpu_torch.utils.metrics import confusion_matrix
 
 # the batch keys the sparse train step reads
@@ -74,7 +83,8 @@ def sparse_ce_and_hist(logits_lr, coords, labels, valid, full_hw,
     safe = labels.long().clamp(0, n_classes - 1)
     ll = torch.gather(logp, -1, safe[..., None])[..., 0]
     validf = valid.float()
-    n_valid = validf.sum().clamp(min=1)
+    # under a row shard, the global batch's count (trainer.py:55-83)
+    n_valid = mesh.reduce_sum(validf.sum()).clamp(min=1)
     loss = -(ll * validf).sum() / n_valid
     hist = confusion_matrix(torch.where(valid, labels.long(),
                                         torch.full_like(labels.long(), -1)),
@@ -88,27 +98,40 @@ def batch_to_device(batch: dict, device) -> dict:
             for k, v in batch.items()}
 
 
+def _update(model, optimizer, loss, shard) -> None:
+    """Backward and one optimizer update; under a row shard the gradients
+    are summed over the ranks first, so the weight decay the optimizer
+    adds to them is counted once."""
+    optimizer.zero_grad()
+    loss.backward()
+    if shard is not None:
+        mesh.all_reduce_grads(model.parameters())
+    optimizer.step()
+
+
 def make_train_step(model, optimizer, *, n_classes: int, mean, std,
                     normalize: bool = True,
                     gather_impl: str = "matmul") -> Callable:
     """Sparse-label train step. batch (device tensors): x uint8 (B, H, W, 3),
     or with ``normalize=False`` the normalised f32 of the device pipeline
     (``data/device_pipeline.py``; ``trainer.py:125-133``), coords (B, K, 2),
-    labels (B, K), valid (B, K). Returns (loss, hist), both on the
-    device."""
+    labels (B, K), valid (B, K); with ``shard`` (``parallel/mesh.py:
+    RowShard``) this rank's rows of the global batch. Returns (loss, hist)
+    of the global batch, both on the device."""
 
-    def train_step(batch):
+    def train_step(batch, shard=None):
         model.train()
-        x = normalize_images(batch["x"], mean, std) if normalize \
-            else batch["x"]
-        out = model(x, upsample=False)
-        loss, hist = sparse_ce_and_hist(
-            out["pred"], batch["coords"], batch["labels"], batch["valid"],
-            batch["x"].shape[1:3], n_classes, gather_impl=gather_impl)
-        optimizer.zero_grad()
-        loss.backward()
-        optimizer.step()
-        return loss.detach(), hist
+        with mesh.sharded(shard):
+            x = normalize_images(batch["x"], mean, std) if normalize \
+                else batch["x"]
+            out = model(x, upsample=False)
+            loss, hist = sparse_ce_and_hist(
+                out["pred"], batch["coords"], batch["labels"],
+                batch["valid"], batch["x"].shape[1:3], n_classes,
+                gather_impl=gather_impl)
+            _update(model, optimizer, loss, shard)
+            return mesh.reduce_sum(loss.detach().clone()), \
+                mesh.reduce_sum(hist)
 
     return train_step
 
@@ -147,18 +170,24 @@ def make_microbatch_train_step(model, optimizer, *, micro_bs: int,
                            gather_impl=gather_impl)
 
     def train_step(batch):
-        b = batch["x"].shape[0]
+        device = next(model.parameters()).device
+        b = batch.get("global_rows", batch["x"].shape[0])
         if b % micro_bs:
             raise ValueError(f"a megabatch of {b} rows is not a multiple of "
                              f"the micro-batch size {micro_bs}")
-        device = next(model.parameters()).device
-        if "rows_real" in batch:
-            rows = batch["rows_real"].get()
+        # under data parallelism each micro-batch is sharded on its own
+        pos, shard = mesh.megabatch_rows(b, micro_bs)
+        if "rows_real" in batch:  # a device batch holds this rank's rows
+            rows = mesh.gather_rows(batch["rows_real"].get(), pos, b)
             dev = {k: batch[k] for k in SPARSE_KEYS}
         else:
             rows = batch["valid"].any(1)
-            dev = batch_to_device(batch, device)
+            dev = batch_to_device(batch if pos is None else
+                                  {k: v[pos] for k, v in batch.items()},
+                                  device)
+        # every rank decides the no-ops from the global batch's flags
         any_real = rows.reshape(b // micro_bs, -1).any(1)
+        per = micro_bs if shard is None else shard.hi - shard.lo
         losses = []
         hist = torch.zeros((n_classes, n_classes), dtype=torch.long,
                            device=device)
@@ -166,8 +195,8 @@ def make_microbatch_train_step(model, optimizer, *, micro_bs: int,
             if not real:
                 losses.append(torch.full((), float("nan"), device=device))
                 continue
-            rows = slice(m * micro_bs, (m + 1) * micro_bs)
-            loss, h = step({k: v[rows] for k, v in dev.items()})
+            rows = slice(m * per, (m + 1) * per)
+            loss, h = step({k: v[rows] for k, v in dev.items()}, shard)
             losses.append(loss)
             hist = hist + h
         return torch.stack(losses), hist
@@ -185,27 +214,31 @@ def make_dense_train_step(model, optimizer, *, n_classes: int,
     max(their count, 1); the full-resolution confusion matrix; then the
     optimizer update. JAX calls the model with ``upsample=True``, which
     also resizes the embedding the loss never reads; here ``pred`` alone
-    is resized, so loss and gradients are the same. Returns (loss, hist) on
+    is resized, so loss and gradients are the same. ``shard``: as
+    :func:`make_train_step`. Returns (loss, hist) of the global batch on
     the device."""
 
-    def train_step(batch):
+    def train_step(batch, shard=None):
         model.train()
-        x = normalize_images(batch["x"], mean, std)
-        logits = model(x, upsample=False)["pred"].float()
-        if logits.shape[1:3] != x.shape[1:3]:
-            logits = resize_align_corners(logits, x.shape[1:3])
-        y = batch["y"].long()
-        valid = (y != ignore_index) & (y >= 0) & (y < n_classes)
-        logp = torch.log_softmax(logits, -1)
-        ll = torch.gather(logp, -1, y.clamp(0, n_classes - 1)[..., None])
-        validf = valid.float()
-        loss = -(ll[..., 0] * validf).sum() / validf.sum().clamp(min=1)
-        hist = confusion_matrix(torch.where(valid, y, torch.full_like(y, -1)),
-                                logits.argmax(-1), n_classes)
-        optimizer.zero_grad()
-        loss.backward()
-        optimizer.step()
-        return loss.detach(), hist
+        with mesh.sharded(shard):
+            x = normalize_images(batch["x"], mean, std)
+            logits = model(x, upsample=False)["pred"].float()
+            if logits.shape[1:3] != x.shape[1:3]:
+                logits = resize_align_corners(logits, x.shape[1:3])
+            y = batch["y"].long()
+            valid = (y != ignore_index) & (y >= 0) & (y < n_classes)
+            logp = torch.log_softmax(logits, -1)
+            ll = torch.gather(logp, -1,
+                              y.clamp(0, n_classes - 1)[..., None])
+            validf = valid.float()
+            n_valid = mesh.reduce_sum(validf.sum()).clamp(min=1)
+            loss = -(ll[..., 0] * validf).sum() / n_valid
+            hist = confusion_matrix(
+                torch.where(valid, y, torch.full_like(y, -1)),
+                logits.argmax(-1), n_classes)
+            _update(model, optimizer, loss, shard)
+            return mesh.reduce_sum(loss.detach().clone()), \
+                mesh.reduce_sum(hist)
 
     return train_step
 
@@ -215,10 +248,12 @@ def make_eval_step(model, *, n_classes: int, mean, std) -> Callable:
     Returns (hist, pred, vis) with ``vis`` the visualisation maps of image
     ``vis_index``, all on the device. ``valid_hw`` crops the logits to the
     unpadded size of an x padded to a stride multiple (``trainer.py:
-    256-293``; ``active/driver.py:pad_to_stride``)."""
+    256-293``; ``active/driver.py:pad_to_stride``). With ``shard`` the
+    batch is this rank's rows and ``hist`` the global batch's; ``pred``
+    and ``vis`` stay the rank's."""
 
     @torch.no_grad()
-    def eval_step(batch, vis_index: int = 0, valid_hw=None):
+    def eval_step(batch, vis_index: int = 0, valid_hw=None, shard=None):
         model.eval()
         x = normalize_images(batch["x"], mean, std)
         logits = model(x, upsample=False)["pred"].float()
@@ -228,6 +263,8 @@ def make_eval_step(model, *, n_classes: int, mean, std) -> Callable:
             logits = logits[:, :valid_hw[0], :valid_hw[1]]
         pred = logits.argmax(-1)
         hist = confusion_matrix(batch["y"], pred, n_classes)
+        with mesh.sharded(shard):
+            hist = mesh.reduce_sum(hist)
         return hist, pred, vis_maps(logits[vis_index:vis_index + 1])
 
     return eval_step

@@ -20,6 +20,7 @@ from pixelpick_tpu_torch.models.fpn import FPNSeg
 from pixelpick_tpu_torch.models.layers import (
     Conv1x1, Conv2d, PallasDepthwise, he_normal_fan_in_,
 )
+from pixelpick_tpu_torch.parallel import distributed
 
 
 def resolve_device(name) -> torch.device:
@@ -71,6 +72,14 @@ def get_model(args, device=None, seed=None) -> torch.nn.Module:
     # convolutions (on by default) nor in matmuls
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    world = distributed.world_size()
+    if getattr(args, "fused_ir", False) and world > 1:
+        # the JAX package's rule (pixelpick_tpu/models/factory.py:15-22):
+        # its fused kernels have no partitioning rule under a mesh
+        raise ValueError(
+            "--fused_ir is single-device only, as in the JAX package (a "
+            f"pallas_call has no partitioning rule): {world} ranks. Drop "
+            "the flag or run on one card.")
     bn_groups = int(getattr(args, "bn_group_size", 0) or 0)
     if args.network_name == "FPN":
         model = FPNSeg(n_classes=args.n_classes, n_layers=args.n_layers,

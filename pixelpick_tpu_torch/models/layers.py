@@ -8,7 +8,9 @@ same memory with no transposes.
 
 Parameters and BatchNorm statistics stay f32; each conv casts its input and
 weight to the compute ``dtype`` and BatchNorm casts its output to it, as the
-JAX modules do (``layers.py:81-83``, ``:134-136``, ``:304-318``). Parameter
+JAX modules do (``layers.py:81-83``, ``:134-136``, ``:304-318``). Under data
+parallelism (``parallel/mesh.py``) the train-mode BatchNorm groups and the
+dropout draws are the global batch's. Parameter
 and buffer names follow the reference's torch modules (``weight``, ``bias``,
 ``running_mean``, ``running_var``, ``num_batches_tracked``).
 
@@ -25,10 +27,12 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed.nn.functional as dist_nn
 import torch.nn as nn
 import torch.nn.functional as F
 
 from pixelpick_tpu_torch.ops.depthwise import depthwise_conv3x3
+from pixelpick_tpu_torch.parallel import distributed, mesh
 
 
 def he_normal_fan_in_(weight: torch.Tensor, generator: torch.Generator) -> None:
@@ -39,23 +43,50 @@ def he_normal_fan_in_(weight: torch.Tensor, generator: torch.Generator) -> None:
         weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
 
 
+def group_size(groups: int, b: int) -> int:
+    """The ghost-BN group of a batch of ``b`` rows: ``groups``, or the whole
+    batch when it does not divide it."""
+    return groups if 0 < groups < b and b % groups == 0 else b
+
+
 def ghost_bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                    groups: int, eps: float, dtype):
     """Train-mode (ghost) BatchNorm of NCHW ``x`` (``layers.py:22-38``):
     contiguous groups of ``groups`` samples, or the whole batch when
     ``groups`` does not divide it; f32 fast variance max(0, E[x^2] -
     E[x]^2). Returns (y in ``dtype``, mu, var) with mu/var (n_groups, C)
-    f32."""
-    b = x.shape[0]
-    g = groups if 0 < groups < b and b % groups == 0 else b
-    xf = x.float().reshape(b // g, g, *x.shape[1:])
-    mu = xf.mean((1, 3, 4))
-    mu2 = (xf * xf).mean((1, 3, 4))
+    f32.
+
+    Under a row shard (``parallel/mesh.py:sharded``) ``x`` is this rank's
+    rows of the global batch, and the groups are the global batch's, as
+    JAX traces the global shape. A group within the rank's rows is
+    computed here, with no collective, and mu/var are the rank's groups;
+    groups that span ranks take their sums of x and x^2 from a
+    differentiable all-reduce (its backward reduces the gradient terms as
+    well), and mu/var are every group's."""
+    shard = mesh.current_shard()
+    lo, b = (0, x.shape[0]) if shard is None else (shard.lo, shard.rows)
+    g = group_size(groups, b)
+    xf = x.float()
+    # each row's group among those mu and var hold
+    group = torch.arange(lo, lo + x.shape[0], device=x.device) // g
+    if shard is None or (x.shape[0] % g == 0 and lo % g == 0):
+        xg = xf.reshape(x.shape[0] // g, g, *x.shape[1:])
+        mu = xg.mean((1, 3, 4))
+        mu2 = (xg * xg).mean((1, 3, 4))
+        group = group - lo // g
+    else:
+        # each row's f32 sums, added across rows and ranks in f64, so that
+        # the moments round once, as the local groups' means do
+        rows = torch.stack([xf.sum((2, 3)), (xf * xf).sum((2, 3))], 1)
+        sums = torch.zeros((b // g, 2, x.shape[1]), dtype=torch.float64,
+                           device=x.device).index_add(0, group, rows.double())
+        sums = dist_nn.all_reduce(sums) / (g * x.shape[2] * x.shape[3])
+        mu, mu2 = sums[:, 0].float(), sums[:, 1].float()
     var = torch.maximum(torch.zeros((), device=x.device), mu2 - mu * mu)
-    exp = (slice(None), None, slice(None), None, None)
-    mul = torch.rsqrt(var + eps)[exp] * scale.view(1, 1, -1, 1, 1)
-    y = (xf - mu[exp]) * mul + bias.view(1, 1, -1, 1, 1)
-    return y.reshape(x.shape).to(dtype), mu, var
+    mul = (torch.rsqrt(var + eps) * scale)[group][..., None, None]
+    y = (xf - mu[group][..., None, None]) * mul + bias.view(1, -1, 1, 1)
+    return y.to(dtype), mu, var
 
 
 class BatchNorm(nn.Module):
@@ -82,11 +113,20 @@ class BatchNorm(nn.Module):
     @torch.no_grad()
     def update_running_stats(self, mu: torch.Tensor, var: torch.Tensor,
                              momentum: float = 0.9) -> None:
-        """EMA of the group-mean moments, as ``_BNCore``/``FusedIRBlock._ema``."""
+        """EMA of the group-mean moments, as ``_BNCore``/``FusedIRBlock._ema``.
+        Under a row shard whose groups lie within the ranks, ``mu``/``var``
+        are this rank's groups: their means are averaged over the ranks, so
+        every rank keeps the same statistics."""
+        m, v = mu.mean(0), var.mean(0)
+        shard = mesh.current_shard()
+        if shard is not None and mu.shape[0] \
+                < shard.rows // group_size(self.groups, shard.rows):
+            m, v = mesh.reduce_sum(torch.stack([m, v])) \
+                / distributed.world_size()
         self.running_mean.copy_(momentum * self.running_mean
-                                + (1 - momentum) * mu.mean(0))
+                                + (1 - momentum) * m)
         self.running_var.copy_(momentum * self.running_var
-                               + (1 - momentum) * var.mean(0))
+                               + (1 - momentum) * v)
         self.num_batches_tracked += 1
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -134,7 +174,8 @@ class Dropout(nn.Module):
         if not (self.training if active is None else active) or self.p == 0:
             return x
         shape = (*x.shape[:2], 1, 1) if self.broadcast_hw else x.shape
-        u = torch.rand(shape, generator=self.generator, device=x.device)
+        # the global batch's draw, sliced to this rank's rows
+        u = mesh.rand_rows(shape, self.generator, x.device)
         keep = u < 1.0 - self.p
         return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
 

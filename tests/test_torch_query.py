@@ -119,12 +119,12 @@ def test_query_cli_human_mode(tmp_path):
 
 def test_flag_surface_matches_jax():
     """Every flag of the JAX package, with the same default and choices,
-    plus the port's own --device."""
+    plus the port's own --device and --dist_backend."""
     def actions(parser):
         return {a.dest: a for a in parser._actions if a.dest != "help"}
 
     ours, ref = actions(config.build_parser()), actions(jax_build_parser())
-    assert set(ours) == set(ref) | {"device"}
+    assert set(ours) == set(ref) | {"device", "dist_backend"}
     for dest, a in ref.items():
         assert ours[dest].option_strings == a.option_strings, dest
         assert ours[dest].default == a.default, dest
@@ -136,12 +136,12 @@ def test_flag_surface_matches_jax():
     ["--network_name", "FPN", "--s2d_backbone", "true"],
     ["--s2d_backbone", "true"],
     ["--s2d_backbone", "1"], ["--conv3x3_matmul"],
-    ["--spatial_query_sharding"], ["--dist_coordinator", "localhost:1"],
-    ["--data_parallel", "2"], ["--dataset_name", "voc", "--device_augment"],
-    ["--dataset_name", "voc", "--network_name", "FPN", "--device_augment"],
-    ["--network_name", "FPN", "--dataset_name", "cs", "--data_parallel",
-     "2"],
-    ["--dataset_name", "voc", "--n_pixels_by_us", "0", "--device_augment"]])
+    ["--spatial_query_sharding"],
+    ["--spatial_query_sharding", "--data_parallel", "2"],
+    ["--dataset_name", "voc", "--spatial_query_sharding"],
+    ["--network_name", "FPN", "--conv3x3_matmul", "--data_parallel", "2"],
+    ["--dataset_name", "voc", "--device_augment", "--s2d_backbone", "true"],
+    ["--dist_coordinator", "localhost:1", "--spatial_query_sharding"]])
 def test_unported_flags_raise(flags):
     args = config.build_parser().parse_args(flags)
     with pytest.raises(NotImplementedError, match="ROADMAP|Queue"):
@@ -160,12 +160,18 @@ def test_unported_flags_raise(flags):
                                 "cs"],
     ["--dataset_name", "voc", "--n_pixels_by_us", "0"],
     ["--dataset_name", "voc", "--network_name", "FPN", "--fused_ir",
-     "--pallas_dw"]])
+     "--pallas_dw"],
+    ["--dist_coordinator", "localhost:1"], ["--data_parallel", "2"],
+    ["--dataset_name", "voc", "--device_augment"],
+    ["--dataset_name", "voc", "--network_name", "FPN", "--device_augment"],
+    ["--network_name", "FPN", "--dataset_name", "cs", "--data_parallel",
+     "2"],
+    ["--dataset_name", "voc", "--n_pixels_by_us", "0", "--device_augment"]])
 def test_ported_round_modes_pass(flags):
     """The micro-batch step, the dense step, the MC-dropout committee, the
     pretrained overlay, stage snapshots, the campaign fast-forward, the
-    Cityscapes and VOC datasets, the FPN and device augmentation (not on
-    VOC) are ported: their flags pass the check."""
+    Cityscapes and VOC datasets, the FPN, device augmentation (VOC's too)
+    and data parallelism are ported: their flags pass the check."""
     config.check_supported(config.build_parser().parse_args(flags))
 
 

@@ -1,0 +1,202 @@
+"""One rank of the port's data-parallel tests (tests/test_torch_distributed.py).
+
+    python tests/torch_dist_worker.py SPEC RANK WORLD PORT OUT
+
+joins a gloo world of WORLD CPU processes on localhost:PORT, runs every
+scenario of the pickled SPEC and, on rank 0, pickles the results to OUT.
+The same scenario functions run in the test process at world size 1, as the
+single-process reference. Imports torch and the port only (no JAX).
+"""
+
+import os
+import pickle
+import sys
+from types import SimpleNamespace
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+from pixelpick_tpu_torch.config import default_args  # noqa: E402
+from pixelpick_tpu_torch.engine import optim, trainer  # noqa: E402
+from pixelpick_tpu_torch.models import layers  # noqa: E402
+from pixelpick_tpu_torch.models.deeplab import DeepLab  # noqa: E402
+from pixelpick_tpu_torch.parallel import distributed, mesh  # noqa: E402
+
+N_CLASSES, WIDTH = 11, 0.5
+MEAN, STD = (0.41, 0.43, 0.44), (0.28, 0.29, 0.29)
+
+
+def build_model(weights, bn_groups: int, dropout: bool):
+    """The width-0.5 DeepLab at ``weights``; with ``dropout`` its dropouts
+    draw from a generator seeded 7, else they are off (p = 0)."""
+    model = DeepLab(N_CLASSES, width_mult=WIDTH, bn_groups=bn_groups)
+    model.load_state_dict(weights)
+    for m in model.modules():
+        if isinstance(m, layers.Dropout) and not dropout:
+            m.p = 0.0
+    model.set_dropout_generator(torch.Generator().manual_seed(7))
+    return model.to(memory_format=torch.channels_last)
+
+
+def sgd(model):
+    """The train-step tests' SGD (coupled weight decay 5e-4, momentum
+    0.9), MultiStep schedule."""
+    args = default_args(device="cpu")
+    args.optimizer_type, args.lr_scheduler_type = "SGD", "MultiStepLR"
+    args.optimizer_params = {"lr": 5e-4}
+    return optim.make_optimizer(args, model, 5)
+
+
+def _state(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def run_step(sc) -> dict:
+    """One sparse step on the global host batch, this rank's rows; the
+    loss, confusion matrix, every gradient (after the reduction) and the
+    state after the update."""
+    model = build_model(sc["weights"], sc["bn_groups"], sc["dropout"])
+    step = trainer.make_train_step(model, sgd(model), n_classes=N_CLASSES,
+                                   mean=MEAN, std=STD)
+    batch = sc["batch"]
+    shard = mesh.row_shard(batch["x"].shape[0])
+    loss, hist = step(trainer.batch_to_device(mesh.shard_batch(batch, shard),
+                                              "cpu"), shard)
+    grads = {n: torch.zeros_like(p) if p.grad is None else p.grad.clone()
+             for n, p in model.named_parameters()}
+    return {"loss": float(loss), "hist": hist.numpy(), "grads": grads,
+            "state": _state(model)}
+
+
+def run_bn(sc) -> dict:
+    """The train-mode ghost BatchNorm alone on this rank's rows of
+    ``sc["x"]`` (B, C, H, W), groups of ``sc["groups"]``: y, the moments,
+    and the gradients of sum(y * sc["w"]) for x (every row, gathered)
+    and for the scale and bias (summed over the ranks)."""
+    x = torch.from_numpy(sc["x"])
+    shard = mesh.row_shard(x.shape[0])
+    lo, hi = (0, x.shape[0]) if shard is None else shard[:2]
+    xl = x[lo:hi].clone().requires_grad_()
+    scale = torch.nn.Parameter(torch.from_numpy(sc["scale"]))
+    bias = torch.nn.Parameter(torch.from_numpy(sc["bias"]))
+    with mesh.sharded(shard):
+        y, mu, var = layers.ghost_bn_train(xl, scale, bias, sc["groups"],
+                                           1e-5, torch.float32)
+    (y * torch.from_numpy(sc["w"])[lo:hi]).sum().backward()
+    if shard is not None:
+        mesh.all_reduce_grads([scale, bias])
+    rows = distributed.all_gather_object((y.detach(), xl.grad))
+    return {"y": torch.cat([r[0] for r in rows]),
+            "dx": torch.cat([r[1] for r in rows]), "mu": mu.detach(),
+            "var": var.detach(), "dscale": scale.grad, "dbias": bias.grad}
+
+
+def run_micro(sc) -> dict:
+    """The micro-batch step over a host megabatch (each micro-batch
+    sharded on its own): the losses, the confusion matrix, the update
+    count and the state after it."""
+    model = build_model(sc["weights"], sc["bn_groups"], sc["dropout"])
+    opt = sgd(model)
+    step = trainer.make_microbatch_train_step(
+        model, opt, micro_bs=sc["micro"], n_classes=N_CLASSES, mean=MEAN,
+        std=STD)
+    losses, hist = step(sc["batch"])
+    return {"losses": losses.numpy(), "hist": hist.numpy(),
+            "updates": opt.step_count, "state": _state(model)}
+
+
+def run_eval(sc) -> dict:
+    """The validation step as the driver runs it: under data parallelism
+    the remainder pads to the full batch with ignore-labelled rows."""
+    model = build_model(sc["weights"], 0, False).eval()
+    eval_fn = trainer.make_eval_step(model, n_classes=N_CLASSES, mean=MEAN,
+                                     std=STD)
+    feed = sc["batch"]
+    if distributed.world_size() > 1:
+        feed, _ = mesh.pad_batch_to_devices(feed, pad_label=N_CLASSES,
+                                            target_rows=sc["rows"])
+    shard = mesh.row_shard(feed["x"].shape[0])
+    hist, _, _ = eval_fn(trainer.batch_to_device(
+        mesh.shard_batch(feed, shard), "cpu"), shard=shard)
+    return {"hist": hist.numpy()}
+
+
+def run_sweep(sc) -> dict:
+    """A pool sweep of the query selector at fixed weights over a
+    synthetic CamVid: the encoded picks."""
+    from pixelpick_tpu_torch.active.selector import QuerySelector
+    from pixelpick_tpu_torch.data.factory import get_dataset
+    from pixelpick_tpu_torch.data.loader import Loader
+
+    args = default_args(device="cpu", **sc["args"])
+    ds = get_dataset(args, val=False, query=False)
+    dq = get_dataset(args, val=False, query=True, generate_init_queries=False)
+    dq.queries, dq.n_pixels_total = ds.queries, ds.n_pixels_total
+    model = build_model(sc["weights"], 0, True).eval()
+    with Loader(dq, args.pool_batch_size, mode="query",
+                n_workers=1) as loader:
+        picks = QuerySelector(args, loader, model, "cpu")(0)
+    return {"picks": picks}
+
+
+def run_pipe(sc) -> dict:
+    """A device-pipeline batch of ``sc["indices"]`` over a synthetic
+    CamVid (crop 32x48), the micro-batch size ``sc["micro"]`` (0: one
+    update), its draws from a generator seeded 3: every rank's rows
+    gathered into the global batch, with the row flags and overflow."""
+    import numpy as np
+
+    from pixelpick_tpu_torch.data.device_pipeline import DevicePipeline
+    from pixelpick_tpu_torch.data.factory import get_dataset
+
+    args = default_args(device="cpu", **sc["args"])
+    ds = get_dataset(args, val=False, query=False)
+    ds.crop_size = (32, 48)
+    pipe = DevicePipeline(ds, args, "cpu")
+    pipe.set_queries(ds.queries)
+    pipe.pad_multiple, pipe.micro_bs = sc["micro"] or 1, sc["micro"]
+    pipe.pad_to_devices = True
+    batch = pipe.sample_batch(sc["indices"], torch.Generator().manual_seed(3))
+    b = batch["global_rows"]
+    pos, _ = mesh.megabatch_rows(b, sc["micro"] or b)
+    keys = ("x", "coords", "labels", "valid")
+    local = {k: batch[k].numpy() for k in keys}
+    local["rows_real"] = batch["rows_real"].get()
+    out = {}
+    for k, v in local.items():
+        out[k] = mesh.gather_rows(v, pos, b)
+    out["shard"] = batch["shard"]
+    out["overflow"] = int(batch["overflow"])
+    out["n_real"] = batch["n_real"]
+    out["rows"] = np.arange(b) if pos is None else pos
+    return out
+
+
+SCENARIOS = {"step": run_step, "bn": run_bn, "micro": run_micro,
+             "eval": run_eval, "sweep": run_sweep, "pipe": run_pipe}
+
+
+def run(spec: dict) -> dict:
+    return {name: SCENARIOS[sc["kind"]](sc) for name, sc in spec.items()}
+
+
+def main(spec_path, rank, world, port, out):
+    torch.set_num_threads(2)
+    distributed.initialize_from_args(SimpleNamespace(
+        dist_coordinator=f"localhost:{port}", dist_num_processes=int(world),
+        dist_process_id=int(rank), device="cpu", dist_backend="gloo",
+        data_parallel=0))
+    try:
+        with open(spec_path, "rb") as f:
+            result = run(pickle.load(f))
+        if distributed.is_primary():
+            with open(out, "wb") as f:
+                pickle.dump(result, f)
+    finally:
+        distributed.shutdown()
+
+
+if __name__ == "__main__":
+    main(*sys.argv[1:])
