@@ -12,9 +12,10 @@ It builds the hand-written kernels from the sources in the checkout (one
 dense, MC-dropout committee), its train and eval CLIs with stage
 snapshots, JAX-layout checkpoint files, ``--resume_campaign`` and
 ``--pretrained_ckpt``, device augmentation on CamVid, Cityscapes and VOC,
-PASCAL VOC with DeepLab and with the ResNet-50 FPN, and data parallelism
-over ``torch.distributed``, at full width, in phases; any failure exits
-nonzero:
+PASCAL VOC with DeepLab and with the ResNet-50 FPN, data parallelism over
+``torch.distributed``, the annotation tools and the TPU-only rewrites of
+the default math (``--s2d_backbone``, ``--conv3x3_matmul``,
+``remat_blocks``), at full width, in phases; any failure exits nonzero:
 
 1. card: name and power limit, torch and CUDA versions, the kernel builds;
 2. kernels vs plain: the depthwise 3x3 kernel at every shape one
@@ -30,8 +31,12 @@ nonzero:
    10 pixels per image, ``top_n_percent 0.05``, pool batch 32. The kernel
    counters are zeroed just before the sweep and read just after it; one
    pool batch is repeated with the library's depthwise conv for comparison;
-4. human-mode CLI round: ``pixelpick_tpu_torch.cli.query.main`` on a saved
-   checkpoint, with picks labelled from the synthetic ground truth;
+4. human-mode CLI round: phase 3's two query files labelled through the
+   port's annotation tools, the synthetic ground truth answering (round 0
+   by the keyboard annotator head-less, round 1 through the VIA round trip,
+   the annotator page served over localhost; every label checked against
+   the ground truth), then ``pixelpick_tpu_torch.cli.query.main`` on a
+   saved checkpoint;
 5. fused kernels vs plain: the fused inverted-residual forward and backward
    kernels at the 13 stride-1 t=6 block shapes of a train step (batch 4,
    one ghost-BN group) and at the remainder batch of 3, in f32 and bf16,
@@ -142,7 +147,16 @@ nonzero:
    the confusion matrices exactly; the depthwise launches of every rank);
    ``main_al`` as two ranks, 1 epoch and 2 rounds at bs 8 on a 48-image
    CamVid, every artifact written once; an NCCL world of one through
-   ``init_process_group``. A rank that fails fails the run.
+   ``init_process_group``. A rank that fails fails the run;
+20. the TPU-only rewrites of the default math at full width: a bs-4 step
+   with ``--s2d_backbone --conv3x3_matmul --fused_ir --pallas_dw`` at phase
+   6's weights against the library path (phase 6's limits; 12 + 12 fused
+   launches, block 2 running s2d), the same step with ``remat_blocks``
+   against the plain build, and a ``--s2d_backbone --pallas_dw`` sweep
+   over phase 3's pool against phase 3's path (pick sets, near-ties at the
+   top-k boundary set aside; 12 depthwise launches per forward); the
+   rewritten step's ms and the s2d sweep's images/s and busy share beside
+   phases 6 and 3.
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. The details go to
@@ -151,10 +165,11 @@ line, ``launches`` counts every main-path run: the depthwise kernel's
 (forward and dx) over the sweeps of phases 3 and 10, the campaign of phase
 7, the epoch runs of phases 8 and 9, the train CLI's runs of phase 11, the
 eval CLI's of phase 12, the ``--pretrained_ckpt`` round of phase 13 and
-the runs of phases 14, 15, 16 and 18, and phase 19's ranks (each counts
-in its own process and reports its counts); the fused kernels' over phases
-7, 8, 9, 11, 13, 14, 15, 16 and 18 (their counters zeroed just before each
-run and read just after). Phase 17's path reaches none of them.
+the runs of phases 14, 15, 16 and 18, phase 19's ranks (each counts in
+its own process and reports its counts) and phase 20's s2d step and
+sweep; the fused kernels' over phases 7, 8, 9, 11, 13, 14, 15, 16 and 18
+and phase 20's s2d step (their counters zeroed just before each run and
+read just after). Phase 17's path reaches none of them.
 """
 
 from __future__ import annotations
@@ -689,32 +704,125 @@ def print_top(prefix: str, by_name: dict, n: int = 10) -> list:
 
 # ------------------------------ phase 4 ------------------------------
 
-def phase_human_cli(work: Path, model, args) -> dict:
+def label_with_tools(work: Path, args, run: Path):
+    """The oracle round's two query files labelled through the port's
+    annotation tools, as an annotation team runs them, the synthetic
+    ground truth answering: round 0's ``queries.pkl`` through the keyboard
+    annotator head-less (``annotate_dataset(..., labels_from_gt=True)``),
+    round 1's through the VIA round trip (``build_via_project``,
+    ``write_project_js``, every point's ``av`` set to the key of its
+    ground-truth class, ``convert_via_json``), each written to
+    ``run/{nth}_query/queries.pkl``. Every queried pixel must come back
+    with its ground-truth label, and ``serve`` must deliver the annotator
+    page and the project over localhost. Returns the labelled pixels per
+    image and the tools' measures."""
+    import urllib.request
+
     from PIL import Image
 
+    from pixelpick_tpu_torch.active import codec
+    from pixelpick_tpu_torch.human import annotation, via
+    from pixelpick_tpu_torch.utils.palettes import CV_LABEL_CATEGORY
+
+    def ground_truth(p):
+        return np.asarray(Image.open(
+            Path(args.dir_dataset) / "trainannot" / Path(p).name))
+
+    labelled, out = {}, {}
+    for nth in (0, 1):
+        with open(Path(args.dir_checkpoints) / f"{nth}_query" / "queries.pkl",
+                  "rb") as f:
+            queries = pkl.load(f)
+        masks = codec.decode_queries(queries, return_as_dict=True)
+        paths = list(masks)
+        gts = [ground_truth(p) for p in paths]
+        t0 = time.perf_counter()
+        if nth == 0:
+            imgs = [np.asarray(Image.open(p)) for p in paths]
+            result = annotation.annotate_dataset(
+                imgs, [masks[p] for p in paths], paths, CV_LABEL_CATEGORY,
+                gt_labels=gts, dir_log=str(work / "annotation_logs"),
+                labels_from_gt=True)
+            logs = len(list((work / "annotation_logs").glob("*.txt")))
+            check(logs == len(paths), f"{logs} annotation logs")
+        else:
+            keys = annotation.default_key_mapping(CV_LABEL_CATEGORY)
+            key_of = {cid: k for k, cid in keys.items()}
+            project = via.build_via_project(
+                queries, {k.upper(): CV_LABEL_CATEGORY[cid]
+                          for k, cid in keys.items()})
+            served = work / "via"
+            served.mkdir()
+            js = via.write_project_js(project,
+                                      str(served / "via_debug_project.js"))
+            gt_of = dict(zip(paths, gts))
+            for md in project["metadata"].values():
+                p = project["file"][md["vid"]]["src"]
+                md["av"] = {"1": key_of[int(gt_of[p][md["xy"][2],
+                                                     md["xy"][1]])]}
+            result = via.convert_via_json(
+                json.loads(json.dumps(project)),
+                {k: CV_LABEL_CATEGORY[cid] for k, cid in keys.items()},
+                keys, image_sizes={p: IMAGE_HW for p in paths},
+                verbose=False)
+            httpd = via.serve(str(served), port=0, open_browser=False,
+                              block=False)
+            try:
+                base = f"http://localhost:{httpd.server_port}"
+                page = urllib.request.urlopen(
+                    f"{base}/via_pixelpick_annotator.html", timeout=30).read()
+                body = urllib.request.urlopen(
+                    f"{base}/via_debug_project.js", timeout=30).read()
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+            with open(via.annotator_asset_path(), "rb") as f:
+                check(page == f.read() and b"draw_pixelpick" in page,
+                      "serve did not deliver the annotator page")
+            with open(js, "rb") as f:
+                check(body == f.read() and body.startswith(b"_via_dp = "),
+                      "serve did not deliver the project")
+            out["via_points"] = len(project["metadata"])
+            out["served_bytes"] = len(page) + len(body)
+        out[f"round_{nth}_s"] = time.perf_counter() - t0
+        check(sorted(result) == sorted(paths),
+              f"round {nth}: {len(result)} of {len(paths)} images labelled")
+        n = 0
+        for p, gt in zip(paths, gts):
+            rec = result[p]
+            ys, xs = np.asarray(rec["y_coords"]), np.asarray(rec["x_coords"])
+            picked = np.zeros(IMAGE_HW, bool)
+            picked[ys, xs] = True
+            check(len(ys) == int(masks[p].sum())
+                  and np.array_equal(picked, masks[p]),
+                  f"round {nth}, {p}: the labelled pixels are not the "
+                  f"queried ones")
+            check(rec["category_id"] == gt[ys, xs].astype(int).tolist(),
+                  f"round {nth}, {p}: a label differs from the ground truth")
+            n += len(ys)
+            labelled.setdefault(Path(p).name, np.zeros(IMAGE_HW, bool))[
+                ys, xs] = True
+        out[f"round_{nth}_pixels"] = n
+        (run / f"{nth}_query").mkdir(parents=True)
+        with open(run / f"{nth}_query" / "queries.pkl", "wb") as f:
+            pkl.dump(result, f)
+    print(f"[4] labelled through the tools: round 0 by the annotator "
+          f"head-less ({out['round_0_pixels']} pixels, "
+          f"{out['round_0_s']:.2f} s), round 1 through the VIA round trip "
+          f"({out['via_points']} points, {out['round_1_s']:.2f} s, "
+          f"{out['served_bytes']} bytes served over localhost); every "
+          f"label equals the ground truth")
+    return labelled, out
+
+
+def phase_human_cli(work: Path, model, args) -> dict:
     from pixelpick_tpu_torch.active import codec
     from pixelpick_tpu_torch.cli.query import main as query_main
     from pixelpick_tpu_torch.engine.checkpoint import save_checkpoint
     from pixelpick_tpu_torch.ops import depthwise as dw
 
     run = work / "human"
-    labelled = {}
-    # the oracle round's files, labelled from the synthetic ground truth in
-    # place of the annotation tool
-    for nth in (0, 1):
-        with open(Path(args.dir_checkpoints) / f"{nth}_query" / "queries.pkl",
-                  "rb") as f:
-            queries = pkl.load(f)
-        for p, info in queries.items():
-            gt = np.asarray(Image.open(
-                Path(args.dir_dataset) / "trainannot" / Path(p).name))
-            info["category_id"] = gt[info["y_coords"], info["x_coords"]] \
-                .astype(np.int64).tolist()
-            mask = labelled.setdefault(Path(p).name, np.zeros(IMAGE_HW, bool))
-            mask[info["y_coords"], info["x_coords"]] = True
-        (run / f"{nth}_query").mkdir(parents=True)
-        with open(run / f"{nth}_query" / "queries.pkl", "wb") as f:
-            pkl.dump(queries, f)
+    labelled, tools = label_with_tools(work, args, run)
     ckpt = work / "model.ckpt"
     save_checkpoint(str(ckpt), model)
 
@@ -743,7 +851,7 @@ def phase_human_cli(work: Path, model, args) -> dict:
           f"({len(decoded)} images, 10 picks each) in {cli_s:.2f} s; "
           f"launches {counts}")
     return {"path": str(Path(path).relative_to(HERE)), "cli_s": cli_s,
-            "launches": counts}
+            "launches": counts, "tools": tools}
 
 
 
@@ -3131,6 +3239,382 @@ def phase_data_parallel(work: Path) -> dict:
             "campaign_files": files, "nccl": nccl}
 
 
+# ------------------------------ phase 20 ------------------------------
+
+# the s2d sweep against phase 3's path. The picks are a random sub-sample
+# of each image's k best-scored pixels (top_n_percent): where the two
+# sides' candidate sets are equal their picks must be; where they differ,
+# every pixel in one set only must score, on either side, within
+# PICK_TIE_TOL of that side's k-th score (a near-tie at the boundary, which
+# may change the whole sub-sample). Margins lie in [0, 1]; the logits of
+# the two paths differ by about 1e-5 of their scale (phase 3's MODEL_TOL)
+PICK_TIE_TOL = 1e-4
+
+
+def step_check(model, batch: dict, args) -> dict:
+    """Phase 6's check on ``model`` (train mode, dropout off): the sparse
+    loss of ``batch`` and every parameter gradient, the running statistics
+    after the forward, and the kernels' launches in it."""
+    import torch
+
+    from pixelpick_tpu_torch.engine.trainer import (
+        normalize_images, sparse_ce_and_hist,
+    )
+    from pixelpick_tpu_torch.ops import depthwise as dw, fused_ir
+
+    torch.cuda.synchronize()
+    fused_ir.reset_launch_counts()
+    dw.reset_launch_counts()
+    x = normalize_images(batch["x"], args.mean, args.std)
+    loss, _ = sparse_ce_and_hist(model(x, upsample=False)["pred"],
+                                 batch["coords"], batch["labels"],
+                                 batch["valid"], IMAGE_HW, N_CLASSES)
+    names, params = zip(*model.named_parameters())
+    grads = torch.autograd.grad(loss, params)
+    torch.cuda.synchronize()
+    return {"loss": float(loss.detach()),
+            "grads": {n: g.detach() for n, g in zip(names, grads)},
+            "stats": {k: v.detach().clone() for k, v in
+                      model.state_dict().items()
+                      if k.endswith(("running_mean", "running_var",
+                                     "num_batches_tracked"))},
+            "launches": {**fused_ir.launch_counts,
+                         **{f"depthwise_{k}": v
+                            for k, v in dw.launch_counts.items()}}}
+
+
+def step_errors(got: dict, ref: dict) -> dict:
+    """``got`` against ``ref`` at phase 6's limits: the loss relative, each
+    gradient over STEP_GRAD_TOL of its own largest |value| plus
+    STEP_GRAD_FLOOR of the largest gradient, each running statistic over
+    1e-4 of its largest |value| (at least 1), as phase 19; the worst leaf
+    of each, and whether the forward counts agree."""
+    gmax = max(float(g.abs().max()) for g in ref["grads"].values())
+    grads = sorted(((float((got["grads"][n] - g).abs().max())
+                     / (STEP_GRAD_TOL * float(g.abs().max())
+                        + STEP_GRAD_FLOOR * gmax), n)
+                    for n, g in ref["grads"].items()), reverse=True)
+    stats = sorted(((float((got["stats"][k] - v).abs().max())
+                     / (1e-4 * max(float(v.abs().max()), 1.0)), k)
+                    for k, v in ref["stats"].items()
+                    if v.is_floating_point()), reverse=True)
+    return {"loss": abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+            "grad_worst": grads[0], "stats_worst": stats[0],
+            "counts_equal": all(int(got["stats"][k]) == int(v)
+                                for k, v in ref["stats"].items()
+                                if not v.is_floating_point())}
+
+
+def leafwise_within(got: dict, ref: dict, noise: dict) -> bool:
+    """Every gradient and running statistic of ``got`` no further from
+    ``ref`` than ``noise`` (a second run of ``ref``'s build) is."""
+    return all(float((got[part][k] - v).abs().max())
+               <= float((noise[part][k] - v).abs().max())
+               for part in ("grads", "stats") for k, v in ref[part].items()
+               if v.is_floating_point())
+
+
+def sweep_picks(model, dataset, args) -> dict:
+    """The round's scoring over the pool at its present masks with the
+    selector's round-0 draws: each image's picks (flat indices) and its
+    candidates' ranking scores (what ``_select_topk`` ranks), and the
+    depthwise kernel's launches. Nothing is labelled."""
+    import torch
+
+    from pixelpick_tpu_torch.active import acquisition
+    from pixelpick_tpu_torch.active.selector import QuerySelector
+    from pixelpick_tpu_torch.data.loader import Loader
+    from pixelpick_tpu_torch.ops import depthwise as dw
+
+    scores = []
+    select = acquisition._select_topk
+
+    def recording(uc_flat, *a, strategy, **k):
+        signed = uc_flat if strategy in acquisition.MAXIMIZING else -uc_flat
+        scores.append(signed.detach())
+        return select(uc_flat, *a, strategy=strategy, **k)
+
+    picks = []
+    generator = torch.Generator(device=DEVICE).manual_seed(
+        (args.seed * 1_000_003) & 0x7FFFFFFF)  # QuerySelector's round 0
+    with Loader(dataset, POOL_BATCH, mode="query",
+                n_workers=args.n_workers) as loader:
+        score_fn = QuerySelector(args, loader, model, DEVICE)._score_fn
+        acquisition._select_topk = recording
+        try:
+            torch.cuda.synchronize()
+            dw.reset_launch_counts()
+            n_forwards = 0
+            for batch in loader:
+                dev = {k: torch.from_numpy(batch[k]).to(DEVICE)
+                       for k in ("x", "excluded", "y")}
+                picks.append(score_fn(dev, generator)[0])
+                n_forwards += 1
+            torch.cuda.synchronize()
+            counts = dict(dw.launch_counts)
+        finally:
+            acquisition._select_topk = select
+    return {"picks": torch.cat(picks).cpu().numpy(),
+            "scores": torch.cat(scores), "n_forwards": n_forwards,
+            "launches": counts}
+
+
+def as_masks(idx, shape):
+    """(N, n) flat indices -> (N, H*W) bool masks on the card."""
+    import torch
+
+    idx = torch.as_tensor(idx, device=DEVICE)
+    return torch.zeros(shape, dtype=torch.bool, device=DEVICE).scatter_(
+        1, idx, True)
+
+
+def picks_agree(got: dict, ref: dict, k: int) -> dict:
+    """Two sweeps' picks under the rule at PICK_TIE_TOL: the images whose
+    candidate sets differ, those whose picks differ, the largest distance
+    of a pixel in one candidate set only from its side's k-th score, and
+    whether picks differ where the candidate sets do not."""
+    import torch
+
+    shape = ref["scores"].shape
+    cand = {}
+    for name, sw in (("got", got), ("ref", ref)):
+        top = torch.topk(sw["scores"], k, dim=1)
+        cand[name] = (as_masks(top.indices, shape), top.values[:, -1:])
+    only = cand["got"][0] ^ cand["ref"][0]
+    picks_differ = (as_masks(got["picks"], shape)
+                    ^ as_masks(ref["picks"], shape)).any(1)
+    cands_differ = only.any(1)
+    gap = torch.zeros((), device=DEVICE)
+    for sw, (_, kth) in ((got, cand["got"]), (ref, cand["ref"])):
+        gap = torch.maximum(gap, torch.where(
+            only, (sw["scores"] - kth).abs(), torch.zeros_like(kth)).max())
+    unexplained = int((picks_differ & ~cands_differ).sum())
+    gap = float(gap)
+    return {"candidates_differ": int(cands_differ.sum()),
+            "picks_differ": int(picks_differ.sum()),
+            "picks_differ_equal_candidates": unexplained,
+            "worst_tie_gap": gap,
+            "ok": unexplained == 0 and gap <= PICK_TIE_TOL}
+
+
+def picks_reproduced(picks: np.ndarray, ref: dict, k: int) -> dict:
+    """Phase 3's written picks against a sweep of its path again: equal,
+    but on an image whose k-th and (k+1)-th scores lie within
+    PICK_TIE_TOL (a tie at the boundary)."""
+    import torch
+
+    shape = ref["scores"].shape
+    differ = (as_masks(picks, shape) ^ as_masks(ref["picks"], shape)).any(1)
+    top = torch.topk(ref["scores"], k + 1, dim=1).values
+    tie = (top[:, -2] - top[:, -1]).abs() <= PICK_TIE_TOL
+    return {"picks_differ": int(differ.sum()),
+            "ok": not bool((differ & ~tie).any())}
+
+
+def phase_rewrites(work: Path, model, args, step: dict, oracle: dict) -> dict:
+    """The TPU-only rewrites of the default math at full width (CamVid
+    360x480, width 1.0, f32). (a) A bs-4 train step with ``--s2d_backbone
+    --conv3x3_matmul --fused_ir --pallas_dw`` at phase 6's weights and
+    batch against the library path (no rewrites, no kernels): the loss and
+    every gradient to phase 6's limits, the running statistics beside
+    them, 12 + 12 fused launches (block 2 runs s2d) and no depthwise
+    launch (block 0 runs s2d). (b) The same step on the library build with
+    ``remat_blocks``, cuDNN's deterministic algorithms on: bit-equal to the
+    plain build, or no further from it, leaf by leaf, than a second run of
+    the plain build is (the loss's sums may add in any order on the card),
+    every running statistic's EMA applied once. (c) A ``--s2d_backbone
+    --pallas_dw`` sweep at phase 3's weights over phase 3's pool (its
+    initial masks) against phase 3's path, the same draws: the same pick
+    sets but for near-ties at the top-k boundary, 12 depthwise launches
+    per forward. Then the times: the rewritten step (median of 10) beside
+    phase 6's, the s2d sweep's images/s and the device's busy share beside
+    phase 3's warm sweep."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pixelpick_tpu_torch.data.factory import get_dataset
+    from pixelpick_tpu_torch.engine.optim import make_optimizer
+    from pixelpick_tpu_torch.engine.trainer import make_train_step
+    from pixelpick_tpu_torch.models import layers
+    from pixelpick_tpu_torch.models.factory import get_model
+    from pixelpick_tpu_torch.models.mobilenet_v2 import InvertedResidual
+
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in
+             train_batch(np.random.default_rng(7), TRAIN_BATCH).items()}
+    def library_model():
+        layers.set_depthwise_impl("xla")
+        try:
+            return get_model(args, DEVICE, seed=11)
+        finally:
+            layers.set_depthwise_impl("pallas")
+
+    # phase 6's weights: its seeded init, then well_conditioned_
+    library = library_model()
+    well_conditioned_(library, seed=12)
+    weights = {k: v.detach().clone() for k, v in library.state_dict().items()}
+    args.fused_ir = args.s2d_backbone = True
+    layers.set_conv3x3_impl("matmul")
+    try:
+        rewritten = get_model(args, DEVICE, seed=11)
+    finally:
+        layers.set_conv3x3_impl("xla")
+        args.fused_ir = args.s2d_backbone = False
+    rewritten.load_state_dict(weights)
+    n_matmul = sum(isinstance(m, layers.Conv3x3MatMul)
+                   for m in rewritten.modules())
+    for m in (library, rewritten):
+        for mod in m.modules():
+            if isinstance(mod, layers.Dropout):
+                mod.p = 0.0  # dropout off for this comparison only
+        m.train()
+    ref = step_check(library, batch, args)
+    got = step_check(rewritten, batch, args)
+    err = step_errors(got, ref)
+    counts = got["launches"]
+    print(f"[20] a bs-{TRAIN_BATCH} step with --s2d_backbone --conv3x3_matmul "
+          f"--fused_ir --pallas_dw ({n_matmul} same-shape 3x3 convs as tap "
+          f"matmuls) against the library path: loss {got['loss']:.7f} vs "
+          f"{ref['loss']:.7f} (relative {err['loss']:.3g}); the worst "
+          f"gradient leaf at {err['grad_worst'][0]:.3g} of phase 6's limit "
+          f"({err['grad_worst'][1]}), the worst running statistic at "
+          f"{err['stats_worst'][0]:.3g} of its limit "
+          f"({err['stats_worst'][1]}); launches {counts}")
+    check(np.isfinite(got["loss"]), "non-finite loss")
+    check(err["loss"] <= STEP_LOSS_TOL, f"loss {got['loss']} vs {ref['loss']}")
+    check(err["grad_worst"][0] <= 1, f"gradients off: {err['grad_worst']}")
+    check(err["stats_worst"][0] <= 1 and err["counts_equal"],
+          f"running statistics off: {err['stats_worst']}")
+    check(counts["fused_fwd"] == 12 and counts["fused_bwd"] == 12,
+          f"fused launches in the s2d step {counts}")
+    check(counts["depthwise_kernel"] == counts["depthwise_kernel_dx"] == 0
+          and counts["depthwise_stride2_conv"] == 1,
+          f"depthwise launches in the s2d step {counts}")
+    check(n_matmul == 5, f"{n_matmul} Conv3x3MatMul modules")
+
+    # (b) remat on the kernel-free build, from the same weights
+    library.load_state_dict(weights)
+    remat = library_model()
+    remat.load_state_dict(weights)
+    for mod in remat.modules():
+        if isinstance(mod, layers.Dropout):
+            mod.p = 0.0
+        if isinstance(mod, InvertedResidual):
+            mod.remat = True
+    remat.train()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain_a = step_check(library, batch, args)
+        library.load_state_dict(weights)
+        plain_b = step_check(library, batch, args)
+        rem = step_check(remat, batch, args)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    bit_equal = rem["loss"] == plain_a["loss"] and all(
+        torch.equal(rem[part][k], v) for part in ("grads", "stats")
+        for k, v in plain_a[part].items())
+    within = leafwise_within(rem, plain_a, plain_b)
+    once = all(int(v) == 1 for k, v in rem["stats"].items()
+               if k.endswith("num_batches_tracked"))
+    remat_err = step_errors(rem, plain_a)
+    print(f"[20] remat_blocks (17 blocks rematerialised) against the plain "
+          f"build: bit-equal {bit_equal}; no further than a second plain "
+          f"run, leaf by leaf: {within}; the worst gradient leaf at "
+          f"{remat_err['grad_worst'][0]:.3g} of phase 6's limit; every "
+          f"EMA applied once: {once}")
+    check(bit_equal or within, "remat moved the gradients or statistics")
+    check(once, "remat applied a running-statistics update twice")
+    del remat, plain_a, plain_b, rem
+
+    # (c) the s2d sweep at phase 3's weights over phase 3's initial pool
+    args.s2d_backbone = True
+    layers.set_depthwise_impl("pallas")
+    try:
+        s2d_model = get_model(args)
+    finally:
+        args.s2d_backbone = False
+    s2d_model.load_state_dict(model.state_dict())
+    dataset = get_dataset(args, val=False, query=True)
+    check(dataset.n_pixels_total == N_IMAGES * args.n_pixels_by_us,
+          f"initial queries: {dataset.n_pixels_total} pixels")
+    ref_sweep = sweep_picks(model, dataset, args)
+    s2d_sweep = sweep_picks(s2d_model, dataset, args)
+    # the candidates of a 360x480 image (acquisition.candidate_counts)
+    k = max(args.n_pixels_by_us,
+            int(IMAGE_HW[0] * IMAGE_HW[1] * args.top_n_percent))
+    agree = picks_agree(s2d_sweep, ref_sweep, k)
+    with open(Path(args.dir_checkpoints) / "1_query" / "queries.pkl",
+              "rb") as f:
+        phase3 = pkl.load(f)
+    phase3_picks = np.stack([np.sort(
+        np.asarray(phase3[p]["y_coords"]) * IMAGE_HW[1]
+        + np.asarray(phase3[p]["x_coords"])) for p in dataset.list_inputs])
+    agree_phase3 = picks_reproduced(phase3_picks, ref_sweep, k)
+    n_fwd = s2d_sweep["n_forwards"]
+    sl = s2d_sweep["launches"]
+    print(f"[20] --s2d_backbone --pallas_dw sweep over phase 3's pool "
+          f"against phase 3's path: {agree['picks_differ']} of {N_IMAGES} "
+          f"images pick otherwise, {agree['candidates_differ']} have other "
+          f"candidates (the largest distance of a swapped candidate from "
+          f"the k-th score {agree['worst_tie_gap']:.3g}, limit "
+          f"{PICK_TIE_TOL}), {agree['picks_differ_equal_candidates']} pick "
+          f"otherwise from equal candidates; phase 3's path again against "
+          f"phase 3's picks: {agree_phase3['picks_differ']} differ; "
+          f"launches {sl} for {n_fwd} forwards")
+    check(agree["ok"], f"s2d sweep picks differ: {agree}")
+    check(agree_phase3["ok"], f"phase 3's picks not reproduced: "
+                              f"{agree_phase3}")
+    check(sl["kernel"] == 12 * n_fwd and sl["stride2_conv"] == n_fwd,
+          f"s2d sweep launches {sl} for {n_fwd} forwards")
+
+    # times: the rewritten step beside phase 6's, the s2d sweep beside
+    # phase 3's warm sweep
+    opt_step = make_train_step(rewritten, make_optimizer(args, rewritten, 92),
+                               n_classes=N_CLASSES, mean=args.mean,
+                               std=args.std)
+    opt_step(batch)
+    torch.cuda.synchronize()
+    step_ms = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        opt_step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    del opt_step
+    t0 = time.perf_counter()
+    sweep_picks(s2d_model, dataset, args)
+    warm_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sweep_picks(s2d_model, dataset, args)
+        traced_s = time.perf_counter() - t0
+    busy, busy_us, by_name = device_busy(prof, traced_s)
+    plain = oracle["warm_sweep"]
+    med = statistics.median(step_ms)
+    print(f"[20] the rewritten step {med:.2f} ms (median of 10; phase 6 in "
+          f"this call: {step['median_step_ms']['kernels']:.2f} ms with the "
+          f"kernels, {step['median_step_ms']['library']:.2f} ms with the "
+          f"library path); the s2d sweep {N_IMAGES / warm_s:.1f} images/s "
+          f"warm, device busy "
+          + (f"{100 * busy:.1f}%" if busy is not None else "not measured")
+          + f" (phase 3's warm sweep {plain['images_per_s']:.1f} images/s, "
+          f"busy "
+          + (f"{100 * plain['device_busy_share']:.1f}%)"
+             if plain["device_busy_share"] is not None else "not measured)"))
+    top = print_top("[20]", by_name)
+    return {"step_errors": err, "step_launches": counts,
+            "conv3x3_matmul_modules": n_matmul,
+            "remat": {"bit_equal": bit_equal, "within_plain_noise": within,
+                      "ema_once": once, "errors": remat_err},
+            "sweep": {"agree": agree, "agree_phase3": agree_phase3,
+                      "launches": sl, "n_forwards": n_fwd,
+                      "warm_s": warm_s, "images_per_s": N_IMAGES / warm_s,
+                      "traced_s": traced_s, "device_busy_share": busy,
+                      "device_busy_ms": busy_us / 1e3, "top_device_ms": top},
+            "step_ms": step_ms, "median_step_ms": med}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="chiprun_out",
@@ -3186,6 +3670,9 @@ def main(argv=None) -> int:
     voc_fpn = phase_voc_fpn(work)
     voc_dev = phase_voc_device_augment(work, voc)
     dp = phase_data_parallel(work)
+    t_rewrites = time.perf_counter()
+    rewrites = phase_rewrites(work, model, args, step, oracle)
+    rewrites["phase_s"] = time.perf_counter() - t_rewrites
     phases_s = time.perf_counter() - t_start
     # phase 19's ranks count in their own processes
     dp_counts = [{f"depthwise_{k}": v for k, v in c.items()}
@@ -3202,7 +3689,8 @@ def main(argv=None) -> int:
         # campaign of phase 7, the epoch runs of phases 8 and 9, the train
         # CLI's straight and resumed runs of phase 11, the eval CLI's of
         # phase 12, the --pretrained_ckpt round of phase 13 and the
-        # device-augment runs of phases 14 and 15, and phase 16's VOC run
+        # device-augment runs of phases 14 and 15, phase 16's and 18's VOC
+        # runs, phase 19's ranks and phase 20's s2d step and sweep
         "launches": sum(c[f"{pre}kernel"] + c[f"{pre}kernel_dx"]
                         for c, pre in ((oracle["launches"], ""),
                                        (committee["launches"], ""),
@@ -3226,6 +3714,9 @@ def main(argv=None) -> int:
                                        (city["launches"], "depthwise_"),
                                        (voc["launches"], "depthwise_"),
                                        (voc_dev["launches"], "depthwise_"),
+                                       (rewrites["step_launches"],
+                                        "depthwise_"),
+                                       (rewrites["sweep"]["launches"], ""),
                                        *((c, "depthwise_")
                                          for c in dp_counts))),
         "max_abs_err": max(r["max_abs_err"] for r in f32),
@@ -3239,7 +3730,8 @@ def main(argv=None) -> int:
     }
     # the fused kernels: per train step of the main path, the 13 blocks at
     # batch 4 in f32, summed; launches over the main-path train runs of
-    # phases 7, 8, 9, 11 (both arms), 13, 14, 15 and 16
+    # phases 7, 8, 9, 11 (both arms), 13, 14, 15, 16 and 18, and phase 20's
+    # s2d step
     f32 = fused["float32"]
     fused_entries = []
     for k, name, line in (("fwd", "fused_ir_fwd", 221),
@@ -3255,7 +3747,7 @@ def main(argv=None) -> int:
                 resume["pretrained_launches"], devaug["launches"],
                 devaug["host_loader_launches"], city["launches"],
                 voc["launches"], voc_dev["launches"],
-                *dp["campaign_launches"])),
+                rewrites["step_launches"], *dp["campaign_launches"])),
             "max_abs_err": max(r["y_max_abs_err" if k == "fwd"
                                  else "grad_max_abs_err"] for r in f32),
             "ms": sum(r[f"{k}_ms"] for r in f32),
@@ -3265,7 +3757,8 @@ def main(argv=None) -> int:
             else "operations",
             "library_ms": sum(r[f"library_{k}_ms"] for r in f32),
         })
-    print(f"[19] phases 2-19 took {phases_s:.1f} s")
+    print(f"[20] phase 20 took {rewrites['phase_s']:.1f} s; phases 2-20 "
+          f"took {phases_s:.1f} s")
     out = Path(opts.out)
     if not out.is_absolute():
         out = HERE / out
@@ -3280,7 +3773,7 @@ def main(argv=None) -> int:
                    "device_augment": devaug, "cityscapes": city,
                    "voc_deeplab": voc, "voc_fpn": voc_fpn,
                    "voc_device_augment": voc_dev, "data_parallel": dp,
-                   "phases_s": phases_s,
+                   "rewrites": rewrites, "phases_s": phases_s,
                    "summary": [entry, *fused_entries]}, f, indent=1)
     shutil.rmtree(work, ignore_errors=True)
 

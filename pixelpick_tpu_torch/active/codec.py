@@ -13,6 +13,9 @@ Byte-compatible with the reference's pickled query files (and with
 - ``merge_previous_query_files`` (reference ``query.py:316-351``): overlay
   every round's label maps into one per-image map (later files win where
   both are labelled).
+- ``save_query_npy`` / ``load_query_npy``: the stacked bool masks of the
+  reference's ``query.npy``, which the annotation tool reads
+  (``human/annotation.py``).
 
 Host-side NumPy only.
 """
@@ -99,3 +102,15 @@ def merge_previous_query_files(
     if verbose:
         print(f"# merged pixels: {cnt}")
     return merged
+
+
+def save_query_npy(queries: List[np.ndarray], path: str) -> None:
+    """Stacked bool-array export, the ``query.npy`` format consumed by the
+    annotation tool (reference ``annotation_tool/launch_gui.py:58``:
+    ``np.load(...).astype(bool)`` of shape (N, H, W))."""
+    np.save(path, np.stack([np.asarray(q, dtype=bool) for q in queries]))
+
+
+def load_query_npy(path: str) -> List[np.ndarray]:
+    arr = np.load(path).astype(bool)
+    return [arr[i] for i in range(arr.shape[0])]

@@ -149,14 +149,17 @@ def build_parser() -> ArgumentParser:
                         type=lambda s: s not in ("0", "false", "False"),
                         default=False,
                         help="evaluate the first 4 MobileNetV2 blocks in "
-                             "space-to-depth layout")
+                             "space-to-depth layout (an exact rewrite, "
+                             "models/s2d_block.py; DeepLab only, the FPN "
+                             "ignores it)")
     parser.add_argument("--fused_ir", action="store_true", default=False,
                         help="in training, run the stride-1 t=6 MobileNetV2 "
                              "blocks through the fused inverted-residual "
                              "kernels (ops/fused_ir.py, csrc/fused_ir.cu)")
     parser.add_argument("--conv3x3_matmul", action="store_true", default=False,
                         help="lower same-shape stride-1 3x3 convs to 9 tap "
-                             "channel matmuls")
+                             "channel matmuls (models/layers.py:"
+                             "Conv3x3MatMul)")
     parser.add_argument("--ckpt_backend", type=str, default="msgpack",
                         choices=["msgpack", "orbax"],
                         help="best-model checkpoint format of the JAX "
@@ -234,19 +237,13 @@ DATASET_DEFAULTS = {
 
 
 def check_supported(args: Namespace) -> None:
-    """Raise on flags whose code path the port does not have yet. Each
-    message names the ROADMAP.md item that ports it."""
-    missing = []
-    if args.s2d_backbone:
-        missing.append("--s2d_backbone (Queue 1: TPU-only rewrites)")
-    if args.conv3x3_matmul:
-        missing.append("--conv3x3_matmul (Queue 1: TPU-only rewrites)")
+    """Raise on a flag whose code path the port does not have yet, naming
+    the ROADMAP.md item that ports it."""
     if args.spatial_query_sharding:
-        missing.append("--spatial_query_sharding (Queue 1 item 8's last "
-                       "piece: model parallelism over image height)")
-    if missing:
         raise NotImplementedError(
-            "not ported to the PyTorch package yet: " + "; ".join(missing))
+            "not ported to the PyTorch package yet: --spatial_query_sharding "
+            "(ROADMAP Queue 1 item 8's last piece: model parallelism over "
+            "image height)")
 
 
 def finalize_args(args: Namespace, write_files: bool = True) -> Namespace:
@@ -260,6 +257,9 @@ def finalize_args(args: Namespace, write_files: bool = True) -> Namespace:
     if args.pallas_dw:
         from pixelpick_tpu_torch.models.layers import set_depthwise_impl
         set_depthwise_impl("pallas")
+    if args.conv3x3_matmul:
+        from pixelpick_tpu_torch.models.layers import set_conv3x3_impl
+        set_conv3x3_impl("matmul")
     args.augmentations = {
         "geometric": {
             "random_scale": args.use_aug,

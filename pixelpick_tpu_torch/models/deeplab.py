@@ -66,11 +66,13 @@ class DeepLab(nn.Module):
                  width_mult: float = 1.0, dtype=torch.float32,
                  mc_dropout_p: float = 0.2, bn_groups: int = 0,
                  fused_ir: bool = False, mc_dropout: bool = False,
-                 mc_dropout2d_committee: bool = False):
+                 mc_dropout2d_committee: bool = False, s2d_until: int = 0,
+                 remat_blocks: bool = False):
         super().__init__()
         self.backbone = MobileNetV2(output_stride, width_mult, dtype,
                                     bn_groups, fused_ir, mc_dropout,
-                                    mc_dropout_p, mc_dropout2d_committee)
+                                    mc_dropout_p, mc_dropout2d_committee,
+                                    s2d_until, remat_blocks)
         self.aspp = ASPP(self.backbone.out_channels, output_stride, dtype,
                          bn_groups)
         self.low_level_conv = nn.Sequential(

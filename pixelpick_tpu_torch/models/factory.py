@@ -95,7 +95,10 @@ def get_model(args, device=None, seed=None) -> torch.nn.Module:
             fused_ir=bool(getattr(args, "fused_ir", False)),
             mc_dropout=bool(getattr(args, "use_mc_dropout", False)),
             mc_dropout2d_committee=bool(
-                getattr(args, "mc_dropout2d_committee", False)))
+                getattr(args, "mc_dropout2d_committee", False)),
+            # --s2d_backbone: the first 4 blocks in s2d layout, DeepLab only
+            # (pixelpick_tpu/models/factory.py:35); the FPN ignores the flag
+            s2d_until=4 if getattr(args, "s2d_backbone", False) else 0)
     else:
         raise ValueError(args.network_name)
     init_model(model, args.seed if seed is None else seed)

@@ -23,7 +23,9 @@ draw from an explicit ``torch.Generator`` when one is set.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -49,13 +51,27 @@ def group_size(groups: int, b: int) -> int:
     return groups if 0 < groups < b and b % groups == 0 else b
 
 
+def row_groups(x: torch.Tensor, groups: int):
+    """The ghost-BN groups of ``x``'s rows: (g, each row's group among those
+    :func:`ghost_bn_train` returns moments for, whether every group lies
+    within this rank's rows). Under a row shard (``parallel/mesh.py``) the
+    groups are the global batch's."""
+    shard = mesh.current_shard()
+    lo, b = (0, x.shape[0]) if shard is None else (shard.lo, shard.rows)
+    g = group_size(groups, b)
+    group = torch.arange(lo, lo + x.shape[0], device=x.device) // g
+    local = shard is None or (x.shape[0] % g == 0 and lo % g == 0)
+    return g, (group - lo // g if local else group), local
+
+
 def ghost_bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                   groups: int, eps: float, dtype):
+                   groups: int, eps: float, dtype, count=None):
     """Train-mode (ghost) BatchNorm of NCHW ``x`` (``layers.py:22-38``):
     contiguous groups of ``groups`` samples, or the whole batch when
     ``groups`` does not divide it; f32 fast variance max(0, E[x^2] -
     E[x]^2). Returns (y in ``dtype``, mu, var) with mu/var (n_groups, C)
-    f32.
+    f32. ``count``: the pixels per sample the sums are divided by, in place
+    of H*W (the s2d BatchNorm's padded map, ``models/s2d_block.py``).
 
     Under a row shard (``parallel/mesh.py:sharded``) ``x`` is this rank's
     rows of the global batch, and the groups are the global batch's, as
@@ -64,29 +80,47 @@ def ghost_bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     groups that span ranks take their sums of x and x^2 from a
     differentiable all-reduce (its backward reduces the gradient terms as
     well), and mu/var are every group's."""
-    shard = mesh.current_shard()
-    lo, b = (0, x.shape[0]) if shard is None else (shard.lo, shard.rows)
-    g = group_size(groups, b)
+    g, group, local = row_groups(x, groups)
     xf = x.float()
-    # each row's group among those mu and var hold
-    group = torch.arange(lo, lo + x.shape[0], device=x.device) // g
-    if shard is None or (x.shape[0] % g == 0 and lo % g == 0):
+    if local:
         xg = xf.reshape(x.shape[0] // g, g, *x.shape[1:])
-        mu = xg.mean((1, 3, 4))
-        mu2 = (xg * xg).mean((1, 3, 4))
-        group = group - lo // g
+        if count is None:
+            mu = xg.mean((1, 3, 4))
+            mu2 = (xg * xg).mean((1, 3, 4))
+        else:
+            mu = xg.sum((1, 3, 4)) / (g * count)
+            mu2 = (xg * xg).sum((1, 3, 4)) / (g * count)
     else:
         # each row's f32 sums, added across rows and ranks in f64, so that
         # the moments round once, as the local groups' means do
+        b = mesh.current_shard().rows
         rows = torch.stack([xf.sum((2, 3)), (xf * xf).sum((2, 3))], 1)
         sums = torch.zeros((b // g, 2, x.shape[1]), dtype=torch.float64,
                            device=x.device).index_add(0, group, rows.double())
-        sums = dist_nn.all_reduce(sums) / (g * x.shape[2] * x.shape[3])
+        per = x.shape[2] * x.shape[3] if count is None else count
+        sums = dist_nn.all_reduce(sums) / (g * per)
         mu, mu2 = sums[:, 0].float(), sums[:, 1].float()
     var = torch.maximum(torch.zeros((), device=x.device), mu2 - mu * mu)
     mul = (torch.rsqrt(var + eps) * scale)[group][..., None, None]
     y = (xf - mu[group][..., None, None]) * mul + bias.view(1, -1, 1, 1)
     return y.to(dtype), mu, var
+
+
+_STATS_FROZEN = threading.local()
+
+
+@contextlib.contextmanager
+def frozen_running_stats():
+    """Train-mode BatchNorms in this thread leave their running statistics
+    alone: the recompute of a rematerialised block (``MobileNetV2``'s
+    ``remat_blocks``) runs its BatchNorms a second time, and flax's
+    ``nn.checkpoint`` applies their EMA once."""
+    before = getattr(_STATS_FROZEN, "on", False)
+    _STATS_FROZEN.on = True
+    try:
+        yield
+    finally:
+        _STATS_FROZEN.on = before
 
 
 class BatchNorm(nn.Module):
@@ -116,7 +150,10 @@ class BatchNorm(nn.Module):
         """EMA of the group-mean moments, as ``_BNCore``/``FusedIRBlock._ema``.
         Under a row shard whose groups lie within the ranks, ``mu``/``var``
         are this rank's groups: their means are averaged over the ranks, so
-        every rank keeps the same statistics."""
+        every rank keeps the same statistics. A no-op inside
+        :func:`frozen_running_stats`."""
+        if getattr(_STATS_FROZEN, "on", False):
+            return
         m, v = mu.mean(0), var.mean(0)
         shard = mesh.current_shard()
         if shard is not None and mu.shape[0] \
@@ -249,17 +286,132 @@ class PallasDepthwise(nn.Module):
         return y.permute(0, 3, 1, 2)
 
 
+def _taps(x: torch.Tensor, d: int):
+    """The 9 windows of a same-shape 3x3 conv at dilation ``d`` over the
+    NHWC ``x``: (ky, kx, (B, H, W, C) view of the zero-padded input)."""
+    h, w = x.shape[1:3]
+    xp = F.pad(x, (0, 0, d, d, d, d))
+    return [(ky, kx, xp[:, ky * d:ky * d + h, kx * d:kx * d + w])
+            for ky in range(3) for kx in range(3)]
+
+
+class Conv3x3MatMul(Conv2d):
+    """Same-shape 3x3 conv (stride 1, padding == dilation) as 9 shifted
+    channel matmuls on the NHWC view, accumulated in f32
+    (``layers.py:144-191``, ``--conv3x3_matmul``). Weight ``(O, I, 3, 3)``
+    and bias as ``nn.Conv2d``, so the weight bridge is unchanged. In bf16
+    each tap's product of bf16 values is taken in f32, as JAX's
+    ``preferred_element_type=jnp.float32``."""
+
+    def __init__(self, in_ch: int, out_ch: int, dilation: int = 1,
+                 bias: bool = False, dtype=torch.float32):
+        super().__init__(in_ch, out_ch, 3, 1, dilation, dilation, 1, bias,
+                         dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xh = x.permute(0, 2, 3, 1).to(self.dtype).float()
+        k = self.weight.to(self.dtype).float()
+        acc = None
+        for ky, kx, win in _taps(xh, self.dilation):
+            term = torch.matmul(win, k[:, :, ky, kx].t())
+            acc = term if acc is None else acc + term
+        y = acc.to(self.dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y.permute(0, 3, 1, 2)
+
+
+class _Conv3x3WgradMM(torch.autograd.Function):
+    """The library's convolution for the forward and for dx; the weight
+    gradient as 9 tap contractions ([Cin, B*H*W] x [B*H*W, Cout], f32
+    accumulation) in place of the library's weight-gradient convolution
+    (``layers.py:194-239``)."""
+
+    @staticmethod
+    def forward(ctx, x, k, dilation):
+        ctx.save_for_backward(x, k)
+        ctx.dilation = dilation
+        return F.conv2d(x, k, None, 1, dilation, dilation)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, k = ctx.saved_tensors
+        d = ctx.dilation
+        dx = torch.nn.grad.conv2d_input(x.shape, k, g, 1, d, d)
+        gh = g.permute(0, 2, 3, 1).float()
+        gh = gh.reshape(-1, gh.shape[-1])
+        dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+        for ky, kx, win in _taps(x.permute(0, 2, 3, 1).float(), d):
+            dk[:, :, ky, kx] = (win.reshape(-1, win.shape[-1]).t() @ gh).t()
+        return dx, dk.to(k.dtype), None
+
+
+def conv3x3_wgrad_mm(x: torch.Tensor, k: torch.Tensor,
+                     dilation: int) -> torch.Tensor:
+    """Same-shape stride-1 3x3 conv of NCHW ``x`` and ``k`` (O, I, 3, 3):
+    the library's forward and dx, the weight gradient as 9 tap matmuls
+    (JAX's ``conv3x3_wgrad_mm``)."""
+    return _Conv3x3WgradMM.apply(x, k, dilation)
+
+
+class Conv3x3WgradMM(Conv2d):
+    """``Conv2d``-compatible same-shape 3x3 conv backed by
+    :func:`conv3x3_wgrad_mm` (``layers.py:241-266``;
+    ``set_conv3x3_impl('wgradmm')``)."""
+
+    def __init__(self, in_ch: int, out_ch: int, dilation: int = 1,
+                 bias: bool = False, dtype=torch.float32):
+        super().__init__(in_ch, out_ch, 3, 1, dilation, dilation, 1, bias,
+                         dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = conv3x3_wgrad_mm(x.to(self.dtype), self.weight.to(self.dtype),
+                             self.dilation)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype).view(1, -1, 1, 1)
+        return y
+
+
+class DepthwiseNoWgrad(Conv2d):
+    """Diagnostic only (``layers.py:391-412``, ``set_depthwise_impl(
+    'xla_nowgrad')``): the grouped 3x3 conv with its weight detached, so the
+    backward takes no depthwise weight gradient and its cost can be measured
+    by subtraction. Never for training."""
+
+    def __init__(self, features: int, stride: int = 1, dilation: int = 1,
+                 dtype=torch.float32):
+        super().__init__(features, features, 3, stride, 0, dilation,
+                         features, False, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x.to(self.dtype), self.weight.detach().to(self.dtype),
+                        None, self.stride, 0, self.dilation, self.groups)
+
+
 _DEPTHWISE_IMPL = "xla"
+_CONV3X3_IMPL = "xla"
 
 
 def set_depthwise_impl(name: str) -> None:
     """'xla' (the library's grouped conv, default; the name is the JAX
-    package's) or 'pallas' (the hand-written kernel of ``ops/depthwise.py``;
-    ``--pallas_dw``). Process-global, read when a model is built."""
+    package's), 'pallas' (the hand-written kernel of ``ops/depthwise.py``;
+    ``--pallas_dw``) or 'xla_nowgrad' (:class:`DepthwiseNoWgrad`,
+    diagnostic). Process-global, read when a model is built."""
     global _DEPTHWISE_IMPL
-    if name not in ("xla", "pallas"):
+    if name not in ("xla", "pallas", "xla_nowgrad"):
         raise ValueError(name)
     _DEPTHWISE_IMPL = name
+
+
+def set_conv3x3_impl(name: str) -> None:
+    """'xla' (the library's convolution, default), 'matmul'
+    (:class:`Conv3x3MatMul`; ``--conv3x3_matmul``) or 'wgradmm'
+    (:class:`Conv3x3WgradMM`) for same-shape stride-1 3x3 convs.
+    Process-global, read when a model is built."""
+    global _CONV3X3_IMPL
+    if name not in ("xla", "matmul", "wgradmm"):
+        raise ValueError(name)
+    _CONV3X3_IMPL = name
 
 
 def conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1, *,
@@ -268,9 +420,18 @@ def conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1, *,
     """The conv factory's dispatch (``layers.py:269-321``)."""
     if kernel == 1 and stride == 1 and groups == 1 and padding == 0:
         return Conv1x1(in_ch, out_ch, bias, dtype)
-    if (_DEPTHWISE_IMPL == "pallas" and kernel == 3 and groups == out_ch
-            and in_ch == out_ch and not bias and padding == 0):
+    same3x3 = kernel == 3 and stride == 1 and groups == 1 \
+        and padding == dilation
+    if same3x3 and _CONV3X3_IMPL == "matmul":
+        return Conv3x3MatMul(in_ch, out_ch, dilation, bias, dtype)
+    if same3x3 and _CONV3X3_IMPL == "wgradmm":
+        return Conv3x3WgradMM(in_ch, out_ch, dilation, bias, dtype)
+    depthwise = kernel == 3 and groups == out_ch and in_ch == out_ch \
+        and not bias and padding == 0
+    if depthwise and _DEPTHWISE_IMPL == "pallas":
         return PallasDepthwise(out_ch, stride, dilation, dtype)
+    if depthwise and _DEPTHWISE_IMPL == "xla_nowgrad":
+        return DepthwiseNoWgrad(out_ch, stride, dilation, dtype)
     return Conv2d(in_ch, out_ch, kernel, stride, padding, dilation, groups,
                   bias, dtype)
 

@@ -27,14 +27,17 @@ reference's ``turn_on_dropout`` re-enables ``nn.Dropout`` modules only, and
 
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from pixelpick_tpu_torch.models.layers import (
-    BatchNorm, Dropout2d, ReLU6, conv, fixed_pad,
+    BatchNorm, Dropout2d, ReLU6, conv, fixed_pad, frozen_running_stats,
 )
+from pixelpick_tpu_torch.ops.s2d import from_s2d, to_s2d
 
 # (expand_ratio t, channels c, repeats n, stride s) — mobilenet_v2.py:82-91
 INVERTED_RESIDUAL_SETTINGS = (
@@ -71,7 +74,13 @@ def block_plan(output_stride: int, width_mult: float = 1.0):
 
 
 class InvertedResidual(nn.Module):
-    """One inverted-residual block (mobilenet_v2.py:24-66)."""
+    """One inverted-residual block (mobilenet_v2.py:24-66). With ``remat``
+    (``MobileNetV2``'s ``remat_blocks``) a train-mode forward that records a
+    graph keeps only the block input and recomputes the block in the
+    backward, as flax's ``nn.checkpoint``; the recompute leaves the running
+    statistics alone, so the EMA is applied once."""
+
+    Norm = BatchNorm
 
     def __init__(self, inp: int, oup: int, stride: int, dilation: int,
                  expand_ratio: int, dtype=torch.float32, bn_groups: int = 0):
@@ -80,20 +89,30 @@ class InvertedResidual(nn.Module):
         self.use_res = stride == 1 and inp == oup
         self.stride, self.dilation = stride, dilation
         self.dtype, self.bn_groups = dtype, bn_groups
+        self.remat = False
+        norm = self.Norm
         layers = []
         if expand_ratio != 1:
             layers += [conv(inp, hidden, 1, dtype=dtype),
-                       BatchNorm(hidden, dtype, groups=bn_groups), ReLU6()]
+                       norm(hidden, dtype, groups=bn_groups), ReLU6()]
         layers += [conv(hidden, hidden, 3, stride, dilation=dilation,
                         groups=hidden, dtype=dtype),
-                   BatchNorm(hidden, dtype, groups=bn_groups), ReLU6(),
+                   norm(hidden, dtype, groups=bn_groups), ReLU6(),
                    conv(hidden, oup, 1, dtype=dtype),
-                   BatchNorm(oup, dtype, groups=bn_groups)]
+                   norm(oup, dtype, groups=bn_groups)]
         self.conv = nn.Sequential(*layers)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _block(self, x: torch.Tensor) -> torch.Tensor:
         h = self.conv(fixed_pad(x, 3, self.dilation))  # pad the block input (:61)
         return x + h if self.use_res else h
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.remat and self.training and torch.is_grad_enabled():
+            return checkpoint(
+                self._block, x, use_reentrant=False,
+                context_fn=lambda: (contextlib.nullcontext(),
+                                    frozen_running_stats()))
+        return self._block(x)
 
 
 class MobileNetV2(nn.Module):
@@ -101,9 +120,13 @@ class MobileNetV2(nn.Module):
                  dtype=torch.float32, bn_groups: int = 0,
                  fused_ir: bool = False, mc_dropout: bool = False,
                  mc_dropout_p: float = 0.2,
-                 mc_dropout2d_committee: bool = False):
+                 mc_dropout2d_committee: bool = False, s2d_until: int = 0,
+                 remat_blocks: bool = False):
         super().__init__()
         from pixelpick_tpu_torch.models.fused_block import FusedIRBlock
+        from pixelpick_tpu_torch.models.s2d_block import (
+            FusedIRBlockS2D, InvertedResidualS2D,
+        )
 
         plan, self.out_channels = block_plan(output_stride, width_mult)
         self.low_channels = plan[2][1]
@@ -113,11 +136,16 @@ class MobileNetV2(nn.Module):
                              BatchNorm(stem_ch, dtype, groups=bn_groups),
                              ReLU6())
         blocks = []
-        for inp, oup, stride, d, t in plan:
-            block = FusedIRBlock if fused_ir and stride == 1 and t != 1 \
-                else InvertedResidual
+        for i, (inp, oup, stride, d, t) in enumerate(plan):
+            fused = fused_ir and stride == 1 and t != 1
+            if i < s2d_until and d == 1:
+                block = FusedIRBlockS2D if fused else InvertedResidualS2D
+            else:
+                block = FusedIRBlock if fused else InvertedResidual
             blocks.append(block(inp, oup, stride, d, t, dtype=dtype,
                                 bn_groups=bn_groups))
+            # the JAX package rematerialises the unfused blocks only
+            blocks[-1].remat = remat_blocks and not fused
         self.features = nn.Sequential(stem, *blocks)
         self.mc_dropout2d_committee = mc_dropout2d_committee
         if mc_dropout:
@@ -126,13 +154,30 @@ class MobileNetV2(nn.Module):
 
     def forward(self, x: torch.Tensor, mc_dropout_on: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """NCHW in; returns (high_level 1/16, low_level 1/4)."""
+        """NCHW in; returns (high_level 1/16, low_level 1/4). The s2d blocks
+        run in s2d layout while their input has an even height and width
+        (``mobilenet_v2.py:146-175``), each block deciding from its own
+        input, and the standard way otherwise."""
         h = self.features[0](x)
         low = None
+        in_s2d = False
         for i, block in enumerate(self.features[1:]):
-            h = block(h)
+            use_s2d = hasattr(block, "forward_s2d") and (
+                in_s2d or (h.shape[2] % 2 == 0 and h.shape[3] % 2 == 0))
+            if use_s2d:
+                if not in_s2d:
+                    h, in_s2d = to_s2d(h), True
+                h = block.forward_s2d(h)
+                # the stride-2 cell conv emits the normal layout
+                in_s2d = block.stride == 1
+            else:
+                if in_s2d:
+                    h, in_s2d = from_s2d(h), False
+                h = block(h)
             if i == 2:  # features[0:4] = stem + blocks 0..2 (:125)
-                low = h
+                low = from_s2d(h) if in_s2d else h
+        if in_s2d:
+            h = from_s2d(h)
         if hasattr(self, "feat_dropout"):
             on = self.training or (mc_dropout_on
                                    and self.mc_dropout2d_committee)

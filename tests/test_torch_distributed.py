@@ -118,6 +118,7 @@ def setup(tmp_path_factory):
         "rem": dict(step, bn_groups=0, batch=rem),
         "bn_span": dict(kind="bn", groups=4, **bn),
         "drop": dict(step, bn_groups=0, batch=batch8, dropout=True),
+        "s2d": dict(step, bn_groups=0, batch=batch8, s2d=True),
         "micro": dict(kind="micro", weights=weights, bn_groups=0,
                       dropout=True, micro=4, batch=micro),
         "eval": dict(kind="eval", weights=weights, batch=val, rows=6),
@@ -189,12 +190,14 @@ def assert_state_close(got: dict, ref: dict, start: dict, what: str) -> None:
         assert err <= tol, f"{what} {k}: {err} > {tol}"
 
 
-@pytest.mark.parametrize("name", ["bn0", "bn4", "rem", "drop"])
+@pytest.mark.parametrize("name", ["bn0", "bn4", "rem", "drop", "s2d"])
 def test_sharded_step_matches_single_process(setup, name):
     """Two ranks against one process on the same global batch: bn 0 (the
     BatchNorm spans the ranks), bn 4 (groups within a rank), a remainder
     of 7 padded to 8 with unequal valid counts per rank, dropout on (the
-    global batch's masks)."""
+    global batch's masks), and ``--s2d_backbone`` (the phase-grouped
+    BatchNorms of the s2d blocks, their padded counts and border terms,
+    over a group that spans the ranks)."""
     got, ref = setup["ranks"][name], setup["single"][name]
     assert abs(got["loss"] - ref["loss"]) <= 1e-5 * abs(ref["loss"]), name
     np.testing.assert_array_equal(got["hist"], ref["hist"])

@@ -133,14 +133,9 @@ def test_flag_surface_matches_jax():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--network_name", "FPN", "--s2d_backbone", "true"],
-    ["--s2d_backbone", "true"],
-    ["--s2d_backbone", "1"], ["--conv3x3_matmul"],
     ["--spatial_query_sharding"],
     ["--spatial_query_sharding", "--data_parallel", "2"],
     ["--dataset_name", "voc", "--spatial_query_sharding"],
-    ["--network_name", "FPN", "--conv3x3_matmul", "--data_parallel", "2"],
-    ["--dataset_name", "voc", "--device_augment", "--s2d_backbone", "true"],
     ["--dist_coordinator", "localhost:1", "--spatial_query_sharding"]])
 def test_unported_flags_raise(flags):
     args = config.build_parser().parse_args(flags)
@@ -166,12 +161,18 @@ def test_unported_flags_raise(flags):
     ["--dataset_name", "voc", "--network_name", "FPN", "--device_augment"],
     ["--network_name", "FPN", "--dataset_name", "cs", "--data_parallel",
      "2"],
-    ["--dataset_name", "voc", "--n_pixels_by_us", "0", "--device_augment"]])
+    ["--dataset_name", "voc", "--n_pixels_by_us", "0", "--device_augment"],
+    ["--network_name", "FPN", "--s2d_backbone", "true"],
+    ["--s2d_backbone", "true"],
+    ["--s2d_backbone", "1"], ["--conv3x3_matmul"],
+    ["--network_name", "FPN", "--conv3x3_matmul", "--data_parallel", "2"],
+    ["--dataset_name", "voc", "--device_augment", "--s2d_backbone", "true"]])
 def test_ported_round_modes_pass(flags):
     """The micro-batch step, the dense step, the MC-dropout committee, the
     pretrained overlay, stage snapshots, the campaign fast-forward, the
-    Cityscapes and VOC datasets, the FPN, device augmentation (VOC's too)
-    and data parallelism are ported: their flags pass the check."""
+    Cityscapes and VOC datasets, the FPN, device augmentation (VOC's too),
+    data parallelism and the rewrites ``--s2d_backbone`` and
+    ``--conv3x3_matmul`` are ported: their flags pass the check."""
     config.check_supported(config.build_parser().parse_args(flags))
 
 

@@ -28,10 +28,13 @@ N_CLASSES, WIDTH = 11, 0.5
 MEAN, STD = (0.41, 0.43, 0.44), (0.28, 0.29, 0.29)
 
 
-def build_model(weights, bn_groups: int, dropout: bool):
-    """The width-0.5 DeepLab at ``weights``; with ``dropout`` its dropouts
-    draw from a generator seeded 7, else they are off (p = 0)."""
-    model = DeepLab(N_CLASSES, width_mult=WIDTH, bn_groups=bn_groups)
+def build_model(weights, bn_groups: int, dropout: bool, s2d: bool = False):
+    """The width-0.5 DeepLab at ``weights`` (with ``s2d``, its first 4
+    blocks in s2d layout, as ``--s2d_backbone`` builds it); with
+    ``dropout`` its dropouts draw from a generator seeded 7, else they are
+    off (p = 0)."""
+    model = DeepLab(N_CLASSES, width_mult=WIDTH, bn_groups=bn_groups,
+                    s2d_until=4 if s2d else 0)
     model.load_state_dict(weights)
     for m in model.modules():
         if isinstance(m, layers.Dropout) and not dropout:
@@ -57,7 +60,8 @@ def run_step(sc) -> dict:
     """One sparse step on the global host batch, this rank's rows; the
     loss, confusion matrix, every gradient (after the reduction) and the
     state after the update."""
-    model = build_model(sc["weights"], sc["bn_groups"], sc["dropout"])
+    model = build_model(sc["weights"], sc["bn_groups"], sc["dropout"],
+                        sc.get("s2d", False))
     step = trainer.make_train_step(model, sgd(model), n_classes=N_CLASSES,
                                    mean=MEAN, std=STD)
     batch = sc["batch"]
