@@ -13,9 +13,10 @@ dense, MC-dropout committee), its train and eval CLIs with stage
 snapshots, JAX-layout checkpoint files, ``--resume_campaign`` and
 ``--pretrained_ckpt``, device augmentation on CamVid, Cityscapes and VOC,
 PASCAL VOC with DeepLab and with the ResNet-50 FPN, data parallelism over
-``torch.distributed``, the annotation tools and the TPU-only rewrites of
-the default math (``--s2d_backbone``, ``--conv3x3_matmul``,
-``remat_blocks``), at full width, in phases; any failure exits nonzero:
+``torch.distributed``, the annotation tools, the TPU-only rewrites of the
+default math (``--s2d_backbone``, ``--conv3x3_matmul``, ``remat_blocks``)
+and height-sharded pool sweeps (``--spatial_query_sharding``), at full
+width, in phases; any failure exits nonzero:
 
 1. card: name and power limit, torch and CUDA versions, the kernel builds;
 2. kernels vs plain: the depthwise 3x3 kernel at every shape one
@@ -83,13 +84,13 @@ the default math (``--s2d_backbone``, ``--conv3x3_matmul``,
    batch with the hard vote; at dropout p = 0 the committee's picks equal
    the plain sweep's;
 11. train CLI with a resume: ``pixelpick_tpu_torch.cli.train.main`` on
-   phase 4's human-labelled rounds (stage ``1_query``, 3 epochs,
+   phase 4's human-labelled rounds (stage ``1_query``, 2 epochs,
    ``--fused_ir --pallas_dw --stage_ckpt_interval 1``, cuDNN's
    deterministic algorithms), (a) straight and (b) interrupted after 10
-   updates of epoch 3 and rerun over the same directory: (b)'s final
+   updates of epoch 2 and rerun over the same directory: (b)'s final
    ``state_dict`` equal to (a)'s bit for bit, or else no further from it,
    leaf by leaf, than (c) a second straight run; the line says which held.
-   The snapshot's save ms and bytes, the logs' rows (epochs 1-3 once), the
+   The snapshot's save ms and bytes, the logs' rows (epochs 1-2 once), the
    snapshot gone, 13 fused launches per update, the warm epoch's images/s;
 12. eval CLI: ``pixelpick_tpu_torch.cli.eval.main --pallas_dw`` on arm
    (a)'s ``best_miou_model.ckpt`` and on a JAX-layout msgpack file of the
@@ -156,7 +157,19 @@ the default math (``--s2d_backbone``, ``--conv3x3_matmul``,
    over phase 3's pool against phase 3's path (pick sets, near-ties at the
    top-k boundary set aside; 12 depthwise launches per forward); the
    rewritten step's ms and the s2d sweep's images/s and busy share beside
-   phases 6 and 3.
+   phases 6 and 3;
+21. ``--spatial_query_sharding``: two ranks on the one card over gloo
+   (``--worker``), through the entry points at full width with
+   ``--pallas_dw``: the query CLI over the first 64 images of phase 3's
+   pool (360x480, phase 3's weights) and over 8 images of 1024x2048 at
+   pool batch 4, each held to the same command without the flag in one
+   process (pick sets, near-ties at the top-k boundary set aside), 14
+   depthwise launches per forward on every rank, on stripes, each rank's
+   peak device memory beside the single process's, the time inside the
+   collectives; ``main_al`` with the flag for one round on a 48-image
+   CamVid (the step sharded by images, the sweep by rows, every file
+   written once); and the kernel on halo-padded stripes of the 14 inputs
+   against its plain version and the whole map's rows.
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. The details go to
@@ -165,9 +178,9 @@ line, ``launches`` counts every main-path run: the depthwise kernel's
 (forward and dx) over the sweeps of phases 3 and 10, the campaign of phase
 7, the epoch runs of phases 8 and 9, the train CLI's runs of phase 11, the
 eval CLI's of phase 12, the ``--pretrained_ckpt`` round of phase 13 and
-the runs of phases 14, 15, 16 and 18, phase 19's ranks (each counts in
-its own process and reports its counts) and phase 20's s2d step and
-sweep; the fused kernels' over phases 7, 8, 9, 11, 13, 14, 15, 16 and 18
+the runs of phases 14, 15, 16 and 18, phase 19's and phase 21's ranks
+(each counts in its own process and reports its counts) and phase 20's
+s2d step and sweep; the fused kernels' over phases 7, 8, 9, 11, 13, 14, 15, 16 and 18
 and phase 20's s2d step (their counters zeroed just before each run and
 read just after). Phase 17's path reaches none of them.
 """
@@ -504,22 +517,24 @@ def phase_kernels(model) -> dict:
 # ------------------------------ phase 3 ------------------------------
 
 def make_synthetic_camvid(root: Path, n: int, n_val: int = 0,
-                          seed: int = 0) -> None:
+                          seed: int = 0, hw=IMAGE_HW) -> None:
     """CamVid layout: {root}/train/*.png RGB and {root}/trainannot/*.png
     labels 0..10 with void 11 (and ``n_val`` more under test/, testannot/),
-    in 30x40-pixel tiles; images are a colour per class plus noise."""
+    images of ``hw`` in 30x40-pixel tiles; images are a colour per class
+    plus noise."""
     from PIL import Image
 
     rng = np.random.default_rng(seed)
     palette = rng.integers(0, 256, (N_CLASSES + 1, 3))
-    h, w = IMAGE_HW
+    h, w = hw
     for split, count in (("train", n), ("test", n_val)):
         (root / split).mkdir(parents=True)
         (root / f"{split}annot").mkdir(parents=True)
         for i in range(count):
-            tiles = rng.integers(0, N_CLASSES, (h // 30, w // 40))
+            tiles = rng.integers(0, N_CLASSES, (-(-h // 30), -(-w // 40)))
             tiles[rng.random(tiles.shape) < 0.05] = VOID
-            lab = np.repeat(np.repeat(tiles, 30, 0), 40, 1).astype(np.uint8)
+            lab = np.repeat(np.repeat(tiles, 30, 0), 40, 1)[:h, :w].astype(
+                np.uint8)
             img = palette[lab] + rng.integers(-20, 21, (h, w, 3))
             Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
                 root / split / f"{i:04d}.png", compress_level=1)
@@ -659,6 +674,7 @@ def warm_sweep(selector, dataset, args) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         traced_s = sweep()
     busy, busy_us, by_name = device_busy(prof, traced_s)
+    parsed, parsed_us = device_busy_parsed(prof, traced_s)
     ours_ms = sum(t for name, (t, _) in by_name.items()
                   if PORTED_KERNEL in name) / 1e3
     print(f"[3] warm sweep (images decoded): {warm_s:.3f} s = "
@@ -666,32 +682,62 @@ def warm_sweep(selector, dataset, args) -> dict:
           f"{traced_s:.3f} s, device busy "
           + (f"{100 * busy:.1f}%, of which {ours_ms:.3f} ms in "
              f"{PORTED_KERNEL}" if busy is not None else "not measured (the "
-             "profiler saw no device activity)"))
+             "profiler saw no device activity)")
+          + (f"; from prof.events() on the same trace {100 * parsed:.1f}% "
+             f"({parsed_us / 1e3:.3f} ms against {busy_us / 1e3:.3f})"
+             if parsed is not None else ""))
     top = print_top("[3]", by_name)
     return {"warm_s": warm_s, "images_per_s": N_IMAGES / warm_s,
             "traced_s": traced_s, "device_busy_share": busy,
-            "device_busy_ms": busy_us / 1e3, "ported_kernel_ms": ours_ms,
-            "top_device_ms": top}
+            "device_busy_ms": busy_us / 1e3,
+            "device_busy_share_events_parse": parsed,
+            "device_busy_ms_events_parse": parsed_us / 1e3,
+            "ported_kernel_ms": ours_ms, "top_device_ms": top}
 
 
 def device_busy(prof, wall_s: float):
     """From a ``torch.profiler`` trace: the share of ``wall_s`` in which the
     device ran anything (the union of its kernels' intervals; None when the
     trace holds no device activity), that busy time in us, and
-    {kernel name: (us, launches)}."""
+    {kernel name: (us, launches)}. It reads the profiler's raw device
+    events, the ones ``prof.events()`` is parsed from: that parse builds
+    every host and device event of an epoch and took about a minute on a
+    slow host."""
     from torch.autograd import DeviceType
 
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy_us, end = 0.0, float("-inf")
+    spans = sorted((e.start_ns() / 1e3, (e.start_ns() + e.duration_ns())
+                    / 1e3, e.name())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA
+                   and not getattr(e, "is_hidden_event", lambda: False)())
     by_name: dict = {}
-    for s, e, name in spans:  # union of the device intervals
-        busy_us += max(0.0, e - max(s, end))
-        end = max(end, e)
+    for s, e, name in spans:
         t, n = by_name.get(name, (0.0, 0))
         by_name[name] = (t + (e - s), n + 1)
+    busy_us = union_us(spans)
     busy = busy_us / 1e6 / wall_s if spans else None
     return busy, busy_us, by_name
+
+
+def union_us(spans) -> float:
+    """The length of the union of sorted (start, end, ...) intervals."""
+    busy_us, end = 0.0, float("-inf")
+    for s, e, *_ in spans:
+        busy_us += max(0.0, e - max(s, end))
+        end = max(end, e)
+    return busy_us
+
+
+def device_busy_parsed(prof, wall_s: float):
+    """``device_busy``'s share and us from ``prof.events()``, the parse that
+    earlier versions of this script read, for one comparison on phase 3's
+    trace."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us = union_us(spans)
+    return (busy_us / 1e6 / wall_s if spans else None), busy_us
 
 
 def print_top(prefix: str, by_name: dict, n: int = 10) -> list:
@@ -1972,7 +2018,8 @@ def phase_committee(model, args, plain: dict) -> dict:
 
 # ------------------------------ phase 11 ------------------------------
 
-TRAIN_CLI_EPOCHS, INTERRUPT_AFTER_STEPS = 3, 10
+# phase 11's depth: the stage's epochs (the interruption falls in the last)
+TRAIN_CLI_EPOCHS, INTERRUPT_AFTER_STEPS = 2, 10
 
 
 def state_on_host(model) -> dict:
@@ -1988,9 +2035,10 @@ def leaf_diffs(a: dict, b: dict) -> dict:
 def phase_train_cli(work: Path) -> dict:
     """``cli.train.main`` on phase 4's human-labelled rounds (all 367 images,
     20 labelled pixels each): the stage ``1_query`` at full width with
-    ``--fused_ir --pallas_dw --stage_ckpt_interval 1`` for 3 epochs, (a)
-    straight, (b) interrupted after 10 updates of epoch 3 and rerun over
-    its directory, which resumes from the epoch-2 snapshot. cuDNN runs its
+    ``--fused_ir --pallas_dw --stage_ckpt_interval 1`` for
+    ``TRAIN_CLI_EPOCHS`` epochs, (a) straight, (b) interrupted after 10
+    updates of the last epoch and rerun over its directory, which resumes
+    from the snapshot of the epoch before. cuDNN runs its
     deterministic algorithms in every arm (its default weight-gradient
     algorithms may add in any order), so that (b) can equal (a) bit for
     bit; where it does not, (c) a second straight run is made and (b) must
@@ -2000,7 +2048,7 @@ def phase_train_cli(work: Path) -> dict:
     from pixelpick_tpu_torch.active import driver
     from pixelpick_tpu_torch.cli.train import main as train_main
 
-    cfg = write_cfg(work, "cv_3epochs", n_epochs=TRAIN_CLI_EPOCHS)
+    cfg = write_cfg(work, "cv_train_cli", n_epochs=TRAIN_CLI_EPOCHS)
     val_hists = []
     running_score, val = driver.RunningScore, driver.ALModel._val
 
@@ -2051,8 +2099,8 @@ def phase_train_cli(work: Path) -> dict:
               and counts_a["depthwise_kernel_dx"] == n_steps,
               f"arm (a) launches {counts_a} for {n_steps} updates")
 
-        # (b): the first run stops in epoch 3, its snapshot of epoch 2 on
-        # disk; the rerun resumes from it
+        # (b): the first run stops in the last epoch, its snapshot of the
+        # epoch before on disk; the rerun resumes from it
         train_epoch = driver.ALModel._train_epoch
 
         class Interrupted(Exception):
@@ -2095,9 +2143,11 @@ def phase_train_cli(work: Path) -> dict:
         for log in ("log_train.txt", "log_val.txt"):
             rows = (run_b / "1_query" / log).read_text().split()
             logs[log] = rows
-            check([r.split(",")[0] for r in rows[1:]] == ["1", "2", "3"],
+            check([r.split(",")[0] for r in rows[1:]]
+                  == [str(e) for e in range(1, TRAIN_CLI_EPOCHS + 1)],
                   f"{log} rows {rows}")
-        check([r.split(",")[0] for r in rows_before[1:]] == ["1", "2"],
+        check([r.split(",")[0] for r in rows_before[1:]]
+              == [str(e) for e in range(1, TRAIN_CLI_EPOCHS)],
               f"log_train.txt before the rerun: {rows_before}")
 
         check(list(resumed) == list(straight), "other state_dict keys")
@@ -2126,7 +2176,8 @@ def phase_train_cli(work: Path) -> dict:
              (run_a / "1_query" / "log_val.txt").read_text().split()[1:]]
     check(len(val_hists) == TRAIN_CLI_EPOCHS, f"{len(val_hists)} validations")
     best_hist = val_hists[int(np.argmax(mious))]
-    print(f"[11] train CLI, stage 1_query on human labels, 3 epochs: "
+    print(f"[11] train CLI, stage 1_query on human labels, "
+          f"{TRAIN_CLI_EPOCHS} epochs: "
           f"resumed run {'bit-exact' if bit_exact else 'not bit-exact'} "
           f"against the straight one"
           + ("" if bit_exact else
@@ -2217,7 +2268,7 @@ def phase_eval_cli(work: Path, train: dict) -> dict:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             scores, _ = eval_cli.main([
-                "-pdc", str(work / "cv_3epochs.yaml"), "--p_state_dict",
+                "-pdc", str(work / "cv_train_cli.yaml"), "--p_state_dict",
                 str(ckpt), "--dir_checkpoints", str(work / f"eval_{current}"),
                 "--device", DEVICE, "--pallas_dw", "--n_workers", "8",
                 "--visualize_interval", "50", *flags])
@@ -2963,6 +3014,10 @@ def phase_voc_device_augment(work: Path, voc: dict) -> dict:
 
 DP_WORLD, DP_BATCH, DP_TIMEOUT = 2, 8, 600
 DP_TRAIN, DP_VAL = 48, 8
+# the files a main_al round writes into its {n}_query directory
+STAGE_FILES = ("1_train.png", "1_val.png", "best_miou_model.ckpt",
+               "log_train.txt", "log_val.txt", "queries.pkl",
+               "query_stats.pkl", "timing.json")
 
 
 def dp_args(work: Path, **overrides):
@@ -3064,10 +3119,11 @@ def dp_model(args, weights):
 
 
 def worker_main(job: dict) -> int:
-    """One rank of phase 19 (``--worker``): ``step`` runs the bs-8 step on
-    its rows over gloo; ``campaign`` calls ``cli.main_al.main`` with the
-    ranks' flags, its kernels' launches counted; ``nccl`` joins an NCCL
-    world of one and runs its collectives."""
+    """One rank of phase 19 or 21 (``--worker``): ``step`` runs the bs-8
+    step on its rows over gloo; ``campaign`` calls ``cli.main_al.main``
+    with the ranks' flags, its kernels' launches counted; ``nccl`` joins an
+    NCCL world of one and runs its collectives; ``spatial`` runs entry
+    points with the ranks' flags (``spatial_ranks``)."""
     import torch
 
     import_port()
@@ -3099,6 +3155,8 @@ def worker_main(job: dict) -> int:
         torch.cuda.synchronize()
         out["launches"] = {**fused_ir.launch_counts, **{
             f"depthwise_{k}": v for k, v in dw.launch_counts.items()}}
+    elif job["kind"] == "spatial":
+        out.update(spatial_ranks(job))
     else:
         _join(job, backend="auto")
         t = torch.arange(4.0, device=DEVICE)
@@ -3200,11 +3258,8 @@ def phase_data_parallel(work: Path) -> dict:
                      ["launches"] for r in range(DP_WORLD)]
     files = sorted(str(p.relative_to(run)) for p in run.rglob("*")
                    if p.is_file())
-    stage = ["1_train.png", "1_val.png", "best_miou_model.ckpt",
-             "log_train.txt", "log_val.txt", "queries.pkl",
-             "query_stats.pkl", "timing.json"]
     want = sorted(["args.txt", "2_query/queries.pkl",
-                   *(f"{r}_query/{f}" for r in (0, 1) for f in stage)])
+                   *(f"{r}_query/{f}" for r in (0, 1) for f in STAGE_FILES)])
     rows = {f"{r}_query/{f}": (run / f"{r}_query" / f).read_text().split()
             for r in (0, 1) for f in ("log_train.txt", "log_val.txt")}
     print(f"[19] main_al as two ranks, 1 epoch and 2 rounds at bs "
@@ -3615,12 +3670,466 @@ def phase_rewrites(work: Path, model, args, step: dict, oracle: dict) -> dict:
             "step_ms": step_ms, "median_step_ms": med}
 
 
+# ------------------------------ phase 21 ------------------------------
+
+# --spatial_query_sharding on two ranks of the one card over gloo, through
+# the entry points: the query CLI over the first 64 images of phase 3's
+# pool and over 8 images of 1024x2048 at pool batch 4 (phase 3's 11-class
+# weights; the images are not resized), each held to the same command
+# without the flag in one process; then main_al's round with the flag on
+# a 48-image CamVid (phase 19's)
+SPATIAL_POOL_IMAGES, SPATIAL_CS_HW, SPATIAL_CS_IMAGES, SPATIAL_CS_BATCH = \
+    64, (1024, 2048), 8, 4
+SPATIAL_LABELLED = 10  # human-labelled pixels per image before the round
+
+
+def labelled_round(dir_dataset: Path, n: int, seed: int) -> dict:
+    """A human-labelled round's query file for the first ``n`` images of a
+    CamVid-layout set: ``SPATIAL_LABELLED`` random non-void pixels per
+    image with their labels (``category_id``, as the annotation tools
+    write them)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for p in sorted((dir_dataset / "train").glob("*.png"))[:n]:
+        y = np.asarray(Image.open(dir_dataset / "trainannot" / p.name))
+        ys, xs = np.nonzero(y != VOID)
+        pick = rng.choice(len(ys), SPATIAL_LABELLED, replace=False)
+        out[str(p)] = {"height": y.shape[0], "width": y.shape[1],
+                       "y_coords": ys[pick], "x_coords": xs[pick],
+                       "category_id": y[ys[pick], xs[pick]].astype(np.int64)}
+    return out
+
+
+def query_run(base: Path, name: str, labelled: dict) -> Path:
+    """A fresh run directory holding ``labelled`` as its round 0."""
+    run = base / name
+    (run / "0_query").mkdir(parents=True)
+    with open(run / "0_query" / "queries.pkl", "wb") as f:
+        pkl.dump(labelled, f)
+    return run
+
+
+def query_argv(dir_datasets: Path, run: Path, ckpt: Path, pool_batch: int,
+               spatial: bool) -> list:
+    """The query CLI's arguments: phase 3's strategy (margin sampling, 10
+    pixels from the top 5 %, seed 0) with ``--pallas_dw``, and the flag;
+    without it one process (``--data_parallel 1``: the default starts a
+    rank on every visible card)."""
+    return ["--dataset_name", "cv", "--dir_datasets", str(dir_datasets),
+            "--dir_checkpoints", str(run), "--p_state_dict", str(ckpt),
+            "--device", DEVICE, "--pallas_dw", "-qs", "margin_sampling",
+            "--n_pixels_by_us", "10", "--top_n_percent", "0.05", "--seed",
+            "0", "--pool_batch_size", str(pool_batch), "--n_workers", "4",
+            *(["--spatial_query_sharding"] if spatial
+              else ["--data_parallel", "1"])]
+
+
+def collectives_timed(fn) -> dict:
+    """Run ``fn()`` with the height shard's collectives timed, each between
+    two synchronisations (a rank's wait for the other included): {"ms",
+    "calls", "mib" sent by this rank}."""
+    import torch
+
+    from pixelpick_tpu_torch.parallel import distributed
+
+    acc = {"ms": 0.0, "calls": 0, "mib": 0.0}
+    originals = {n: getattr(distributed, n)
+                 for n in ("all_gather_tensor", "sum_over_ranks")}
+
+    def timed(f):
+        def wrapper(t):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = f(t)
+            torch.cuda.synchronize()
+            acc["ms"] += (time.perf_counter() - t0) * 1e3
+            acc["calls"] += 1
+            acc["mib"] += t.numel() * t.element_size() / 2 ** 20
+            return out
+        return wrapper
+
+    for n, f in originals.items():
+        setattr(distributed, n, timed(f))
+    try:
+        fn()
+    finally:
+        for n, f in originals.items():
+            setattr(distributed, n, f)
+    return acc
+
+
+def observed(entry, argv: list, record: bool = False,
+             collectives: bool = False) -> dict:
+    """``entry(argv)`` (``cli.query.main`` or ``cli.main_al.main``) with its
+    sweeps observed and nothing changed: the depthwise launches (counters
+    zeroed just before), those made under a height shard and their input
+    shapes, whether each pool batch ran on row stripes, the sweeps' wall
+    time (``QuerySelector.__call__``, to its last synchronisation) and the
+    call's peak device memory above what was allocated before; with
+    ``record``, the ranking scores ``_select_topk`` sees (for the near-tie
+    rule); with ``collectives``, the height shard's collectives timed."""
+    import torch
+
+    from pixelpick_tpu_torch.active import acquisition, selector
+    from pixelpick_tpu_torch.ops import depthwise as dw
+    from pixelpick_tpu_torch.parallel import mesh
+
+    out = {"on_stripes": 0, "shapes": [], "sharded": [], "sweep_s": 0.0}
+    scores = []
+    select, launch = acquisition._select_topk, dw._launch_kernel
+    sharded_height = mesh.sharded_height
+    call = selector.QuerySelector.__call__
+
+    def recording(uc_flat, *a, strategy, **k):
+        signed = uc_flat if strategy in acquisition.MAXIMIZING else -uc_flat
+        scores.append(signed.detach())
+        return select(uc_flat, *a, strategy=strategy, **k)
+
+    def spy(x, w, dilation, counter="kernel"):
+        if mesh.current_height_shard() is not None:
+            out["on_stripes"] += 1
+            out["shapes"].append(tuple(x.shape))
+        return launch(x, w, dilation, counter)
+
+    def noting(shard):
+        out["sharded"].append(shard is not None)
+        return sharded_height(shard)
+
+    def timed(self, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = call(self, *a, **k)
+        torch.cuda.synchronize()
+        out["sweep_s"] += time.perf_counter() - t0
+        return res
+
+    if record:
+        acquisition._select_topk = recording
+    dw._launch_kernel, mesh.sharded_height = spy, noting
+    selector.QuerySelector.__call__ = timed
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        dw.reset_launch_counts()
+        if collectives:
+            out["collectives"] = collectives_timed(lambda: entry(argv))
+        else:
+            entry(argv)
+        torch.cuda.synchronize()
+    finally:
+        acquisition._select_topk, dw._launch_kernel = select, launch
+        mesh.sharded_height = sharded_height
+        selector.QuerySelector.__call__ = call
+    out["launches"] = dict(dw.launch_counts)
+    out["peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    out["scores"] = torch.cat(scores).cpu() if scores else None
+    return out
+
+
+def spatial_ranks(job: dict) -> dict:
+    """One rank of phase 21 or of ``scripts/torch_spatial_sweep.py``: each
+    of ``job["calls"]`` (an entry point, its arguments, a port) run with
+    the rank's flags and observed; rank 0 saves the recorded scores."""
+    import torch
+
+    from pixelpick_tpu_torch.cli.main_al import main as main_al
+    from pixelpick_tpu_torch.cli.query import main as query_main
+
+    torch.cuda.set_device(job["rank"] % torch.cuda.device_count())
+    out, saved = {"device": torch.cuda.current_device()}, {}
+    for c in job["calls"]:
+        res = observed(query_main if c["entry"] == "query" else main_al,
+                       c["argv"] + [
+                           "--dist_coordinator", f"localhost:{c['port']}",
+                           "--dist_num_processes", str(job["world"]),
+                           "--dist_process_id", str(job["rank"]),
+                           "--dist_backend", job["backend"],
+                           "--data_parallel", str(job["world"])],
+                       c.get("record", False), c.get("collectives", False))
+        saved[c["name"]] = res.pop("scores")
+        out[c["name"]] = res
+    if job["rank"] == 0:
+        torch.save(saved, job["output"])
+    return out
+
+
+def free_ports(n: int) -> list:
+    """``n`` distinct free ports, one for each process group in turn."""
+    from pixelpick_tpu_torch.parallel.distributed import free_port
+
+    ports: list = []
+    while len(ports) < n:
+        p = free_port()
+        if p not in ports:
+            ports.append(p)
+    return ports
+
+
+def picks_of(run: Path, labelled: dict, n: int) -> np.ndarray:
+    """The round's picks that the query CLI wrote to ``run``'s
+    ``1_query/queries.pkl``, (images, 10) flat indices in the pool's
+    order; each image's 10 picks checked, none on a labelled pixel."""
+    from pixelpick_tpu_torch.active import codec
+
+    with open(run / "1_query" / "queries.pkl", "rb") as f:
+        masks = codec.decode_queries(pkl.load(f), return_as_dict=True)
+    lab = {Path(p).name: v for p, v in labelled.items()}
+    check(sorted(Path(p).name for p in masks) == sorted(lab),
+          f"{run}: {len(masks)} images picked, not the {len(lab)} labelled")
+    picks = []
+    for p in sorted(masks, key=lambda p: Path(p).name):
+        m, info = masks[p], lab[Path(p).name]
+        check(int(m.sum()) == n, f"{p}: {int(m.sum())} picks")
+        check(not m[info["y_coords"], info["x_coords"]].any(),
+              f"{p}: a labelled pixel picked")
+        picks.append(np.flatnonzero(m))
+    return np.stack(picks)
+
+
+def spatial_query_set(root: Path, n: int, hw, seed: int) -> dict:
+    """``n`` synthetic CamVid-layout images of ``hw`` under
+    ``root/camvid`` and a labelled round over them."""
+    make_synthetic_camvid(root / "camvid", n, hw=hw, seed=seed)
+    return labelled_round(root / "camvid", n, seed)
+
+
+def held_to_single(got_run: Path, got_scores, ref_run: Path, ref_scores,
+                   labelled: dict, hw) -> dict:
+    """The ranks' written picks against one process's (``picks_agree``:
+    near-ties at the top-k boundary set aside)."""
+    k = max(10, int(hw[0] * hw[1] * 0.05))
+    return picks_agree(
+        {"picks": picks_of(got_run, labelled, 10),
+         "scores": got_scores.to(DEVICE)},
+        {"picks": picks_of(ref_run, labelled, 10),
+         "scores": ref_scores.to(DEVICE)}, k)
+
+
+def stripe_kernel_checks(batch: int = POOL_BATCH) -> list:
+    """The kernel on rank 1's halo-padded stripe of each of a forward's 14
+    stride-1 depthwise inputs (the top pad rows rank 0's, the bottom ones
+    the image's zero pad), against its plain version (phase 2's limits and
+    times) and against the rows of the kernel's output on the whole padded
+    map (every output reads the same inputs: equal, or within twice phase
+    2's limit)."""
+    import torch
+
+    from pixelpick_tpu_torch.ops import depthwise as dw
+    from pixelpick_tpu_torch.parallel.mesh import HeightShard
+
+    shard = HeightShard((0, 192, IMAGE_HW[0]), 1, 16)
+    results = []
+    for i, ((b, hp, wp, c), d) in enumerate(expected_dw_shapes(batch)):
+        s = next(s for s in (1, 2, 4, 8, 16)
+                 if -(-IMAGE_HW[0] // s) == hp - 2 * d)
+        lo, hi = shard.rows_at(s)
+        g = torch.Generator(device=DEVICE).manual_seed(300 + i)
+        inner = torch.randn((b, hp - 2 * d, wp - 2 * d, c), device=DEVICE,
+                            generator=g)
+        full = torch.nn.functional.pad(inner, (0, 0, d, d, d, d))
+        w = torch.randn((3, 3, c), device=DEVICE, generator=g) / 3.0
+        stripe = full[:, lo:hi + 2 * d].contiguous()
+        r = _measure(stripe, w, d, dw)
+        diff = (dw.depthwise_conv3x3(stripe, w, 1, d, 0)
+                - dw.depthwise_conv3x3(full, w, 1, d, 0)[:, lo:hi]).abs()
+        mag = dw.depthwise_reference_torch(stripe.abs(), w.abs(), d)
+        r["level"] = s
+        r["whole_rows_max_abs_diff"] = float(diff.max())
+        r["whole_rows_ok"] = bool((diff <= 2 * F32_TOL * mag).all())
+        results.append(r)
+    return results
+
+
+def phase_spatial(work: Path, model, args) -> dict:
+    """``--spatial_query_sharding`` at full width (f32, ``--pallas_dw``,
+    phase 3's weights) on two ranks sharing the card over gloo, through
+    the entry points, each rank given its coordinator flags and
+    ``--data_parallel 2`` (``--worker``): (a) the query CLI over the first
+    64 images of phase 3's pool (360x480: stripes [0, 192) and
+    [192, 360)), a labelled round before it, held to the same command
+    without the flag in one process (pick sets, near-ties at the top-k
+    boundary set aside as in phase 20), 14 depthwise launches per forward
+    on every rank, on stripes; (b) the same over 8 images of 1024x2048 at
+    pool batch 4, each rank's peak device memory beside the single
+    process's; (c) ``main_al`` with the flag, 1 epoch and one round on a
+    48-image CamVid: the step sharded by images, the sweep by rows, the
+    primary writing the round's files. Each query part runs again timed,
+    the pool once more with its collectives timed. The kernel also runs
+    on rank 1's halo-padded stripes of the 14 inputs against its plain
+    version. The ranks' times share one card: they say what the halos
+    cost there, nothing of scaling."""
+    import torch
+
+    from pixelpick_tpu_torch.active import codec
+    from pixelpick_tpu_torch.cli.query import main as query_main
+    from pixelpick_tpu_torch.engine.checkpoint import save_checkpoint
+
+    spw = work / "spatial"
+    spw.mkdir()
+    ckpt = spw / "model.ckpt"
+    save_checkpoint(str(ckpt), model)
+    parts = {"pool": (work, labelled_round(work / "camvid",
+                                           SPATIAL_POOL_IMAGES, 21),
+                      POOL_BATCH, IMAGE_HW),
+             "cs": (spw / "big", spatial_query_set(
+                 spw / "big", SPATIAL_CS_IMAGES, SPATIAL_CS_HW, 22),
+                 SPATIAL_CS_BATCH, SPATIAL_CS_HW)}
+    calls = []
+    for part, (root, labelled, pb, _) in parts.items():
+        runs = [(part, {"record": True}), (f"{part}_warm", {})]
+        if part == "pool":
+            runs.append(("pool_collectives", {"collectives": True}))
+        for name, extra in runs:
+            calls.append(dict(name=name, entry="query", argv=query_argv(
+                root, query_run(spw, name, labelled), ckpt, pb, True),
+                **extra))
+    make_synthetic_camvid(spw / "camvid_al", DP_TRAIN, DP_VAL, seed=3)
+    cfg = write_cfg(spw, "cv_al", n_epochs=1, batch_size=DP_BATCH,
+                    dir_dataset=str(spw / "camvid_al"))
+    al_run = spw / "al"
+    calls.append(dict(name="al", entry="main_al", argv=[
+        "-pdc", str(cfg), "--dir_checkpoints", str(al_run), "--device",
+        DEVICE, "--pallas_dw", "--n_pixels_by_us", "10", "--max_budget",
+        "10", "-qs", "margin_sampling", "--pool_batch_size",
+        str(POOL_BATCH), "--n_workers", "4", "--seed", "0",
+        "--spatial_query_sharding"]))
+    for c, port in zip(calls, free_ports(len(calls))):
+        c["port"] = port
+    jobs = [dict(kind="spatial", rank=r, world=DP_WORLD, backend="gloo",
+                 calls=calls, output=str(spw / "scores.pt"),
+                 report=str(spw / f"rank_{r}.json"))
+            for r in range(DP_WORLD)]
+    t0 = time.perf_counter()
+    run_workers(jobs, spw / "ranks.log")
+    ranks_s = time.perf_counter() - t0
+    got = torch.load(spw / "scores.pt", weights_only=False)
+    reports = [json.loads((spw / f"rank_{r}.json").read_text())
+               for r in range(DP_WORLD)]
+    out = {"ranks_s": ranks_s, "ranks": reports,
+           "rank_launches": [r[c["name"]]["launches"]
+                             for r in reports for c in calls]}
+    for part, (root, labelled, pb, hw) in parts.items():
+        ref = observed(query_main, query_argv(
+            root, query_run(spw, f"{part}_single", labelled), ckpt, pb,
+            False), record=True)
+        warm = observed(query_main, query_argv(
+            root, query_run(spw, f"{part}_single_warm", labelled), ckpt, pb,
+            False))
+        agree = held_to_single(spw / part, got[part], spw / f"{part}_single",
+                               ref["scores"], labelled, hw)
+        n_img, n_fwd = len(labelled), -(-len(labelled) // pb)
+        mine = [r[part] for r in reports]
+        counts = [m["launches"] for m in mine]
+        out[part] = {
+            "agree": agree, "n_images": n_img, "launches": counts,
+            "on_stripes": [m["on_stripes"] for m in mine],
+            "single_launches": ref["launches"],
+            "ranks_peak_mib": [m["peak_mib"] for m in mine],
+            "single_peak_mib": ref["peak_mib"],
+            "ranks_sweep_s": [r[f"{part}_warm"]["sweep_s"] for r in reports],
+            "single_sweep_s": warm["sweep_s"],
+            "single_images_per_s": n_img / warm["sweep_s"],
+            "ranks_images_per_s": n_img / max(
+                r[f"{part}_warm"]["sweep_s"] for r in reports)}
+        print(f"[21] {part}: the query CLI over {n_img} images of "
+              f"{hw[0]}x{hw[1]} on two ranks (height stripes, gloo, one "
+              f"card) against one process: {agree['picks_differ']} pick "
+              f"otherwise, {agree['candidates_differ']} have other "
+              f"candidates (worst tie gap {agree['worst_tie_gap']:.3g}, "
+              f"limit {PICK_TIE_TOL}), "
+              f"{agree['picks_differ_equal_candidates']} pick otherwise "
+              f"from equal candidates; depthwise launches per rank "
+              f"{counts}, on stripes {out[part]['on_stripes']}, for "
+              f"{n_fwd} forwards (one process {ref['launches']}); peak "
+              f"device memory per rank "
+              f"{[round(m, 1) for m in out[part]['ranks_peak_mib']]} MiB, "
+              f"one process {ref['peak_mib']:.1f} MiB; warm sweep "
+              f"{out[part]['ranks_images_per_s']:.1f} images/s on the two "
+              f"ranks, {out[part]['single_images_per_s']:.1f} in one "
+              f"process (PNG decode included)")
+        check(agree["ok"], f"phase 21 {part} picks differ: {agree}")
+        check(all(r[name]["sharded"] == [True] * n_fwd for r in reports
+                  for name in (part, f"{part}_warm")),
+              f"phase 21 {part} did not shard: {reports}")
+        check(ref["on_stripes"] == 0 and ref["launches"]["kernel"]
+              == 14 * n_fwd, f"phase 21 {part} one process {ref}")
+        check(all(m["launches"]["kernel"] == m["on_stripes"] == 14 * n_fwd
+                  and m["launches"]["stride2_conv"] == 3 * n_fwd
+                  for m in mine), f"phase 21 {part} launches {mine}")
+    coll = [r["pool_collectives"]["collectives"] for r in reports]
+    out["pool"]["collectives"] = coll
+    print(f"[21] pool: the collectives per rank {coll} (ms between "
+          f"synchronisations, waits included; MiB sent by the rank) in a "
+          f"sweep of {[round(r['pool_collectives']['sweep_s'] * 1e3, 1) for r in reports]}"
+          f" ms with them timed, "
+          f"{[round(s * 1e3, 1) for s in out['pool']['ranks_sweep_s']]} ms "
+          f"untimed")
+
+    # (c) main_al with the flag: the round's files once, its picks valid,
+    # the sweep's two pool batches on stripes on both ranks
+    files = sorted(str(p.relative_to(al_run)) for p in al_run.rglob("*")
+                   if p.is_file())
+    want = sorted(["args.txt", "1_query/queries.pkl",
+                   *(f"0_query/{f}" for f in STAGE_FILES)])
+    with open(al_run / "1_query" / "queries.pkl", "rb") as f:
+        picked = codec.decode_queries(pkl.load(f), return_as_dict=True)
+    with open(al_run / "0_query" / "queries.pkl", "rb") as f:
+        before = codec.decode_queries(pkl.load(f), return_as_dict=True)
+    with open(al_run / "0_query" / "query_stats.pkl", "rb") as f:
+        stats = pkl.load(f)
+    al = [r["al"] for r in reports]
+    n_fwd = -(-DP_TRAIN // POOL_BATCH)
+    print(f"[21] main_al --spatial_query_sharding as two ranks, 1 epoch and "
+          f"one round at bs {DP_BATCH} on {DP_TRAIN} images: {len(files)} "
+          f"files, {len(picked)} images picked, average entropy "
+          f"{stats['avg_entropy']:.4f}; per rank the sweep's batches on "
+          f"stripes {[a['sharded'] for a in al]}, depthwise launches "
+          f"{[a['launches'] for a in al]}, on stripes "
+          f"{[a['on_stripes'] for a in al]}")
+    check(files == want, f"phase 21 main_al files {files}")
+    check(sorted(picked) == sorted(before) and len(picked) == DP_TRAIN
+          and all(int(m.sum()) == 10 and not (m & before[p]).any()
+                  for p, m in picked.items()), "phase 21 main_al picks")
+    check(np.isfinite(stats["avg_entropy"]), f"stats {stats}")
+    check(all(a["sharded"] == [True] * n_fwd
+              and a["on_stripes"] == 14 * n_fwd
+              and a["launches"]["kernel_dx"] > 0 for a in al),
+          f"phase 21 main_al ranks {al}")
+    out["al"] = {"files": files, "ranks": al,
+                 "avg_entropy": stats["avg_entropy"]}
+
+    # the ranks' kernel inputs: each a stripe of the whole padded map plus
+    # 2d halo rows
+    stripes = stripe_kernel_checks()
+    seen = [tuple(tuple(s) for s in r["pool"]["shapes"][:14])
+            for r in reports]
+    want = tuple((POOL_BATCH, r["x"][1], r["x"][2], r["x"][3])
+                 for r in stripes)
+    for r in stripes:
+        print(f"[21] stripe x{tuple(r['x'])} d={r['dilation']} (level "
+              f"{r['level']}): err {r['max_abs_err']:.3g}, against the "
+              f"whole map's rows {r['whole_rows_max_abs_diff']:.3g}; kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, library "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f}")
+        check(r["ok"] and r["whole_rows_ok"],
+              f"kernel on a halo-padded stripe: {r}")
+    check(seen[1] == want, f"rank 1's kernel inputs {seen[1]} are not the "
+                           f"stripes {want}")
+    out["stripe_kernel"] = stripes
+    return out
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="chiprun_out",
                     help="directory for chip_smoke.json")
     ap.add_argument("--worker", default="",
-                    help="run one rank of phase 19 (a JSON job) and exit")
+                    help="run one rank of phase 19 or 21 (a JSON job) and "
+                         "exit")
     opts = ap.parse_args(argv)
 
     import torch
@@ -3673,11 +4182,16 @@ def main(argv=None) -> int:
     t_rewrites = time.perf_counter()
     rewrites = phase_rewrites(work, model, args, step, oracle)
     rewrites["phase_s"] = time.perf_counter() - t_rewrites
+    t_spatial = time.perf_counter()
+    spatial = phase_spatial(work, model, args)
+    spatial["phase_s"] = time.perf_counter() - t_spatial
     phases_s = time.perf_counter() - t_start
     # phase 19's ranks count in their own processes
     dp_counts = [{f"depthwise_{k}": v for k, v in c.items()}
                  for c in dp["step_launches_per_rank"]] \
-        + dp["campaign_launches"]
+        + dp["campaign_launches"] \
+        + [{f"depthwise_{k}": v for k, v in c.items()}
+           for c in spatial["rank_launches"]]
 
     f32 = kernels["float32"]
     entry = {
@@ -3690,7 +4204,8 @@ def main(argv=None) -> int:
         # CLI's straight and resumed runs of phase 11, the eval CLI's of
         # phase 12, the --pretrained_ckpt round of phase 13 and the
         # device-augment runs of phases 14 and 15, phase 16's and 18's VOC
-        # runs, phase 19's ranks and phase 20's s2d step and sweep
+        # runs, phase 19's ranks, phase 20's s2d step and sweep and phase
+        # 21's ranks (every entry-point run, on stripes)
         "launches": sum(c[f"{pre}kernel"] + c[f"{pre}kernel_dx"]
                         for c, pre in ((oracle["launches"], ""),
                                        (committee["launches"], ""),
@@ -3757,8 +4272,8 @@ def main(argv=None) -> int:
             else "operations",
             "library_ms": sum(r[f"library_{k}_ms"] for r in f32),
         })
-    print(f"[20] phase 20 took {rewrites['phase_s']:.1f} s; phases 2-20 "
-          f"took {phases_s:.1f} s")
+    print(f"[21] phase 20 took {rewrites['phase_s']:.1f} s, phase 21 "
+          f"{spatial['phase_s']:.1f} s; phases 2-21 took {phases_s:.1f} s")
     out = Path(opts.out)
     if not out.is_absolute():
         out = HERE / out
@@ -3773,7 +4288,8 @@ def main(argv=None) -> int:
                    "device_augment": devaug, "cityscapes": city,
                    "voc_deeplab": voc, "voc_fpn": voc_fpn,
                    "voc_device_augment": voc_dev, "data_parallel": dp,
-                   "rewrites": rewrites, "phases_s": phases_s,
+                   "rewrites": rewrites, "spatial": spatial,
+                   "phases_s": phases_s,
                    "summary": [entry, *fused_entries]}, f, indent=1)
     shutil.rmtree(work, ignore_errors=True)
 

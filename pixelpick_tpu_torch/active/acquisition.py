@@ -27,6 +27,14 @@ image's true size: the padding beyond it is never picked, and the
 candidate pool's size comes from the true area, as the reference computes
 ``k = int(h * w * top_n_percent)`` from the image itself
 (``acquisition.py:49-58, 163-176``).
+
+Under a height shard (``--spatial_query_sharding``,
+``parallel/mesh.py:sharded_height``) the batch's ``x``, ``excluded`` and
+``y`` are this rank's row stripes. Each rank computes the softmax, the
+uncertainty and the exclusion on its rows; the (B, H, W) score map and the
+exclusion are gathered, so that ``_select_topk`` runs unchanged on every
+rank on the whole batch's draws, and each pick's entropy and label come
+from the rank that owns its row (summed over the ranks, zero elsewhere).
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ from pixelpick_tpu_torch.ops.resize import resize_align_corners
 from pixelpick_tpu_torch.ops.uncertainty import (
     MAXIMIZING, fill_value, uncertainty_map, xlogx,
 )
-from pixelpick_tpu_torch.parallel import mesh
+from pixelpick_tpu_torch.parallel import distributed, halo, mesh
 
 
 def _full_res_pred(model, x: torch.Tensor, **kw) -> torch.Tensor:
@@ -132,6 +140,15 @@ def committee(model, x: torch.Tensor, *, strategy: str, mc_n_steps: int,
     return prob, acc / mc_n_steps
 
 
+def _picked(prob: torch.Tensor, y: torch.Tensor, idx: torch.Tensor):
+    """The entropy of ``prob`` (B, H, W, C) and the label ``y`` (B, H, W)
+    at the flat indices ``idx`` (B, n)."""
+    bsz, c = prob.shape[0], prob.shape[-1]
+    p = torch.gather(prob.reshape(bsz, -1, c), 1,
+                     idx[..., None].expand(-1, -1, c))
+    return -xlogx(p).sum(-1), torch.gather(y.reshape(bsz, -1).long(), 1, idx)
+
+
 def make_score_fn(model, *, strategy: str, mean, std,
                   n_pixels: int, top_n_percent: float, reverse_order: bool,
                   ignore_index: int, mc_n_steps: int = 0,
@@ -151,7 +168,10 @@ def make_score_fn(model, *, strategy: str, mean, std,
     vote) and ``{"member_scores": (mc_n_steps, B, H, W)}`` (the committee's
     members); otherwise they are drawn from ``generator`` (on the batch's
     device). Under a row shard (``parallel/mesh.py:sharded``) the batch is
-    this rank's rows and every draw is the global batch's, sliced.
+    this rank's rows and every draw is the global batch's, sliced. Under a
+    height shard the batch holds this rank's row stripes, and drawn or
+    injected uniforms are the whole maps': "select" stays whole, "score"
+    and "member_scores" are sliced to the stripe.
 
     Returns (indices (B, n_pixels) int64 flat, stats dict of tensors).
     """
@@ -160,19 +180,26 @@ def make_score_fn(model, *, strategy: str, mean, std,
                     uniforms: Optional[Dict[str, torch.Tensor]] = None):
         bsz, big_h, big_w = batch["x"].shape[:3]
         dev = batch["x"].device
+        hshard = mesh.current_height_shard()
+        lo, hi = (0, big_h) if hshard is None else hshard.rows_at(1)
         if uniforms is None:
             uniforms = {}
-            # under a row shard, the global batch's draws, sliced
+            # under a row shard the global batch's draws, sliced; under a
+            # height shard the whole maps', "score" sliced to the stripe
             if top_n_percent > 0.0:
                 uniforms["select"] = mesh.rand_rows(
-                    (bsz, big_h * big_w), generator, dev)
+                    (bsz, (big_h if hshard is None else hshard.bounds[-1])
+                     * big_w), generator, dev)
             if strategy == "random":
                 uniforms["score"] = mesh.rand_rows(
-                    (bsz, big_h, big_w), generator, dev)
+                    (bsz, big_h, big_w), generator, dev, height_axis=1)
                 if mc_n_steps > 0:
                     uniforms["member_scores"] = mesh.rand_rows(
                         (mc_n_steps, bsz, big_h, big_w), generator, dev,
-                        axis=1)
+                        axis=1, height_axis=2)
+        elif hshard is not None:
+            uniforms = {k: v if k == "select" else v.narrow(-2, lo, hi - lo)
+                        for k, v in uniforms.items()}
 
         x = normalize_images(batch["x"], mean, std)
         if mc_n_steps > 0:
@@ -185,6 +212,13 @@ def make_score_fn(model, *, strategy: str, mean, std,
             uc = uncertainty_map(prob, strategy, uniforms.get("score"))
         excluded = batch["excluded"] | (batch["y"] == ignore_index)
         uc = uc.masked_fill(excluded, fill_value(strategy))
+        stripe = None
+        if hshard is not None:
+            # the whole maps on every rank; prob and y stay the stripe's
+            stripe = prob, batch["y"]
+            both = halo.gather_rows(torch.stack([uc, excluded.float()], -1))
+            uc, excluded = both[..., 0], both[..., 1].bool()
+            big_h = hshard.bounds[-1]
         if "hw" in batch:
             hw = batch["hw"].long()
             rows = torch.arange(big_h, device=dev)[None, :, None]
@@ -206,11 +240,16 @@ def make_score_fn(model, *, strategy: str, mean, std,
         # excluded/void/pad pixels (an image with < n_pixels candidates)
         picked_valid = torch.gather((~(excluded | pad)).reshape(bsz, -1), 1,
                                     idx)
-        c = prob.shape[-1]
-        picked_prob = torch.gather(prob.reshape(bsz, -1, c), 1,
-                                   idx[..., None].expand(-1, -1, c))
-        picked_ent = -xlogx(picked_prob).sum(-1)
-        picked_y = torch.gather(batch["y"].reshape(bsz, -1).long(), 1, idx)
+        if stripe is None:
+            picked_ent, picked_y = _picked(prob, batch["y"], idx)
+        else:
+            # each pick's from the rank that owns its row, zero elsewhere
+            own = (idx >= lo * big_w) & (idx < hi * big_w)
+            local = (idx - lo * big_w).clamp(0, (hi - lo) * big_w - 1)
+            ent, y = _picked(*stripe, local)
+            both = distributed.sum_over_ranks(torch.stack(
+                [ent.double(), y.double()]) * own)
+            picked_ent, picked_y = both[0].float(), both[1].long()
         ys, xs = idx // big_w, idx % big_w
         # mean pairwise distance per image over valid picks (coverage)
         dy = ys[:, :, None] - ys[:, None, :]

@@ -18,6 +18,14 @@ world size does not divide is scored whole on every rank. Each rank scores
 its images whole, in eval mode, on the global batch's draws; the picks and
 stats are gathered in image order over gloo, so every rank labels the same
 masks, and the primary writes the stats.
+
+With ``--spatial_query_sharding`` the sweep shards every image of a pool
+batch by row stripes instead (JAX ``selector.py:37-41``;
+``parallel/mesh.py:height_shard``), at the model's total stride: each rank
+computes its stripe of every map and every rank gets every pick, so
+nothing is gathered after the batch. Where an image has fewer whole
+stride units than there are ranks the batch runs replicated, with a
+warning. Training keeps its batch sharding.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ class QuerySelector:
         self.model = model
         self.device = torch.device(device)
         self.seed = args.seed
+        self.spatial = bool(getattr(args, "spatial_query_sharding", False))
         self.mc_n_steps = args.mc_n_steps if args.use_mc_dropout else 0
         self._score_fn = make_score_fn(
             model,
@@ -73,11 +82,16 @@ class QuerySelector:
         # and in eval mode every image is scored independently of the rest
         # of its batch.
         for batch in self.loader:
-            shard = mesh.row_shard(batch["x"].shape[0])
-            local = mesh.shard_batch(batch, shard)
-            dev_batch = {k: torch.from_numpy(local[k]).to(self.device)
-                         for k in ("x", "excluded", "y", "hw") if k in local}
-            with mesh.sharded(shard):
+            if self.spatial:
+                shard, hshard = None, mesh.height_shard(
+                    batch["x"].shape[1], self.model.total_stride)
+            else:
+                shard, hshard = mesh.row_shard(batch["x"].shape[0]), None
+            local = mesh.shard_rows(mesh.shard_batch(batch, shard), hshard)
+            dev_batch = {k: torch.from_numpy(
+                np.ascontiguousarray(local[k])).to(self.device)
+                for k in ("x", "excluded", "y", "hw") if k in local}
+            with mesh.sharded(shard), mesh.sharded_height(hshard):
                 indices, dev_stats = self._score_fn(dev_batch, generator)
             indices = indices.cpu().numpy()
             dev_stats = {k: v.cpu().numpy() for k, v in dev_stats.items()}

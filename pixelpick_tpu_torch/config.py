@@ -237,13 +237,14 @@ DATASET_DEFAULTS = {
 
 
 def check_supported(args: Namespace) -> None:
-    """Raise on a flag whose code path the port does not have yet, naming
-    the ROADMAP.md item that ports it."""
-    if args.spatial_query_sharding:
+    """Raise on a combination of flags whose code path the port does not
+    have yet, naming the ROADMAP.md item that ports it."""
+    if args.spatial_query_sharding and args.s2d_backbone \
+            and args.network_name == "deeplab":
         raise NotImplementedError(
-            "not ported to the PyTorch package yet: --spatial_query_sharding "
-            "(ROADMAP Queue 1 item 8's last piece: model parallelism over "
-            "image height)")
+            "not ported to the PyTorch package yet: --s2d_backbone under "
+            "--spatial_query_sharding (ROADMAP Queue 1 item 18: the s2d "
+            "blocks' border terms on row stripes)")
 
 
 def finalize_args(args: Namespace, write_files: bool = True) -> Namespace:

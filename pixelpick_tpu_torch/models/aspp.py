@@ -6,7 +6,8 @@ branch, concatenated 5x256 -> 1x1 conv 256. The reference's bilinear
 align-corners upsample of the 1x1 pooled map is a broadcast
 (``aspp.py:44-50``). The output passes ``Dropout(0.5)`` (``aspp.py:56``),
 active in train mode or under ``mc_dropout_on`` (the MC-dropout committee).
-Module names follow the reference.
+Module names follow the reference. Under a height shard the atrous convs
+take their halos in ``Conv2d`` and the pooling sums over the ranks.
 """
 
 from __future__ import annotations
@@ -16,11 +17,15 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from pixelpick_tpu_torch.models.layers import BatchNorm, Dropout, conv
+from pixelpick_tpu_torch.parallel import halo
 
 
 class _GlobalMean(nn.Module):
+    """The mean over H and W; under a height shard, over the whole map's
+    (``halo.mean``)."""
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x.mean(dim=(2, 3), keepdim=True)
+        return halo.mean(x, (2, 3), axis=2, keepdim=True)
 
 
 class _ASPPModule(nn.Module):

@@ -80,6 +80,8 @@ class DeepLab(nn.Module):
             BatchNorm(48, dtype, groups=bn_groups), nn.ReLU())
         self.seg_head = SegmentHead(n_classes, 256 + 48, dtype, mc_dropout_p,
                                     bn_groups)
+        # the backbone's total stride: the height shard's unit
+        self.total_stride = output_stride
 
     def set_dropout_generator(self,
                               generator: Optional[torch.Generator]) -> None:

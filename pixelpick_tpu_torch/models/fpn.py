@@ -21,7 +21,11 @@ levels reach different sizes, and the JAX model fails on their sum
 GroupNorm has flax's arithmetic: f32 statistics with the fast variance
 ``max(0, E[x^2] - E[x]^2)``, ``(x - mean) * (rsqrt(var + eps) * scale) +
 bias``, and an f32 result in both compute dtypes (flax promotes the bf16
-input with its f32 parameters). Module names are the reference's torch
+input with its f32 parameters). Under a height shard
+(``--spatial_query_sharding``) its per-image sums of x and x^2 are the
+stripes' f64 sums added over the ranks, and the 3x3 convs and the x2
+resizes take their halo rows in ``models/layers.py`` and ``ops/resize.py``.
+Module names are the reference's torch
 layout (``encoder.base.*``, ``decoder.lat_layer_{i}``,
 ``decoder.upsample_blocks_{c}.{b}.block.{0,1}``, ``decoder.classifier``),
 which the JAX package's ``convert_fpnseg`` reads. The model takes and
@@ -38,6 +42,7 @@ import torch.nn as nn
 from pixelpick_tpu_torch.models.layers import conv
 from pixelpick_tpu_torch.models.resnet import ResNetBackbone, stage_channels
 from pixelpick_tpu_torch.ops.resize import resize_bilinear
+from pixelpick_tpu_torch.parallel import halo
 
 CHAINS = (3, 3, 3, 2)  # upsample blocks on p5, p4, p3, p2
 
@@ -71,8 +76,8 @@ class GroupNorm(nn.Module):
         g = self.num_groups
         xf = x.float()
         xg = xf.reshape(b, g, c // g, h, w)
-        mu = xg.mean((2, 3, 4))
-        mu2 = (xg * xg).mean((2, 3, 4))
+        mu = halo.mean(xg, (2, 3, 4), axis=3)
+        mu2 = halo.mean(xg * xg, (2, 3, 4), axis=3)
         var = torch.clamp(mu2 - mu * mu, min=0.0)
         mu = mu.repeat_interleave(c // g, 1)[..., None, None]
         mul = torch.rsqrt(var + self.eps).repeat_interleave(c // g, 1) \
@@ -149,6 +154,8 @@ class FPNSeg(nn.Module):
                                 dtype=dtype, bn_groups=bn_groups)
         self.decoder = FPNDecoder(
             n_classes, stage_channels(n_layers, width_multiplier), dtype)
+        # the encoder's total stride: the height shard's unit
+        self.total_stride = {8: 8, 16: 16}.get(dilate_scale, 32)
 
     def set_dropout_generator(self,
                               generator: Optional[torch.Generator]) -> None:

@@ -10,7 +10,10 @@ Parameters and BatchNorm statistics stay f32; each conv casts its input and
 weight to the compute ``dtype`` and BatchNorm casts its output to it, as the
 JAX modules do (``layers.py:81-83``, ``:134-136``, ``:304-318``). Under data
 parallelism (``parallel/mesh.py``) the train-mode BatchNorm groups and the
-dropout draws are the global batch's. Parameter
+dropout draws are the global batch's. Under a height shard
+(``--spatial_query_sharding``, eval only) every op that pads rows takes
+them from ``parallel/halo.py`` and runs VALID in height, and the dropout
+masks are the whole map's, sliced to the rank's rows. Parameter
 and buffer names follow the reference's torch modules (``weight``, ``bias``,
 ``running_mean``, ``running_var``, ``num_batches_tracked``).
 
@@ -34,7 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from pixelpick_tpu_torch.ops.depthwise import depthwise_conv3x3
-from pixelpick_tpu_torch.parallel import distributed, mesh
+from pixelpick_tpu_torch.parallel import distributed, halo, mesh
 
 
 def he_normal_fan_in_(weight: torch.Tensor, generator: torch.Generator) -> None:
@@ -168,6 +171,9 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
+            if mesh.current_height_shard() is not None:
+                raise RuntimeError("a height shard runs the eval-mode sweep "
+                                   "only; train-mode BatchNorm refuses it")
             y, mu, var = ghost_bn_train(x, self.weight, self.bias,
                                         self.groups, self.eps, self.dtype)
             self.update_running_stats(mu.detach(), var.detach())
@@ -211,8 +217,10 @@ class Dropout(nn.Module):
         if not (self.training if active is None else active) or self.p == 0:
             return x
         shape = (*x.shape[:2], 1, 1) if self.broadcast_hw else x.shape
-        # the global batch's draw, sliced to this rank's rows
-        u = mesh.rand_rows(shape, self.generator, x.device)
+        # the global batch's draw (the whole map's under a height shard),
+        # sliced to this rank's rows
+        u = mesh.rand_rows(shape, self.generator, x.device,
+                           height_axis=None if self.broadcast_hw else 2)
         keep = u < 1.0 - self.p
         return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
 
@@ -260,8 +268,12 @@ class Conv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(self.dtype)
+        x, pad_h = halo.pad_rows(x, (self.weight.shape[2] - 1)
+                                 * self.dilation + 1, self.stride,
+                                 self.padding)
         return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), bias,
-                        self.stride, self.padding, self.dilation, self.groups)
+                        self.stride, (pad_h, self.padding), self.dilation,
+                        self.groups)
 
 
 class PallasDepthwise(nn.Module):
@@ -286,11 +298,13 @@ class PallasDepthwise(nn.Module):
         return y.permute(0, 3, 1, 2)
 
 
-def _taps(x: torch.Tensor, d: int):
-    """The 9 windows of a same-shape 3x3 conv at dilation ``d`` over the
-    NHWC ``x``: (ky, kx, (B, H, W, C) view of the zero-padded input)."""
-    h, w = x.shape[1:3]
-    xp = F.pad(x, (0, 0, d, d, d, d))
+def _taps(x: torch.Tensor, d: int, pad_h: int):
+    """The 9 windows of a 3x3 conv at dilation ``d`` over the NHWC ``x``,
+    zero-padded by ``d`` columns and ``pad_h`` rows on each side (``d``:
+    same-shape; 0: rows already padded, ``halo.pad_rows``): (ky, kx,
+    (B, H_out, W, C) view of the padded input)."""
+    xp = F.pad(x, (0, 0, d, d, pad_h, pad_h))
+    h, w = xp.shape[1] - 2 * d, x.shape[2]
     return [(ky, kx, xp[:, ky * d:ky * d + h, kx * d:kx * d + w])
             for ky in range(3) for kx in range(3)]
 
@@ -310,9 +324,11 @@ class Conv3x3MatMul(Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xh = x.permute(0, 2, 3, 1).to(self.dtype).float()
+        xh, pad_h = halo.pad_rows(xh, 2 * self.dilation + 1, 1,
+                                  self.dilation, axis=1)
         k = self.weight.to(self.dtype).float()
         acc = None
-        for ky, kx, win in _taps(xh, self.dilation):
+        for ky, kx, win in _taps(xh, self.dilation, pad_h):
             term = torch.matmul(win, k[:, :, ky, kx].t())
             acc = term if acc is None else acc + term
         y = acc.to(self.dtype)
@@ -328,30 +344,32 @@ class _Conv3x3WgradMM(torch.autograd.Function):
     (``layers.py:194-239``)."""
 
     @staticmethod
-    def forward(ctx, x, k, dilation):
+    def forward(ctx, x, k, dilation, pad_h):
         ctx.save_for_backward(x, k)
-        ctx.dilation = dilation
-        return F.conv2d(x, k, None, 1, dilation, dilation)
+        ctx.dilation, ctx.pad_h = dilation, pad_h
+        return F.conv2d(x, k, None, 1, (pad_h, dilation), dilation)
 
     @staticmethod
     def backward(ctx, g):
         x, k = ctx.saved_tensors
-        d = ctx.dilation
-        dx = torch.nn.grad.conv2d_input(x.shape, k, g, 1, d, d)
+        d, pad_h = ctx.dilation, ctx.pad_h
+        dx = torch.nn.grad.conv2d_input(x.shape, k, g, 1, (pad_h, d), d)
         gh = g.permute(0, 2, 3, 1).float()
         gh = gh.reshape(-1, gh.shape[-1])
         dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
-        for ky, kx, win in _taps(x.permute(0, 2, 3, 1).float(), d):
+        for ky, kx, win in _taps(x.permute(0, 2, 3, 1).float(), d, pad_h):
             dk[:, :, ky, kx] = (win.reshape(-1, win.shape[-1]).t() @ gh).t()
-        return dx, dk.to(k.dtype), None
+        return dx, dk.to(k.dtype), None, None
 
 
 def conv3x3_wgrad_mm(x: torch.Tensor, k: torch.Tensor,
                      dilation: int) -> torch.Tensor:
     """Same-shape stride-1 3x3 conv of NCHW ``x`` and ``k`` (O, I, 3, 3):
     the library's forward and dx, the weight gradient as 9 tap matmuls
-    (JAX's ``conv3x3_wgrad_mm``)."""
-    return _Conv3x3WgradMM.apply(x, k, dilation)
+    (JAX's ``conv3x3_wgrad_mm``); under a height shard on ``x``'s rows
+    padded by ``halo.pad_rows``."""
+    x, pad_h = halo.pad_rows(x, 2 * dilation + 1, 1, dilation)
+    return _Conv3x3WgradMM.apply(x, k, dilation, pad_h)
 
 
 class Conv3x3WgradMM(Conv2d):
@@ -445,7 +463,13 @@ def fixed_padding_amounts(kernel_size: int, dilation: int) -> Tuple[int, int]:
     return beg, total - beg
 
 
-def fixed_pad(x: torch.Tensor, kernel_size: int, dilation: int) -> torch.Tensor:
-    """Pad H and W of an NCHW tensor (memory format kept)."""
+def fixed_pad(x: torch.Tensor, kernel_size: int, dilation: int,
+              stride: int = 1) -> torch.Tensor:
+    """Pad H and W of an NCHW tensor (memory format kept) for the VALID
+    window of ``kernel_size`` at ``dilation`` and ``stride`` that follows.
+    Under a height shard the rows are the ones that window reads, the
+    neighbours' between stripes (the stride-2 window takes the top halo
+    row only)."""
     beg, end = fixed_padding_amounts(kernel_size, dilation)
-    return F.pad(x, (beg, end, beg, end))
+    x, pad_h = halo.pad_rows(x, (kernel_size - 1) * dilation + 1, stride, beg)
+    return F.pad(x, (beg, end, pad_h, pad_h + end - beg))

@@ -38,6 +38,7 @@ from pixelpick_tpu_torch.models.layers import (
     BatchNorm, Dropout2d, ReLU6, conv, fixed_pad, frozen_running_stats,
 )
 from pixelpick_tpu_torch.ops.s2d import from_s2d, to_s2d
+from pixelpick_tpu_torch.parallel import mesh
 
 # (expand_ratio t, channels c, repeats n, stride s) — mobilenet_v2.py:82-91
 INVERTED_RESIDUAL_SETTINGS = (
@@ -103,7 +104,8 @@ class InvertedResidual(nn.Module):
         self.conv = nn.Sequential(*layers)
 
     def _block(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv(fixed_pad(x, 3, self.dilation))  # pad the block input (:61)
+        # pad the block input (:61)
+        h = self.conv(fixed_pad(x, 3, self.dilation, self.stride))
         return x + h if self.use_res else h
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -164,6 +166,11 @@ class MobileNetV2(nn.Module):
         for i, block in enumerate(self.features[1:]):
             use_s2d = hasattr(block, "forward_s2d") and (
                 in_s2d or (h.shape[2] % 2 == 0 and h.shape[3] % 2 == 0))
+            if use_s2d and mesh.current_height_shard() is not None:
+                raise NotImplementedError(
+                    "--s2d_backbone under --spatial_query_sharding: the "
+                    "s2d blocks' border terms assume the image's own edges "
+                    "(ROADMAP Queue 1 item 18)")
             if use_s2d:
                 if not in_s2d:
                     h, in_s2d = to_s2d(h), True

@@ -32,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from pixelpick_tpu_torch.models.layers import BatchNorm, conv
+from pixelpick_tpu_torch.parallel import halo
 
 LAYER_SPECS = {
     18: ("basic", (2, 2, 2, 2)),
@@ -140,6 +141,14 @@ class _Stem(nn.Module):
         return x
 
 
+def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
+    """The stem's 3x3 / stride-2 max pool, padded with -inf as the JAX
+    package's; under a height shard the pad rows between stripes are the
+    neighbours' rows."""
+    x, pad_h = halo.pad_rows(x, 3, 2, 1, float("-inf"))
+    return F.max_pool2d(x, 3, 2, (pad_h, 1))
+
+
 class ResNetBackbone(nn.Module):
     """NCHW input -> ``[c2, c3, c4, c5]`` (``resnet.py:114-171``)."""
 
@@ -171,8 +180,7 @@ class ResNetBackbone(nn.Module):
             setattr(self, f"layer{li}", nn.Sequential(*blocks))
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        # F.max_pool2d pads with -inf, as the JAX package's max pool
-        h = F.max_pool2d(self.prefix(x), 3, 2, 1)
+        h = max_pool_3x3_s2(self.prefix(x))
         feats = []
         for li in range(1, 5):
             h = getattr(self, f"layer{li}")(h)

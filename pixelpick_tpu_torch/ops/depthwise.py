@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from pixelpick_tpu_torch.ops.build import load_library
+from pixelpick_tpu_torch.parallel import halo
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -172,7 +173,12 @@ def _dw_forward(x: torch.Tensor, w: torch.Tensor, stride: int,
 
 def depthwise_conv3x3(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
                       dilation: int = 1, padding: int = 1) -> torch.Tensor:
-    """Depthwise 3x3 conv, NHWC, symmetric ``padding``; w: (3, 3, C)."""
+    """Depthwise 3x3 conv, NHWC, symmetric ``padding``; w: (3, 3, C).
+    Under a height shard (``parallel/mesh.py:sharded_height``) ``x`` is a
+    row stripe: the pad rows between stripes are the neighbours' rows
+    (``parallel/halo.py``), so the kernel's pre-padded input carries the
+    halo; at stride 2 only the top one is read."""
+    x, pad_h = halo.pad_rows(x, 2 * dilation + 1, stride, padding, axis=1)
     if padding:
-        x = F.pad(x, (0, 0, padding, padding, padding, padding)).contiguous()
+        x = F.pad(x, (0, 0, padding, padding, pad_h, pad_h)).contiguous()
     return _dw_forward(x, w, stride, dilation)

@@ -7,6 +7,12 @@ whatever the input dtype. ``align_corners=True`` is the DeepLab path
 (``s = d * (in - 1) / (out - 1)``); ``False`` is half-pixel
 (``s = (d + 0.5) * in / out - 0.5``).
 
+Under a height shard (``parallel/mesh.py:sharded_height``) ``x`` and the
+output are row stripes of their maps: each rank's output rows read the
+input rows that its rows of the row matrix touch, some of which another
+rank holds (``parallel/halo.py:fetch_rows``); with no shard the row
+matrix is the whole one and no row moves.
+
 The sparse-coordinate forms (``gather_bilinear_align_corners``,
 ``gather_bilinear_matmul``) evaluate the align-corners upsampling at the
 labelled pixels only, for the sparse training loss; by linearity they equal
@@ -19,6 +25,8 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+from pixelpick_tpu_torch.parallel import halo
 
 
 @lru_cache(maxsize=None)
@@ -72,12 +80,36 @@ def resize_bilinear(x: torch.Tensor, out_hw, align_corners: bool) -> torch.Tenso
     oh, ow = int(out_hw[0]), int(out_hw[1])
     if (oh, ow) == (h, w):
         return x[0] if squeeze else x
-    ah = interp_matrix(h, oh, align_corners, x.device)
+    ah, x = _rows(x, oh, align_corners)
     aw = interp_matrix(w, ow, align_corners, x.device)
     y = torch.einsum("oh,bhwc->bowc", ah, x.float())
     y = torch.einsum("pw,bowc->bopc", aw, y)
     y = y.to(x.dtype).contiguous()
     return y[0] if squeeze else y
+
+
+@lru_cache(maxsize=None)
+def _rows_read(in_size: int, out_bounds: tuple, align_corners: bool):
+    """Each rank's input rows ``(a, b)`` that its output rows
+    ``out_bounds[q]:out_bounds[q + 1]`` of the row matrix read."""
+    mat = _interp_matrix_np(in_size, out_bounds[-1], align_corners)
+    needs = []
+    for q in range(len(out_bounds) - 1):
+        cols = np.nonzero(mat[out_bounds[q]:out_bounds[q + 1]].any(0))[0]
+        needs.append((int(cols[0]), int(cols[-1]) + 1))
+    return tuple(needs)
+
+
+def _rows(x: torch.Tensor, oh: int, align_corners: bool):
+    """The row matrix's block for this rank's ``oh`` output rows and the
+    input rows it reads (``halo.fetch_rows``: under a height shard some
+    are another rank's; with none, the whole matrix and ``x``)."""
+    h = halo.bounds(x.shape[1])[0][-1]
+    out, r = halo.bounds(oh)
+    needs = _rows_read(h, out, align_corners)
+    a, b = needs[r]
+    ah = interp_matrix(h, out[-1], align_corners, x.device)
+    return ah[out[r]:out[r + 1], a:b], halo.fetch_rows(x, needs, axis=1)
 
 
 def resize_align_corners(x: torch.Tensor, out_hw) -> torch.Tensor:

@@ -121,6 +121,47 @@ def all_gather_object(obj) -> list:
     return out
 
 
+def _eval_only(t: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and t.requires_grad:
+        raise RuntimeError("the height shard's collectives are eval-only: "
+                           "no gradient flows through them")
+
+
+def _staged(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the world group's backend takes it: under gloo a CUDA
+    tensor is staged through host memory (two ranks sharing one card run
+    gloo, and gloo's collectives on CUDA tensors are partial)."""
+    if t.is_cuda and dist.get_backend() == "gloo":
+        t = t.cpu()
+    return t.contiguous()
+
+
+def all_gather_tensor(t: torch.Tensor) -> List[torch.Tensor]:
+    """Every rank's ``t`` (the same shape and dtype on every rank), in rank
+    order, on ``t``'s device; over the world group (NCCL on cards, gloo on
+    the CPU). Eval only; a failed collective raises."""
+    if world_size() == 1:
+        return [t]
+    _eval_only(t)
+    src = _staged(t)
+    out = [torch.empty_like(src) for _ in range(world_size())]
+    dist.all_gather(out, src)
+    return [o.to(t.device) for o in out]
+
+
+def sum_over_ranks(t: torch.Tensor) -> torch.Tensor:
+    """The sum of ``t`` over the ranks, a new tensor on ``t``'s device;
+    over the world group. Eval only (no gradient flows through it)."""
+    if world_size() == 1:
+        return t
+    _eval_only(t)
+    src = _staged(t)
+    if src.data_ptr() == t.data_ptr():
+        src = src.clone()
+    dist.all_reduce(src)
+    return src.to(t.device)
+
+
 def check_replicated(model: torch.nn.Module) -> None:
     """Raise unless every rank holds the same weights and buffers: each is
     built from the same seed, which stands in for broadcasting rank 0's

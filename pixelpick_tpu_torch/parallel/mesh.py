@@ -18,13 +18,19 @@ batch.
 - ``pad_batch_to_devices``: remainder batches padded with inert rows
   (``mesh.py:70-129``), to a multiple of the world size or to
   ``target_rows``. A host-side NumPy function.
+- ``height_shard`` / ``sharded_height``: ``--spatial_query_sharding``'s
+  split of every image of a pool batch into row stripes, one per rank
+  (``shard_batch_spatial``, ``mesh.py:147-183``). Every rank holds the
+  whole host batch and computes its stripe of every map; the ops that pad
+  rows take their neighbours' rows from ``parallel/halo.py``. Eval only.
 """
 
 from __future__ import annotations
 
+import warnings
 from contextlib import contextmanager
 from contextvars import ContextVar
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +47,104 @@ class RowShard(NamedTuple):
 
 _SHARD: ContextVar[Optional[RowShard]] = ContextVar("row_shard",
                                                     default=None)
+
+
+class HeightShard(NamedTuple):
+    """Rank ``rank``'s row stripe of every image of a batch: ``bounds`` are
+    the W + 1 row boundaries at full size (``bounds[-1]`` the image
+    height), each inner one a multiple of the network's total stride
+    ``stride``. A map at stride s (s a power of 2 up to ``stride``) has
+    ``ceil(h / s)`` rows, split at ``bounds[r] // s``."""
+    bounds: Tuple[int, ...]
+    rank: int
+    stride: int
+
+    def bounds_at(self, s: int) -> Tuple[int, ...]:
+        """Every rank's boundaries on the map at stride ``s``."""
+        return (*(b // s for b in self.bounds[:-1]), -(-self.bounds[-1] // s))
+
+    def rows_at(self, s: int) -> Tuple[int, int]:
+        """This rank's rows ``[lo, hi)`` of the map at stride ``s``."""
+        b = self.bounds_at(s)
+        return b[self.rank], b[self.rank + 1]
+
+    def level(self, rows: int) -> int:
+        """The stride of the map whose stripe on this rank has ``rows``
+        rows. Unique: every stripe holds at least ``stride`` rows at full
+        size, so a rank's stripe shrinks at every level."""
+        s = 1
+        while s <= self.stride:
+            lo, hi = self.rows_at(s)
+            if hi - lo == rows:
+                return s
+            s *= 2
+        raise ValueError(f"a stripe of {rows} rows is no level of the "
+                         f"height shard {self}")
+
+
+_HSHARD: ContextVar[Optional[HeightShard]] = ContextVar("height_shard",
+                                                        default=None)
+
+
+def _split(units: int, w: int, stride: int):
+    """W + 1 boundaries of ``units`` stride units as equal as they go, the
+    first ranks taking the extra units."""
+    per, extra = divmod(units, w)
+    out = [0]
+    for r in range(w):
+        out.append(out[-1] + (per + (r < extra)) * stride)
+    return out
+
+
+def height_shard(h: int, stride: int) -> Optional[HeightShard]:
+    """This rank's stripe of images of ``h`` rows under a network of total
+    stride ``stride``, or None: one rank, or fewer whole stride units than
+    ranks (then the sweep runs replicated, with a warning, as JAX's
+    ``shard_batch_spatial`` replicates, ``mesh.py:175-182``).
+
+    The ``ceil(h / stride)`` rows of the deepest map are split as equally
+    as they go, the first ranks taking the extra, and the last stripe
+    ends at ``h`` (CamVid's 360 rows on 2 ranks: [0, 192), [192, 360)).
+    Where that would leave the last stripe less than one whole unit, the
+    ``h // stride`` whole units are split instead."""
+    w = distributed.world_size()
+    if w == 1:
+        return None
+    if h // stride < w:
+        warnings.warn(
+            f"--spatial_query_sharding: images of {h} rows hold {h // stride}"
+            f" whole units of the network's stride {stride}, fewer than the "
+            f"{w} ranks; the sweep runs replicated", stacklevel=2)
+        return None
+    b = _split(-(-h // stride), w, stride)
+    if h - b[-2] < stride:
+        b = _split(h // stride, w, stride)
+    return HeightShard((*b[:-1], h), distributed.rank(), stride)
+
+
+def shard_rows(batch: dict, shard: Optional[HeightShard]) -> dict:
+    """The rank's rows of the image-shaped arrays of a host batch (``x``,
+    ``excluded``, ``y``: axis 1); ``hw``, ``index`` and the rest whole."""
+    if shard is None:
+        return batch
+    lo, hi = shard.rows_at(1)
+    return {k: v[:, lo:hi] if k in ("x", "excluded", "y") else v
+            for k, v in batch.items()}
+
+
+@contextmanager
+def sharded_height(shard: Optional[HeightShard]):
+    """Run the block on row stripe ``shard`` of every image (None: whole).
+    Eval only: every op that pads rows fetches its neighbours' rows."""
+    token = _HSHARD.set(shard)
+    try:
+        yield
+    finally:
+        _HSHARD.reset(token)
+
+
+def current_height_shard() -> Optional[HeightShard]:
+    return _HSHARD.get()
 
 
 def row_shard(b: int) -> Optional[RowShard]:
@@ -101,9 +205,21 @@ def current_shard() -> Optional[RowShard]:
 
 
 def rand_rows(shape, generator: Optional[torch.Generator], device,
-              axis: int = 0) -> torch.Tensor:
+              axis: int = 0, height_axis: Optional[int] = None
+              ) -> torch.Tensor:
     """``torch.rand(shape)`` for this rank's rows: drawn for the whole
-    global batch (``shape[axis]`` is the rank's row count) and sliced."""
+    global batch (``shape[axis]`` is the rank's row count) and sliced.
+    Under a height shard, ``shape[height_axis]`` is the rank's stripe of a
+    map: the draw is the whole map's, sliced to the stripe; a draw without
+    ``height_axis`` is whole."""
+    hs = _HSHARD.get()
+    if hs is not None and height_axis is not None:
+        level = hs.level(shape[height_axis])
+        lo, hi = hs.rows_at(level)
+        full = list(shape)
+        full[height_axis] = hs.bounds_at(level)[-1]
+        return torch.rand(full, generator=generator,
+                          device=device).narrow(height_axis, lo, hi - lo)
     s = _SHARD.get()
     if s is None:
         return torch.rand(shape, generator=generator, device=device)

@@ -337,9 +337,8 @@ def test_failed_rank_fails_the_launcher(tmp_path):
 
 
 def test_refusals(monkeypatch):
-    """--fused_ir with more than one rank (the JAX package's rule), a
-    --data_parallel other than the world size under a coordinator, and
-    --spatial_query_sharding (Queue 1 item 8's last piece)."""
+    """--fused_ir with more than one rank (the JAX package's rule) and a
+    --data_parallel other than the world size under a coordinator."""
     from pixelpick_tpu_torch.models import factory
 
     args = config.default_args(device="cpu", fused_ir=True,
@@ -352,6 +351,3 @@ def test_refusals(monkeypatch):
         distributed.initialize_from_args(config.build_parser().parse_args(
             ["--device", "cpu", "--dist_coordinator", "localhost:1",
              "--dist_num_processes", "2", "--data_parallel", "3"]))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        config.check_supported(config.build_parser().parse_args(
-            ["--spatial_query_sharding", "--data_parallel", "2"]))

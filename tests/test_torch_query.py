@@ -137,10 +137,13 @@ def test_flag_surface_matches_jax():
     ["--spatial_query_sharding", "--data_parallel", "2"],
     ["--dataset_name", "voc", "--spatial_query_sharding"],
     ["--dist_coordinator", "localhost:1", "--spatial_query_sharding"]])
-def test_unported_flags_raise(flags):
+def test_spatial_query_sharding_flags_accepted(flags):
+    """--spatial_query_sharding is ported (alone, with data parallelism,
+    on VOC's buckets, under a coordinator): check_supported lets it
+    through."""
     args = config.build_parser().parse_args(flags)
-    with pytest.raises(NotImplementedError, match="ROADMAP|Queue"):
-        config.check_supported(args)
+    assert args.spatial_query_sharding
+    assert config.check_supported(args) is None
 
 
 @pytest.mark.parametrize("flags", [

@@ -1,4 +1,5 @@
-"""One rank of the port's data-parallel tests (tests/test_torch_distributed.py).
+"""One rank of the port's data-parallel tests (tests/test_torch_distributed.py,
+tests/test_torch_spatial.py).
 
     python tests/torch_dist_worker.py SPEC RANK WORLD PORT OUT
 
@@ -138,11 +139,187 @@ def run_sweep(sc) -> dict:
     ds = get_dataset(args, val=False, query=False)
     dq = get_dataset(args, val=False, query=True, generate_init_queries=False)
     dq.queries, dq.n_pixels_total = ds.queries, ds.n_pixels_total
-    model = build_model(sc["weights"], 0, True).eval()
+    model = build_port({"weights": sc["weights"], "mc": args.use_mc_dropout,
+                        "pallas": args.pallas_dw}) \
+        if args.spatial_query_sharding else \
+        build_model(sc["weights"], 0, True).eval()
     with Loader(dq, args.pool_batch_size, mode="query",
                 n_workers=1) as loader:
         picks = QuerySelector(args, loader, model, "cpu")(0)
-    return {"picks": picks}
+    return {"picks": picks,
+            "stats": _sweep_stats(args) if distributed.is_primary() else None}
+
+
+def _sweep_stats(args) -> dict:
+    """The round's stats the primary wrote."""
+    with open(f"{args.dir_checkpoints}/0_query/query_stats.pkl", "rb") as f:
+        return pickle.load(f)
+
+
+def _init_(module: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Every parameter and BatchNorm statistic drawn from ``seed``: the
+    same module on every rank and in the test process."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in module.state_dict().items():
+            if name.endswith("running_var"):
+                t.uniform_(0.5, 2.0, generator=g)
+            elif t.is_floating_point():
+                t.normal_(0.0, 0.3, generator=g)
+    return module.eval()
+
+
+def layer_op(name: str, size):
+    """(input's stride level, its channels, NHWC?, the op, whether its
+    output is whole rather than a stripe) of a per-layer case of
+    tests/test_torch_spatial.py. ``size(s)`` is this process's (rows,
+    columns) of the map at stride s. The modules are seeded, so every
+    process builds the same."""
+    from pixelpick_tpu_torch.models.aspp import _GlobalMean
+    from pixelpick_tpu_torch.models.fpn import GroupNorm
+    from pixelpick_tpu_torch.models.mobilenet_v2 import InvertedResidual
+    from pixelpick_tpu_torch.models.resnet import max_pool_3x3_s2
+    from pixelpick_tpu_torch.ops.depthwise import depthwise_conv3x3
+    from pixelpick_tpu_torch.ops.resize import resize_bilinear
+
+    conv = layers.Conv2d
+    w = torch.randn((3, 3, 8), generator=torch.Generator().manual_seed(3))
+
+    def dw_block(stride, dilation, cout, impl):
+        layers.set_depthwise_impl(impl)
+        try:
+            return _init_(InvertedResidual(8, cout, stride, dilation, 6), 5)
+        finally:
+            layers.set_depthwise_impl("xla")
+
+    def dropout(x):
+        d = layers.Dropout(0.5)
+        d.generator = torch.Generator().manual_seed(6)
+        return d(x, active=True)
+
+    ops = {
+        "conv3x3": (1, 8, False, _init_(conv(8, 8, 3, padding=1), 1)),
+        "conv3x3_dilated": (1, 8, False,
+                            _init_(conv(8, 8, 3, padding=2, dilation=2), 1)),
+        # the ASPP's rate at 1/16: stripes of 2-3 rows, a reach of 6
+        "atrous_rate6": (16, 8, False,
+                         _init_(conv(8, 8, 3, padding=6, dilation=6), 1)),
+        "atrous_rate18": (16, 8, False,
+                          _init_(conv(8, 8, 3, padding=18, dilation=18), 1)),
+        "conv3x3_s2": (1, 8, False, _init_(conv(8, 8, 3, 2, padding=1), 1)),
+        "stem7x7_s2": (1, 3, False, _init_(conv(3, 8, 7, 2, padding=3), 1)),
+        "conv3x3_matmul": (1, 8, False,
+                           _init_(layers.Conv3x3MatMul(8, 8, 2), 1)),
+        "depthwise_s1": (1, 8, True, lambda x: depthwise_conv3x3(
+            x, w, 1, 2, padding=2)),
+        "depthwise_s2": (1, 8, True, lambda x: depthwise_conv3x3(
+            x, w, 2, 1, padding=1)),
+        "block_s1_fixed_pad": (2, 8, False, dw_block(1, 2, 8, "xla")),
+        "block_s2_fixed_pad": (2, 8, False, dw_block(2, 1, 16, "xla")),
+        "block_pallas_dw": (4, 8, False, dw_block(1, 1, 8, "pallas")),
+        "max_pool": (2, 8, False, max_pool_3x3_s2),
+        "resize_ac_16_to_4": (16, 8, True,
+                              lambda x: resize_bilinear(x, size(4), True)),
+        "resize_ac_4_to_1": (4, 8, True,
+                             lambda x: resize_bilinear(x, size(1), True)),
+        "resize_half_8_to_4": (8, 8, True, lambda x: resize_bilinear(
+            x, (2 * x.shape[1], 2 * x.shape[2]), False)),
+        "dropout": (4, 8, False, dropout),
+        "global_mean": (16, 8, False, _GlobalMean()),
+        "group_norm": (1, 16, False, _init_(GroupNorm(4, 16), 2)),
+    }
+    return (*ops[name], name == "global_mean")
+
+
+def run_layers(sc) -> dict:
+    """Each per-layer op of ``sc["ops"]`` on this rank's stripe of its
+    input, a map of ``sc["hw"]`` at stride s (the whole map in one
+    process), under the DeepLab's stride 16: the output stripes gathered
+    in rank order."""
+    out = {}
+    h, w = sc["hw"]
+    shard = mesh.height_shard(h, 16)
+
+    def size(s):
+        lo, hi = (0, -(-h // s)) if shard is None else shard.rows_at(s)
+        return hi - lo, -(-w // s)
+
+    for name in sc["ops"]:
+        s, c, nhwc, op, whole = layer_op(name, size)
+        g = torch.Generator().manual_seed(11)
+        x = torch.randn((2, c, -(-h // s), -(-w // s)), generator=g)
+        x = x.contiguous(memory_format=torch.channels_last)
+        if nhwc:
+            x = x.permute(0, 2, 3, 1).contiguous()
+        axis = 1 if nhwc else 2
+        if shard is not None:
+            lo, hi = shard.rows_at(s)
+            x = x.narrow(axis, lo, hi - lo)
+        with torch.no_grad(), mesh.sharded_height(shard):
+            y = op(x)
+        if shard is not None and not whole:
+            y = torch.cat(distributed.all_gather_object(y), axis)
+        out[name] = y
+    return out
+
+
+def build_port(sc):
+    """The scenario's model: the width-0.5 DeepLab at ``sc["weights"]``
+    (``--pallas_dw`` with ``sc["pallas"]``, the MC-dropout sites with
+    ``sc["mc"]``), or the seeded ResNet-18 FPN."""
+    from pixelpick_tpu_torch.models.factory import init_model
+    from pixelpick_tpu_torch.models.fpn import FPNSeg
+
+    if sc.get("fpn"):
+        model = FPNSeg(N_CLASSES, n_layers=18, width_multiplier=WIDTH)
+        init_model(model, 4)
+        return model.to(memory_format=torch.channels_last).eval()
+    layers.set_depthwise_impl("pallas" if sc.get("pallas") else "xla")
+    try:
+        model = DeepLab(N_CLASSES, width_mult=WIDTH,
+                        mc_dropout=sc.get("mc", False))
+    finally:
+        layers.set_depthwise_impl("xla")
+    model.load_state_dict(sc["weights"])
+    return model.to(memory_format=torch.channels_last).eval()
+
+
+def run_score(sc) -> dict:
+    """``make_score_fn`` on the host batch ``sc["batch"]`` with
+    ``--spatial_query_sharding``'s split (the rank's row stripes; the whole
+    images in one process), the draws injected (``sc["uniforms"]``) or
+    from a generator seeded ``sc["seed"]`` that the dropouts share: the
+    picks, the stats, whether the split warned and fell back, and the
+    depthwise launches counted."""
+    import warnings
+
+    import numpy as np
+
+    from pixelpick_tpu_torch.active.acquisition import make_score_fn
+    from pixelpick_tpu_torch.ops import depthwise
+
+    model = build_port(sc)
+    g = torch.Generator().manual_seed(sc.get("seed", 0))
+    model.set_dropout_generator(g)
+    score = make_score_fn(model, mean=MEAN, std=STD, ignore_index=N_CLASSES,
+                          **sc["kw"])
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        shard = mesh.height_shard(sc["batch"]["x"].shape[1],
+                                  model.total_stride)
+    local = mesh.shard_rows(sc["batch"], shard)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v))
+             for k, v in local.items()}
+    uniforms = None if sc.get("uniforms") is None else {
+        k: torch.from_numpy(v) for k, v in sc["uniforms"].items()}
+    depthwise.reset_launch_counts()
+    with mesh.sharded_height(shard):
+        idx, stats = score(batch, g, uniforms)
+    return {"idx": idx.numpy(), "stats": {k: v.numpy()
+                                          for k, v in stats.items()},
+            "warned": any("replicated" in str(w.message) for w in caught),
+            "sharded": shard is not None,
+            "launches": dict(depthwise.launch_counts)}
 
 
 def run_pipe(sc) -> dict:
@@ -179,7 +356,8 @@ def run_pipe(sc) -> dict:
 
 
 SCENARIOS = {"step": run_step, "bn": run_bn, "micro": run_micro,
-             "eval": run_eval, "sweep": run_sweep, "pipe": run_pipe}
+             "eval": run_eval, "sweep": run_sweep, "pipe": run_pipe,
+             "layers": run_layers, "score": run_score}
 
 
 def run(spec: dict) -> dict:
