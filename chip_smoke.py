@@ -169,7 +169,19 @@ width, in phases; any failure exits nonzero:
    collectives; ``main_al`` with the flag for one round on a 48-image
    CamVid (the step sharded by images, the sweep by rows, every file
    written once); and the kernel on halo-padded stripes of the 14 inputs
-   against its plain version and the whole map's rows.
+   against its plain version and the whole map's rows;
+22. JAX orbax checkpoints and JAX stage snapshots, with neither orbax nor
+   tensorstore on the machine: the committed JAX-written orbax fixture
+   (``tests/torch_fixtures/jax_orbax/``, OCDBT and zstd) decoded and every
+   leaf's sha256 checked; one ``--debug`` round of ``main_al --fused_ir
+   --pallas_dw --ckpt_backend orbax --stage_ckpt_interval 1`` (the step
+   directory alone, no tmp left; two more saves number on and prune as
+   JAX's do; a full-width save and load timed), then the query CLI with
+   ``--pallas_dw`` from that directory and from a torch file of the same
+   weights (the same ``state_dict`` and picks, 14 launches per forward);
+   the round's epoch-1 snapshot rewritten in JAX's layout and resumed by
+   ``main_al`` (model and optimizer bit-equal to the port's snapshot's;
+   the stage's fused and depthwise launches counted).
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. The details go to
@@ -179,10 +191,12 @@ line, ``launches`` counts every main-path run: the depthwise kernel's
 7, the epoch runs of phases 8 and 9, the train CLI's runs of phase 11, the
 eval CLI's of phase 12, the ``--pretrained_ckpt`` round of phase 13 and
 the runs of phases 14, 15, 16 and 18, phase 19's and phase 21's ranks
-(each counts in its own process and reports its counts) and phase 20's
-s2d step and sweep; the fused kernels' over phases 7, 8, 9, 11, 13, 14, 15, 16 and 18
-and phase 20's s2d step (their counters zeroed just before each run and
-read just after). Phase 17's path reaches none of them.
+(each counts in its own process and reports its counts), phase 20's
+s2d step and sweep and phase 22's round, query CLI runs and resumed
+stage; the fused kernels' over phases 7, 8, 9, 11, 13, 14, 15, 16 and 18,
+phase 20's s2d step and phase 22's round and resumed stage (their
+counters zeroed just before each run and read just after). Phase 17's
+path reaches none of them.
 """
 
 from __future__ import annotations
@@ -4123,6 +4137,248 @@ def phase_spatial(work: Path, model, args) -> dict:
 
 
 
+# ------------------------------ phase 22 ------------------------------
+
+ORBAX_FIXTURE = HERE / "tests" / "torch_fixtures" / "jax_orbax"
+
+
+def tree_hashes(tree: dict, prefix=()) -> dict:
+    """``scripts/torch_make_orbax_fixture.py``'s ``hashes.json`` entries of
+    a nested dict of arrays."""
+    import hashlib
+
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out.update(tree_hashes(v, prefix + (k,)))
+        else:
+            a = np.ascontiguousarray(v)
+            out["/".join(prefix + (k,))] = {
+                "dtype": a.dtype.str, "shape": list(a.shape),
+                "sha256": hashlib.sha256(a.tobytes()).hexdigest()}
+    return out
+
+
+def optimizer_on_host(opt) -> dict:
+    return {"step_count": opt.step_count,
+            "state": [{k: [t.detach().cpu().clone() for t in ts]
+                       for k, ts in st.items()} for st in opt.state]}
+
+
+def same_optimizer(a: dict, b: dict) -> bool:
+    return a["step_count"] == b["step_count"] and len(a["state"]) \
+        == len(b["state"]) and all(
+        sorted(ga) == sorted(gb) and all(
+            len(ga[k]) == len(gb[k]) and all(torch_equal(x, y) for x, y in
+                                              zip(ga[k], gb[k]))
+            for k in ga) for ga, gb in zip(a["state"], b["state"]))
+
+
+def phase_orbax(work: Path) -> dict:
+    """JAX orbax checkpoints and JAX stage snapshots on the card's machine,
+    which has neither orbax nor tensorstore:
+
+    (a) the committed JAX-written fixture (OCDBT, zstd) decoded, every
+        leaf's sha256 against ``hashes.json``;
+    (b) one ``main_al`` round (``--debug`` length) at the main path's
+        configuration with ``--ckpt_backend orbax --stage_ckpt_interval
+        1``: the best model as ``best_miou_model.ckpt.orbax/step_00000000/``
+        and nothing else, no tmp directory; two more saves of it number on
+        and prune as JAX's do (steps 1 and 2 left), timed with the load;
+        the query CLI with ``--pallas_dw`` from that directory and from a
+        torch file of the same weights: bit-equal ``state_dict`` and picks,
+        14 depthwise launches per forward each;
+    (c) the round's epoch-1 snapshot rewritten in the JAX package's layout
+        (``save_jax_stage_state``: the msgpack writer and
+        ``optimizer_state_to_jax``) and resumed by ``main_al --fused_ir
+        --pallas_dw``: the model and optimizer after the load bit-equal to
+        those the port's own snapshot loads, and the stage finishes with
+        its fused and depthwise launches counted."""
+    import torch
+
+    from pixelpick_tpu_torch.active import driver
+    from pixelpick_tpu_torch.cli import query as query_cli
+    from pixelpick_tpu_torch.engine import checkpoint as ckpt_mod
+    from pixelpick_tpu_torch.engine import orbax
+    from pixelpick_tpu_torch.engine.optim import make_optimizer
+    from pixelpick_tpu_torch.models.factory import get_model
+    from pixelpick_tpu_torch.ops import depthwise as dw
+
+    card = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    out = {"card": card}
+
+    # (a) the fixture
+    with open(ORBAX_FIXTURE / "hashes.json") as f:
+        want = json.load(f)
+    t0 = time.perf_counter()
+    tree = orbax.read_latest(str(ORBAX_FIXTURE / "best_miou_model.ckpt.orbax"))
+    out["fixture_decode_ms"] = (time.perf_counter() - t0) * 1e3
+    check(tree_hashes(tree) == want, "the JAX orbax fixture decodes to other "
+                                     "arrays than hashes.json names")
+    print(f"[22] (a) the JAX orbax fixture (OCDBT, zstd): {len(want)} leaves "
+          f"decoded in {out['fixture_decode_ms']:.1f} ms, every sha256 as "
+          f"written ({card})")
+
+    # (b) a round that writes orbax
+    base = work / "orbax"
+    cfg = work / "cv_2epochs.yaml"
+    run = base / "round"
+    flags = ["-pdc", str(cfg), "--device", DEVICE, "--fused_ir",
+             "--pallas_dw", "--n_pixels_by_us", "10", "--max_budget", "10",
+             "-qs", "margin_sampling", "--pool_batch_size", str(POOL_BATCH),
+             "--n_workers", "8", "--seed", "0", "--debug",
+             "--stage_ckpt_interval", "1"]
+    port_snapshot = base / "port_stage_state.ckpt"
+    save_stage_state = driver.save_stage_state
+
+    def keep_snapshot(path, *a, **k):
+        save_stage_state(path, *a, **k)
+        shutil.copyfile(path, port_snapshot)
+
+    driver.save_stage_state = keep_snapshot
+    try:
+        al, round_s, counts = run_main_al(
+            flags + ["--dir_checkpoints", str(run), "--ckpt_backend",
+                     "orbax"], {})
+    finally:
+        driver.save_stage_state = save_stage_state
+    check(counts["fused_fwd"] == 13 and counts["fused_bwd"] == 13
+          and counts["depthwise_kernel_dx"] == 1, f"the round's {counts}")
+    stage = run / "0_query"
+    root = stage / "best_miou_model.ckpt.orbax"
+    check(not (stage / "best_miou_model.ckpt").exists()
+          and sorted(os.listdir(root)) == ["step_00000000"],
+          f"orbax layout {sorted(os.listdir(root))}")
+    check(port_snapshot.is_file() and not (stage / "stage_state.ckpt")
+          .exists(), "the epoch-1 snapshot was not written, or outlived "
+                     "its stage")
+    with open(root / "step_00000000" / "_METADATA") as f:
+        check(json.load(f)["use_ocdbt"] is False, "not the plain layout")
+
+    args = default_args_cv(work)
+    model = ckpt_mod.load_checkpoint(str(stage / "best_miou_model.ckpt"),
+                                     get_model(args))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):  # numbered on, and pruned as JAX prunes
+        ckpt_mod.save_checkpoint(str(stage / "best_miou_model.ckpt"), model,
+                                 backend="orbax")
+    ckpt_mod.wait_for_checkpoints()
+    out["orbax_write_ms"] = (time.perf_counter() - t0) * 1e3 / 2
+    steps = sorted(os.listdir(root))
+    check(steps == ["step_00000001", "step_00000002"], f"steps {steps}")
+    t0 = time.perf_counter()
+    again = ckpt_mod.load_checkpoint(str(stage / "best_miou_model.ckpt"),
+                                     get_model(args))
+    torch.cuda.synchronize()
+    out["orbax_read_ms"] = (time.perf_counter() - t0) * 1e3
+    check(all(torch.equal(a, b) for a, b in zip(
+        model.state_dict().values(), again.state_dict().values())),
+        "the orbax directory reads back to other weights")
+    torch_file = base / "model.ckpt"
+    ckpt_mod.save_checkpoint(str(torch_file), model)
+
+    loaded, picks, query_counts = {}, {}, {}
+    load = query_cli.load_checkpoint
+
+    def recording(path, m):
+        m = load(path, m)
+        loaded[current] = state_on_host(m)
+        return m
+
+    query_cli.load_checkpoint = recording
+    try:
+        for current, p in (("orbax", stage / "best_miou_model.ckpt"),
+                           ("torch", torch_file)):
+            qrun = base / f"query_{current}"
+            for r in ("0_query", "1_query"):
+                (qrun / r).mkdir(parents=True)
+                shutil.copyfile(work / "human" / r / "queries.pkl",
+                                qrun / r / "queries.pkl")
+            dw.reset_launch_counts()
+            path = query_cli.main([
+                "--dataset_name", "cv", "--dir_datasets", str(work),
+                "--dir_checkpoints", str(qrun), "--p_state_dict", str(p),
+                "--device", DEVICE, "--pallas_dw", "--n_pixels_by_us", "10",
+                "--pool_batch_size", str(POOL_BATCH), "--n_workers", "8"])
+            query_counts[current] = dict(dw.launch_counts)
+            picks[current] = Path(path).read_bytes()
+    finally:
+        query_cli.load_checkpoint = load
+    n_forwards = -(-N_IMAGES // POOL_BATCH)
+    for current, c in query_counts.items():
+        check(c["kernel"] == 14 * n_forwards, f"{current}: {c} for "
+                                              f"{n_forwards} forwards")
+    check(list(loaded["orbax"]) == list(loaded["torch"]) and all(
+        torch.equal(loaded["orbax"][k], loaded["torch"][k])
+        for k in loaded["orbax"]), "the query CLI loads other weights from "
+                                   "the orbax directory")
+    check(picks["orbax"] == picks["torch"], "the picks differ between the "
+                                            "orbax and the torch file")
+    print(f"[22] (b) main_al --ckpt_backend orbax --stage_ckpt_interval 1: a "
+          f"--debug round in {round_s:.1f} s, launches {counts}; layout "
+          f"step_00000000 alone, no tmp; two more saves leave {steps}; a "
+          f"full-width orbax save {out['orbax_write_ms']:.1f} ms, load "
+          f"{out['orbax_read_ms']:.1f} ms ({card}); the query CLI from the "
+          f"orbax directory and from a torch file: the same state_dict and "
+          f"picks, launches {query_counts['orbax']} each")
+
+    # (c) resuming a JAX-layout snapshot
+    model = get_model(args)
+    opt = make_optimizer(args, model, 1)
+    gen = torch.Generator(device=DEVICE)
+    epoch, best = ckpt_mod.load_stage_state(str(port_snapshot), model, opt,
+                                            gen)
+    check(epoch == 1, f"the port's snapshot is of epoch {epoch}")
+    want_model, want_opt = state_on_host(model), optimizer_on_host(opt)
+    jrun = base / "jax_resume"
+    (jrun / "0_query").mkdir(parents=True)
+    ckpt_mod.save_jax_stage_state(str(jrun / "0_query" / "stage_state.ckpt"),
+                                  model, opt, epoch, best)
+    got = {}
+    load_stage = driver.load_stage_state
+
+    def recording_stage(path, m, o, g, seed=None):
+        res = load_stage(path, m, o, g, seed=seed)
+        got.update(model=state_on_host(m), opt=optimizer_on_host(o),
+                   epoch=res[0])
+        return res
+
+    driver.load_stage_state = recording_stage
+    try:
+        al, resume_s, resume_counts = run_main_al(
+            flags + ["--dir_checkpoints", str(jrun)], {})
+    finally:
+        driver.load_stage_state = load_stage
+    check(got.get("epoch") == 1, "main_al did not resume the JAX snapshot")
+    # JAX keeps no BatchNorm update count (the reference's
+    # num_batches_tracked, which no computation reads): it restarts at 0
+    check(list(got["model"]) == list(want_model) and all(
+        torch.equal(got["model"][k], want_model[k]) for k in want_model
+        if not k.endswith("num_batches_tracked")),
+        "the JAX snapshot loads other weights than the port's")
+    check(same_optimizer(got["opt"], want_opt),
+          "the JAX snapshot loads another optimizer state than the port's")
+    check(resume_counts["fused_fwd"] == 13 and resume_counts["fused_bwd"]
+          == 13 and resume_counts["depthwise_kernel_dx"] == 1
+          and resume_counts["depthwise_kernel"] >= 1 + n_forwards,
+          f"the resumed stage's launches {resume_counts}")
+    check(not (jrun / "0_query" / "stage_state.ckpt").exists()
+          and (jrun / "1_query" / "queries.pkl").is_file(),
+          "the resumed stage did not finish")
+    out.update(round_s=round_s, round_launches=counts,
+               query_launches=query_counts, resume_s=resume_s,
+               resume_launches=resume_counts,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"[22] (c) a JAX-layout stage_state.ckpt of epoch 1 resumed by "
+          f"main_al --fused_ir --pallas_dw in {resume_s:.1f} s: model and "
+          f"optimizer bit-equal to the port's snapshot's, launches "
+          f"{resume_counts}; phase 22 took {out['phase_s']:.1f} s ({card})")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="chiprun_out",
@@ -4185,6 +4441,8 @@ def main(argv=None) -> int:
     t_spatial = time.perf_counter()
     spatial = phase_spatial(work, model, args)
     spatial["phase_s"] = time.perf_counter() - t_spatial
+    phases_2_21_s = time.perf_counter() - t_start
+    orbax = phase_orbax(work)
     phases_s = time.perf_counter() - t_start
     # phase 19's ranks count in their own processes
     dp_counts = [{f"depthwise_{k}": v for k, v in c.items()}
@@ -4205,7 +4463,8 @@ def main(argv=None) -> int:
         # phase 12, the --pretrained_ckpt round of phase 13 and the
         # device-augment runs of phases 14 and 15, phase 16's and 18's VOC
         # runs, phase 19's ranks, phase 20's s2d step and sweep and phase
-        # 21's ranks (every entry-point run, on stripes)
+        # 21's ranks (every entry-point run, on stripes) and phase 22's
+        # round, query CLI runs and resumed stage
         "launches": sum(c[f"{pre}kernel"] + c[f"{pre}kernel_dx"]
                         for c, pre in ((oracle["launches"], ""),
                                        (committee["launches"], ""),
@@ -4232,6 +4491,14 @@ def main(argv=None) -> int:
                                        (rewrites["step_launches"],
                                         "depthwise_"),
                                        (rewrites["sweep"]["launches"], ""),
+                                       (orbax["round_launches"],
+                                        "depthwise_"),
+                                       (orbax["query_launches"]["orbax"],
+                                        ""),
+                                       (orbax["query_launches"]["torch"],
+                                        ""),
+                                       (orbax["resume_launches"],
+                                        "depthwise_"),
                                        *((c, "depthwise_")
                                          for c in dp_counts))),
         "max_abs_err": max(r["max_abs_err"] for r in f32),
@@ -4245,8 +4512,8 @@ def main(argv=None) -> int:
     }
     # the fused kernels: per train step of the main path, the 13 blocks at
     # batch 4 in f32, summed; launches over the main-path train runs of
-    # phases 7, 8, 9, 11 (both arms), 13, 14, 15, 16 and 18, and phase 20's
-    # s2d step
+    # phases 7, 8, 9, 11 (both arms), 13, 14, 15, 16 and 18, phase 20's
+    # s2d step and phase 22's round and resumed stage
     f32 = fused["float32"]
     fused_entries = []
     for k, name, line in (("fwd", "fused_ir_fwd", 221),
@@ -4262,7 +4529,8 @@ def main(argv=None) -> int:
                 resume["pretrained_launches"], devaug["launches"],
                 devaug["host_loader_launches"], city["launches"],
                 voc["launches"], voc_dev["launches"],
-                rewrites["step_launches"], *dp["campaign_launches"])),
+                rewrites["step_launches"], orbax["round_launches"],
+                orbax["resume_launches"], *dp["campaign_launches"])),
             "max_abs_err": max(r["y_max_abs_err" if k == "fwd"
                                  else "grad_max_abs_err"] for r in f32),
             "ms": sum(r[f"{k}_ms"] for r in f32),
@@ -4272,8 +4540,10 @@ def main(argv=None) -> int:
             else "operations",
             "library_ms": sum(r[f"library_{k}_ms"] for r in f32),
         })
-    print(f"[21] phase 20 took {rewrites['phase_s']:.1f} s, phase 21 "
-          f"{spatial['phase_s']:.1f} s; phases 2-21 took {phases_s:.1f} s")
+    print(f"[22] phase 20 took {rewrites['phase_s']:.1f} s, phase 21 "
+          f"{spatial['phase_s']:.1f} s, phase 22 {orbax['phase_s']:.1f} s; "
+          f"phases 2-21 took {phases_2_21_s:.1f} s, phases 2-22 "
+          f"{phases_s:.1f} s")
     out = Path(opts.out)
     if not out.is_absolute():
         out = HERE / out
@@ -4289,6 +4559,7 @@ def main(argv=None) -> int:
                    "voc_deeplab": voc, "voc_fpn": voc_fpn,
                    "voc_device_augment": voc_dev, "data_parallel": dp,
                    "rewrites": rewrites, "spatial": spatial,
+                   "orbax": orbax, "phases_2_21_s": phases_2_21_s,
                    "phases_s": phases_s,
                    "summary": [entry, *fused_entries]}, f, indent=1)
     shutil.rmtree(work, ignore_errors=True)

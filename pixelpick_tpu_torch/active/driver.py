@@ -25,8 +25,12 @@ MC-dropout committee (``active/acquisition.py``).
 
 Checkpoints (``driver.py:143-162, 178-205, 270-294``):
 ``--pretrained_ckpt`` overlays a JAX msgpack file on every round's fresh
-model; ``--stage_ckpt_interval N`` snapshots a stage after validation every
-N epochs and resumes it from ``{stage}/stage_state.ckpt`` on a rerun;
+model; ``--ckpt_backend orbax`` saves each best model as JAX's orbax
+``best_miou_model.ckpt.orbax/step_N/`` on a background thread, waited for
+before the query (``driver.py:298-300``); ``--stage_ckpt_interval N``
+snapshots a stage after validation every N epochs and resumes it from
+``{stage}/stage_state.ckpt`` on a rerun, the port's snapshot or the JAX
+package's;
 ``--resume_campaign`` fast-forwards a round whose next ``queries.pkl``
 exists. Human labels (``human_labels``, ``cli/train.py``) train on merged
 per-image label maps.
@@ -74,6 +78,7 @@ from pixelpick_tpu_torch.data.factory import get_dataset
 from pixelpick_tpu_torch.data.loader import Loader
 from pixelpick_tpu_torch.engine.checkpoint import (
     load_stage_state, save_checkpoint, save_stage_state,
+    wait_for_checkpoints,
 )
 from pixelpick_tpu_torch.engine.optim import make_optimizer
 from pixelpick_tpu_torch.engine.trainer import (
@@ -258,7 +263,7 @@ class ALModel:
         start_epoch = 1
         if resuming:
             done_epoch, self.best_miou = load_stage_state(
-                p_stage_state, model, optimizer, generator)
+                p_stage_state, model, optimizer, generator, seed=seed)
             start_epoch = done_epoch + 1
             print(f"resuming {stage_name} from {p_stage_state}: epoch "
                   f"{start_epoch} (best mIoU so far {self.best_miou:.4f})")
@@ -292,6 +297,7 @@ class ALModel:
             if stage_ckpt and os.path.isfile(p_stage_state):
                 os.remove(p_stage_state)  # a complete stage starts afresh
             self.timer.dump(f"{dir_stage}/timing.json")
+        wait_for_checkpoints()  # the best model on disk before the query
         return model
 
     # ----------------------------- epochs -----------------------------
@@ -408,7 +414,8 @@ class ALModel:
         scores = score.get_scores()[0]
         miou, pixel_acc = scores["Mean IoU"], scores["Pixel Acc"]
         if miou > self.best_miou:
-            save_checkpoint(f"{dir_stage}/best_miou_model.ckpt", model)
+            save_checkpoint(f"{dir_stage}/best_miou_model.ckpt", model,
+                            backend=getattr(args, "ckpt_backend", "msgpack"))
             print(f"best model saved (epoch {epoch} | prev miou "
                   f"{self.best_miou:.4f} => {miou:.4f})")
             self.best_miou = miou

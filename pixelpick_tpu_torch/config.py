@@ -162,10 +162,11 @@ def build_parser() -> ArgumentParser:
                              "Conv3x3MatMul)")
     parser.add_argument("--ckpt_backend", type=str, default="msgpack",
                         choices=["msgpack", "orbax"],
-                        help="best-model checkpoint format of the JAX "
-                             "package; the port writes the reference's "
-                             "torch format, reads the JAX package's msgpack "
-                             "files, and raises on its orbax directories")
+                        help="best-model checkpoint format: msgpack writes "
+                             "the reference's torch file; orbax writes the "
+                             "JAX package's <path>.orbax/step_N/ directory "
+                             "on a background thread. Loading reads either, "
+                             "and the JAX package's msgpack files")
     parser.add_argument("--stage_ckpt_interval", type=int, default=0,
                         help="save a resumable mid-stage snapshot every N "
                              "epochs; 0 = off")

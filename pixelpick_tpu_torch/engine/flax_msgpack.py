@@ -206,6 +206,8 @@ def msgpack_serialize(obj: Any) -> bytes:
                                              (0xcd, ">H", 0xffff),
                                              (0xce, ">I", 0xffffffff),
                                              (0xcf, ">Q", 2 ** 64 - 1)))
+    if isinstance(obj, float):
+        return b"\xcb" + struct.pack(">d", obj)
     if isinstance(obj, np.ndarray):
         payload = msgpack_serialize([list(obj.shape), obj.dtype.name,
                                      np.ascontiguousarray(obj).tobytes()])

@@ -14,6 +14,10 @@ Counterpart of ``pixelpick_tpu/engine/optim.py`` (reference
   by 10 at epochs 22 and 42: the reference passes ``epoch - 1`` to the
   scheduler, so the drops lag the milestones 20 and 40 (``optim.py:13-21``).
 
+``optimizer_state_from_jax`` / ``optimizer_state_to_jax`` map a JAX
+``TrainState``'s optimizer state onto ``Optimizer.state_dict()`` and back,
+for the JAX package's mid-stage snapshots (``engine/checkpoint.py``).
+
 The schedule factor is computed on the host in f32, as the JAX schedule
 computes it on the device; updates use ``torch._foreach`` ops, a few
 launches per step for all parameters.
@@ -21,7 +25,7 @@ launches per step for all parameters.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -163,11 +167,105 @@ class Optimizer:
         self.step_count = int(sd["step_count"])
 
 
+GROUPS = ("backbone", "heads")
+
+
+def group_param_names(model: torch.nn.Module) -> List[List[str]]:
+    """The trained parameters' names of each group, in ``GROUPS`` order and
+    in the order the optimizer holds them."""
+    names: Dict[str, List[str]] = {g: [] for g in GROUPS}
+    for name, p in model.named_parameters():
+        if p.requires_grad:
+            names["backbone" if name.startswith(BACKBONE_PREFIXES)
+                  else "heads"].append(name)
+    return [names[g] for g in GROUPS]
+
+
 def make_optimizer(args, model: torch.nn.Module,
                    iters_per_epoch: int) -> Optimizer:
     table = param_group_table(args)
-    backbone, heads = [], []
-    for name, p in model.named_parameters():
-        (backbone if name.startswith(BACKBONE_PREFIXES) else heads).append(p)
-    return Optimizer([(table["backbone"], backbone), (table["heads"], heads)],
+    params = dict(model.named_parameters())
+    return Optimizer([(table[g], [params[n] for n in names])
+                      for g, names in zip(GROUPS,
+                                          group_param_names(model))],
                      schedule_factor(args, iters_per_epoch))
+
+
+# JAX's optimizer state (``pixelpick_tpu/engine/optim.py:90-115``) is
+# ``multi_transform({"backbone", "heads"})`` of ``chain(add_decayed_weights,
+# scale_by_adam | trace, scale_by_schedule)``; in ``flax.serialization.
+# to_state_dict`` layout each group's ``inner_state`` is ``{"0": {}, "1":
+# {"count", "mu", "nu"} | {"trace"}, "2": {"count"}}``, each moment a tree of
+# the whole params in which the other group's leaves are masked (``{}``).
+
+def optimizer_state_from_jax(opt_state: dict, step, model: torch.nn.Module,
+                             optimizer: Optimizer) -> dict:
+    """A JAX ``TrainState``'s ``opt_state`` and ``step`` (numpy trees) ->
+    ``optimizer.load_state_dict``'s argument. The moments map through the
+    weight bridge's key table (``models/convert.py``) into each group's
+    parameter order; Adam's count, each schedule's count and ``step`` must
+    agree, and become ``step_count``."""
+    from pixelpick_tpu_torch.models.convert import state_dict_from_jax
+
+    params = dict(model.named_parameters())
+    counts = {"TrainState.step": int(np.asarray(step))}
+    state = []
+    for g, (cfg, _), names in zip(GROUPS, optimizer.groups,
+                                  group_param_names(model)):
+        inner = opt_state["inner_states"][g]["inner_state"]
+        counts[f"{g} schedule count"] = int(np.asarray(inner["2"]["count"]))
+        scale = inner["1"]
+        if cfg["opt"] == "adam":
+            counts[f"{g} adam count"] = int(np.asarray(scale["count"]))
+        group = {}
+        for key in ("mu", "nu") if cfg["opt"] == "adam" else ("trace",):
+            if key not in scale:
+                raise ValueError(f"JAX optimizer state of group {g} has no "
+                                 f"{key!r} ({sorted(scale)}): another "
+                                 f"optimizer than {cfg['opt']}")
+            sd = state_dict_from_jax(scale[key], {})
+            if set(sd) != set(names):
+                raise ValueError(
+                    f"JAX {g}/{key} holds {len(sd)} leaves, the port's group "
+                    f"{len(names)}: {sorted(set(sd) ^ set(names))[:5]}")
+            for n in names:
+                if sd[n].shape != params[n].shape:
+                    raise ValueError(f"JAX {g}/{key} {n}: shape "
+                                     f"{tuple(sd[n].shape)}, the port's "
+                                     f"{tuple(params[n].shape)}")
+            group[key] = [sd[n] for n in names]
+        state.append(group)
+    if len(set(counts.values())) != 1:
+        raise ValueError(f"the JAX snapshot's step counts disagree: {counts}")
+    return {"step_count": counts["TrainState.step"], "state": state}
+
+
+def optimizer_state_to_jax(optimizer: Optimizer, model: torch.nn.Module
+                           ) -> Tuple[dict, np.ndarray]:
+    """The inverse: ``(opt_state, step)`` in JAX's layout, numpy trees."""
+    from pixelpick_tpu_torch.models.convert import jax_tree_from_state_dict
+
+    count = np.asarray(optimizer.step_count, np.int32)
+    own = model.state_dict()
+
+    def masked(tree):
+        return {k: masked(v) if isinstance(v, dict) else {}
+                for k, v in tree.items()}
+
+    inner_states = {}
+    for g, (cfg, _), names, st in zip(GROUPS, optimizer.groups,
+                                      group_param_names(model),
+                                      optimizer.state):
+        scale = {"count": count} if cfg["opt"] == "adam" else {}
+        for key, tensors in st.items():
+            # the moments in the parameters' places, so that the bridge
+            # tells a BatchNorm's scale from a GroupNorm's by its buffers
+            sd = dict(own)
+            sd.update(zip(names, tensors))
+            tree = jax_tree_from_state_dict(sd)[0]
+            scale[key] = {top: sub if (top in ("backbone", "encoder"))
+                          == (g == "backbone") else masked(sub)
+                          for top, sub in tree.items()}
+        inner_states[g] = {"inner_state": {"0": {}, "1": scale,
+                                           "2": {"count": count}}}
+    return {"inner_states": inner_states}, count

@@ -26,12 +26,18 @@ it reads a JAX msgpack file (``engine/flax_msgpack.py``) and overlays every
 entry whose key the model has at the same shape; everything else keeps the
 model's own init.
 
-The converter (``convert.py:214-283``, without ``--fetch``, which needs the
-network) writes the ``{"params", "batch_stats"}`` msgpack file that
-``--pretrained_ckpt`` reads, from a torch checkpoint::
+The converter (``convert.py:176-283``) writes the ``{"params",
+"batch_stats"}`` msgpack file that ``--pretrained_ckpt`` reads, from a torch
+checkpoint::
 
     python -m pixelpick_tpu_torch.models.convert SRC.pth DST.ckpt \\
         --kind {mobilenet_v2,deeplab,resnet,fpn} [--weight_type moco_v2]
+    python -m pixelpick_tpu_torch.models.convert --fetch NAME DST.ckpt
+
+``--fetch NAME`` downloads the upstream checkpoint of ``FETCH_URLS`` into
+``~/.cache/pixelpick_tpu_torch`` (once; a cached file is used again) and
+infers ``--kind`` and ``--weight_type`` from the name. Without network it
+exits with the JAX package's message and writes nothing.
 
 ``--kind resnet`` takes a torchvision ResNet (its stem moved under
 ``prefix.``, its ``fc`` dropped) or, with ``--weight_type moco_v2``, a
@@ -43,6 +49,7 @@ MobileNetV2's last 1x1 conv) are skipped and counted.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Tuple
 
 import numpy as np
@@ -251,18 +258,76 @@ def convert_state(state: dict, kind: str,
     return jax_tree_from_state_dict(state)
 
 
+# The upstream weights the reference consumes: MobileNetV2 ImageNet
+# (networks/mobilenet_v2.py:140), torchvision ResNets (the files
+# networks/encoder.py:4-15 expects under pretrained/), MoCo-v2 800ep.
+FETCH_URLS = {
+    "mobilenet_v2": "http://jeff95.me/models/mobilenet_v2-6a65762b.pth",
+    "resnet18": "https://download.pytorch.org/models/resnet18-5c106cde.pth",
+    "resnet34": "https://download.pytorch.org/models/resnet34-333f7ec4.pth",
+    "resnet50": "https://download.pytorch.org/models/resnet50-19c8e357.pth",
+    "resnet101": "https://download.pytorch.org/models/resnet101-5d3b4d8f.pth",
+    "moco_v2": ("https://dl.fbaipublicfiles.com/moco/moco_checkpoints/"
+                "moco_v2_800ep/moco_v2_800ep_pretrain.pth.tar"),
+}
+
+
+def fetch_weights(name: str, cache_dir: str = "") -> str:
+    """Download the named upstream torch checkpoint into the cache
+    directory (once) and return its path. Without network it exits with a
+    message, leaving nothing behind."""
+    import urllib.error
+    import urllib.request
+
+    url = FETCH_URLS[name]
+    cache_dir = cache_dir or os.path.expanduser("~/.cache/pixelpick_tpu_torch")
+    dst = os.path.join(cache_dir, url.rsplit("/", 1)[-1])
+    if os.path.isfile(dst):
+        print(f"using cached {dst}")
+        return dst
+    print(f"fetching {url} -> {dst}")
+    os.makedirs(cache_dir, exist_ok=True)
+    part = dst + ".part"
+    try:
+        urllib.request.urlretrieve(url, part)
+    except (urllib.error.URLError, OSError) as e:
+        if os.path.exists(part):
+            os.remove(part)
+        raise SystemExit(
+            f"could not fetch {url}: {e}\n"
+            "This environment has no egress. Download the file elsewhere, "
+            f"place it at {dst}, and re-run — or pass the .pth path "
+            "directly as SRC.") from e
+    os.replace(part, dst)
+    return dst
+
+
 def main(argv=None) -> str:
     """The convert CLI; returns the path written."""
     from argparse import ArgumentParser
 
     parser = ArgumentParser("torch checkpoint -> --pretrained_ckpt file")
-    parser.add_argument("src")
+    parser.add_argument("src", nargs="?", default="")
     parser.add_argument("dst")
-    parser.add_argument("--kind", required=True,
-                        choices=["mobilenet_v2", "deeplab", "resnet", "fpn"])
+    parser.add_argument("--fetch", default="", choices=[""] + list(FETCH_URLS),
+                        help="download this upstream checkpoint instead of "
+                             "reading SRC (cached in "
+                             "~/.cache/pixelpick_tpu_torch)")
+    parser.add_argument("--kind", default="",
+                        choices=["", "mobilenet_v2", "deeplab", "resnet",
+                                 "fpn"])
     parser.add_argument("--weight_type", default="supervised",
                         choices=["supervised", "moco_v2"])
     args = parser.parse_args(argv)
+    if args.fetch:
+        args.src = fetch_weights(args.fetch)
+        if not args.kind:
+            args.kind = "mobilenet_v2" if args.fetch == "mobilenet_v2" \
+                else "resnet"
+        if args.fetch == "moco_v2":
+            args.weight_type = "moco_v2"
+    if not args.src or not args.kind:
+        parser.error("pass SRC and --kind, or --fetch NAME")
     blob = torch.load(args.src, map_location="cpu", weights_only=False)
     state = blob.get("state_dict", blob.get("model", blob)) \
         if isinstance(blob, dict) else blob

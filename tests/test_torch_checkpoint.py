@@ -11,8 +11,10 @@ package's.
   the port to the ``state_dict`` that ``state_dict_from_jax`` gives from
   the tree in memory, and the same logits, bit for bit on the CPU (width
   0.5, 48x64).
-- A JAX orbax directory and a JAX ``stage_state.ckpt`` raise, naming what
-  they are.
+- A JAX orbax directory and a JAX ``stage_state.ckpt`` load (the two
+  tests that held them refused now hold them loaded; tests/test_torch_
+  orbax.py and test_torch_stage_resume.py test both against JAX in
+  depth); the snapshot is still not taken for a best-model file.
 - The port's stage snapshot gives back the model, the optimizer and the
   dropout generator exactly.
 """
@@ -22,7 +24,6 @@ import os
 import flax.serialization
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 from hypothesis import given, settings, strategies as st
@@ -163,30 +164,47 @@ def test_jax_written_checkpoint_loads_bit_equal(tmp_path, jax_tree):
         assert torch.equal(again[k], a[k]), k
 
 
-def test_orbax_directory_is_refused(tmp_path):
-    params = {"layer": {"kernel": jnp.ones((4, 3))}}
-    stats = {"bn": {"mean": jnp.zeros((3,))}}
+def test_orbax_directory_is_refused(tmp_path, jax_tree):
+    """A JAX orbax directory was refused before the port could read one; it
+    now loads, to the weights the msgpack file of the same trees gives."""
+    params, stats = jax_tree
     path = str(tmp_path / "best_miou_model.ckpt")
     jax_checkpoint.save_checkpoint(path, params, stats, backend="orbax")
     jax_checkpoint.wait_for_checkpoints()
     assert os.path.isdir(path + ".orbax") and not os.path.exists(path)
-    with pytest.raises(NotImplementedError, match="orbax"):
-        checkpoint.load_checkpoint(path, port_model())
+    got = checkpoint.load_checkpoint(path, port_model()).state_dict()
+    want = state_dict_from_jax(params, stats)
+    assert list(got) == list(port_model().state_dict())
+    for k in got:
+        assert torch.equal(got[k], want[k]), k
 
 
-def test_jax_stage_snapshot_is_refused(tmp_path):
-    params = {"w": jnp.ones((4, 3))}
-    state = create_train_state(params, {}, optax.adam(1e-3))
+def test_jax_stage_snapshot_is_refused(tmp_path, jax_tree):
+    """A JAX ``stage_state.ckpt`` was refused before; it now loads into the
+    model and the optimizer (tests/test_torch_stage_resume.py holds the
+    moments and the next update to JAX's). It is still not taken for a
+    best-model file."""
+    from pixelpick_tpu.engine.optim import make_optimizer as jax_optimizer
+
+    params, stats = jax_tree
+    args = default_args(device="cpu")
+    state = create_train_state(params, stats,
+                               jax_optimizer(args, params, 10))
     path = str(tmp_path / "stage_state.ckpt")
     jax_checkpoint.save_stage_state(path, state, 2, 0.5)
     model = port_model()
-    before = {k: v.clone() for k, v in model.state_dict().items()}
-    opt = make_optimizer(default_args(device="cpu"), model, 10)
+    opt = make_optimizer(args, model, 10)
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="JAX package"):
+    assert checkpoint.load_stage_state(path, model, opt, gen, seed=1) \
+        == (2, 0.5)
+    want = state_dict_from_jax(params, stats)
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, want[k]), k
+    assert opt.step_count == 0
+    for st in opt.state:
+        assert all(not t.any() for ts in st.values() for t in ts)
+    with pytest.raises(ValueError, match="seed"):
         checkpoint.load_stage_state(path, model, opt, gen)
-    for k, v in model.state_dict().items():  # nothing was loaded
-        assert torch.equal(v, before[k]), k
     # nor is it taken for a best-model file
     with pytest.raises(ValueError, match="params"):
         checkpoint.load_checkpoint(path, model)

@@ -1,5 +1,7 @@
 """The PyTorch package, and chip_smoke.py, import nothing of JAX and nothing
-of the JAX package. Checked in a fresh interpreter, because this test
+of the JAX package, and none of the libraries the JAX package reads and
+writes checkpoints with (orbax, tensorstore, zstandard, msgpack): the card's
+machine has none of them. Checked in a fresh interpreter, because this test
 process has jax loaded already (tests/conftest.py)."""
 
 import os
@@ -19,7 +21,8 @@ spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                    "pixelpick_tpu"))
+                                    "orbax", "tensorstore", "zstandard",
+                                    "msgpack", "pixelpick_tpu"))
 print(len(names), bad)
 """
 
