@@ -15,8 +15,8 @@ snapshots, JAX-layout checkpoint files, ``--resume_campaign`` and
 PASCAL VOC with DeepLab and with the ResNet-50 FPN, data parallelism over
 ``torch.distributed``, the annotation tools, the TPU-only rewrites of the
 default math (``--s2d_backbone``, ``--conv3x3_matmul``, ``remat_blocks``)
-and height-sharded pool sweeps (``--spatial_query_sharding``), at full
-width, in phases; any failure exits nonzero:
+and height-sharded pool sweeps (``--spatial_query_sharding``, with the
+s2d blocks too), at full width, in phases; any failure exits nonzero:
 
 1. card: name and power limit, torch and CUDA versions, the kernel builds;
 2. kernels vs plain: the depthwise 3x3 kernel at every shape one
@@ -168,8 +168,9 @@ width, in phases; any failure exits nonzero:
    peak device memory beside the single process's, the time inside the
    collectives; ``main_al`` with the flag for one round on a 48-image
    CamVid (the step sharded by images, the sweep by rows, every file
-   written once); and the kernel on halo-padded stripes of the 14 inputs
-   against its plain version and the whole map's rows;
+   written once); and the kernel on each rank's halo-padded stripes of
+   the 14 inputs against its plain version and the whole map's rows,
+   each rank's inputs checked to be those stripes;
 22. JAX orbax checkpoints and JAX stage snapshots, with neither orbax nor
    tensorstore on the machine: the committed JAX-written orbax fixture
    (``tests/torch_fixtures/jax_orbax/``, OCDBT and zstd) decoded and every
@@ -181,7 +182,21 @@ width, in phases; any failure exits nonzero:
    weights (the same ``state_dict`` and picks, 14 launches per forward);
    the round's epoch-1 snapshot rewritten in JAX's layout and resumed by
    ``main_al`` (model and optimizer bit-equal to the port's snapshot's;
-   the stage's fused and depthwise launches counted).
+   the stage's fused and depthwise launches counted);
+23. ``--s2d_backbone`` under ``--spatial_query_sharding``: phase 21's two
+   ranks and query CLI with blocks 0-3 in s2d layout on row stripes, over
+   phase 21's 64 images of 360x480 (an even 1/4 map: 12 depthwise
+   launches per forward on every rank, on stripes) and over 8 images of
+   364x480 (the 1/4 map's 91 rows split 48 / 43: blocks 2-3 run the
+   standard way on both ranks, 13 launches), each held to the same
+   command with ``--s2d_backbone`` in one process (pick sets, near-ties
+   at the top-k boundary set aside), each rank's peak device memory
+   beside the single process's, the ranks' warm images/s and the time
+   inside the collectives beside phase 21's; the kernel on each rank's
+   halo-padded stripes of the 364x480 inputs against its plain version
+   and the whole map's rows, and each rank's inputs in both parts checked
+   to be the stripes held to the plain version (the 360x480 ones in phase
+   21).
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. The details go to
@@ -190,11 +205,11 @@ line, ``launches`` counts every main-path run: the depthwise kernel's
 (forward and dx) over the sweeps of phases 3 and 10, the campaign of phase
 7, the epoch runs of phases 8 and 9, the train CLI's runs of phase 11, the
 eval CLI's of phase 12, the ``--pretrained_ckpt`` round of phase 13 and
-the runs of phases 14, 15, 16 and 18, phase 19's and phase 21's ranks
+the runs of phases 14, 15, 16 and 18, phase 19's, 21's and 23's ranks
 (each counts in its own process and reports its counts), phase 20's
 s2d step and sweep and phase 22's round, query CLI runs and resumed
-stage; the fused kernels' over phases 7, 8, 9, 11, 13, 14, 15, 16 and 18,
-phase 20's s2d step and phase 22's round and resumed stage (their
+stage; the fused kernels' over phases 7, 8, 9, 11, 13, 14, 15, 16 and
+18, phase 20's s2d step and phase 22's round and resumed stage (their
 counters zeroed just before each run and read just after). Phase 17's
 path reaches none of them.
 """
@@ -3133,7 +3148,7 @@ def dp_model(args, weights):
 
 
 def worker_main(job: dict) -> int:
-    """One rank of phase 19 or 21 (``--worker``): ``step`` runs the bs-8
+    """One rank of phase 19, 21 or 23 (``--worker``): ``step`` runs the bs-8
     step on its rows over gloo; ``campaign`` calls ``cli.main_al.main``
     with the ranks' flags, its kernels' launches counted; ``nccl`` joins an
     NCCL world of one and runs its collectives; ``spatial`` runs entry
@@ -3726,16 +3741,18 @@ def query_run(base: Path, name: str, labelled: dict) -> Path:
 
 
 def query_argv(dir_datasets: Path, run: Path, ckpt: Path, pool_batch: int,
-               spatial: bool) -> list:
+               spatial: bool, s2d: bool = False) -> list:
     """The query CLI's arguments: phase 3's strategy (margin sampling, 10
-    pixels from the top 5 %, seed 0) with ``--pallas_dw``, and the flag;
-    without it one process (``--data_parallel 1``: the default starts a
-    rank on every visible card)."""
+    pixels from the top 5 %, seed 0) with ``--pallas_dw`` (and
+    ``--s2d_backbone`` with ``s2d``), and the flag; without it one process
+    (``--data_parallel 1``: the default starts a rank on every visible
+    card)."""
     return ["--dataset_name", "cv", "--dir_datasets", str(dir_datasets),
             "--dir_checkpoints", str(run), "--p_state_dict", str(ckpt),
             "--device", DEVICE, "--pallas_dw", "-qs", "margin_sampling",
             "--n_pixels_by_us", "10", "--top_n_percent", "0.05", "--seed",
             "0", "--pool_batch_size", str(pool_batch), "--n_workers", "4",
+            *(["--s2d_backbone", "true"] if s2d else []),
             *(["--spatial_query_sharding"] if spatial
               else ["--data_parallel", "1"])]
 
@@ -3844,9 +3861,10 @@ def observed(entry, argv: list, record: bool = False,
 
 
 def spatial_ranks(job: dict) -> dict:
-    """One rank of phase 21 or of ``scripts/torch_spatial_sweep.py``: each
-    of ``job["calls"]`` (an entry point, its arguments, a port) run with
-    the rank's flags and observed; rank 0 saves the recorded scores."""
+    """One rank of phase 21 or 23 or of ``scripts/torch_spatial_sweep.py``:
+    each of ``job["calls"]`` (an entry point, its arguments, a port) run
+    with the rank's flags and observed; rank 0 saves the recorded
+    scores."""
     import torch
 
     from pixelpick_tpu_torch.cli.main_al import main as main_al
@@ -3922,25 +3940,29 @@ def held_to_single(got_run: Path, got_scores, ref_run: Path, ref_scores,
          "scores": ref_scores.to(DEVICE)}, k)
 
 
-def stripe_kernel_checks(batch: int = POOL_BATCH) -> list:
-    """The kernel on rank 1's halo-padded stripe of each of a forward's 14
-    stride-1 depthwise inputs (the top pad rows rank 0's, the bottom ones
-    the image's zero pad), against its plain version (phase 2's limits and
-    times) and against the rows of the kernel's output on the whole padded
-    map (every output reads the same inputs: equal, or within twice phase
-    2's limit)."""
+def stripe_kernel_checks(batch: int, hw, bounds, rank: int,
+                         skip: int = 0) -> list:
+    """The kernel on rank ``rank``'s halo-padded stripe (``bounds`` the
+    rows at full size, as ``parallel/mesh.py:height_shard`` splits images
+    of ``hw``) of each of a forward's stride-1 depthwise inputs after the
+    first ``skip`` (the ones the s2d blocks take), the pad rows between
+    stripes the neighbour's and those at the image's edges its zero pad,
+    against its plain version (phase 2's limits and times) and against
+    the rows of the kernel's output on the whole padded map (every output
+    reads the same inputs: equal, or within twice phase 2's limit)."""
     import torch
 
     from pixelpick_tpu_torch.ops import depthwise as dw
     from pixelpick_tpu_torch.parallel.mesh import HeightShard
 
-    shard = HeightShard((0, 192, IMAGE_HW[0]), 1, 16)
+    shard = HeightShard(tuple(bounds), rank, 16)
     results = []
-    for i, ((b, hp, wp, c), d) in enumerate(expected_dw_shapes(batch)):
+    for i, ((b, hp, wp, c), d) in enumerate(
+            expected_dw_shapes(batch, hw)[skip:]):
         s = next(s for s in (1, 2, 4, 8, 16)
-                 if -(-IMAGE_HW[0] // s) == hp - 2 * d)
+                 if -(-hw[0] // s) == hp - 2 * d)
         lo, hi = shard.rows_at(s)
-        g = torch.Generator(device=DEVICE).manual_seed(300 + i)
+        g = torch.Generator(device=DEVICE).manual_seed(300 + 50 * rank + i)
         inner = torch.randn((b, hp - 2 * d, wp - 2 * d, c), device=DEVICE,
                             generator=g)
         full = torch.nn.functional.pad(inner, (0, 0, d, d, d, d))
@@ -3950,11 +3972,36 @@ def stripe_kernel_checks(batch: int = POOL_BATCH) -> list:
         diff = (dw.depthwise_conv3x3(stripe, w, 1, d, 0)
                 - dw.depthwise_conv3x3(full, w, 1, d, 0)[:, lo:hi]).abs()
         mag = dw.depthwise_reference_torch(stripe.abs(), w.abs(), d)
-        r["level"] = s
+        r["level"], r["rank"] = s, rank
         r["whole_rows_max_abs_diff"] = float(diff.max())
         r["whole_rows_ok"] = bool((diff <= 2 * F32_TOL * mag).all())
         results.append(r)
     return results
+
+
+def held_stripes(tag: str, reports: list, part: str, checks: list) -> None:
+    """Print ``stripe_kernel_checks``' results for each rank and fail
+    unless each passed and the kernel inputs of ``part``'s first forward
+    on each rank are the shapes checked."""
+    for r, rank_checks in enumerate(checks):
+        for c in rank_checks:
+            print(f"[{tag}] rank {r} stripe x{tuple(c['x'])} "
+                  f"d={c['dilation']} (level {c['level']}): err "
+                  f"{c['max_abs_err']:.3g}, against the whole map's rows "
+                  f"{c['whole_rows_max_abs_diff']:.3g}; kernel "
+                  f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f}, library "
+                  f"{c['library_ms']:.4f}, bound {c['bound_ms']:.4f}")
+            check(c["ok"] and c["whole_rows_ok"],
+                  f"kernel on a halo-padded stripe: {c}")
+        want = [tuple(c["x"]) for c in rank_checks]
+        seen = [tuple(x) for x in reports[r][part]["shapes"][:len(want)]]
+        check(seen == want, f"phase {tag} {part}: rank {r}'s kernel inputs "
+                            f"{seen} are not the stripes {want}")
+
+
+# the full-size row bounds of the two ranks' stripes, as
+# parallel/mesh.py:height_shard splits 360 and 364 rows at stride 16
+POOL_STRIPES = (0, 192, IMAGE_HW[0])
 
 
 def phase_spatial(work: Path, model, args) -> dict:
@@ -3972,7 +4019,7 @@ def phase_spatial(work: Path, model, args) -> dict:
     48-image CamVid: the step sharded by images, the sweep by rows, the
     primary writing the round's files. Each query part runs again timed,
     the pool once more with its collectives timed. The kernel also runs
-    on rank 1's halo-padded stripes of the 14 inputs against its plain
+    on each rank's halo-padded stripes of the 14 inputs against its plain
     version. The ranks' times share one card: they say what the halos
     cost there, nothing of scaling."""
     import torch
@@ -4115,23 +4162,11 @@ def phase_spatial(work: Path, model, args) -> dict:
     out["al"] = {"files": files, "ranks": al,
                  "avg_entropy": stats["avg_entropy"]}
 
-    # the ranks' kernel inputs: each a stripe of the whole padded map plus
-    # 2d halo rows
-    stripes = stripe_kernel_checks()
-    seen = [tuple(tuple(s) for s in r["pool"]["shapes"][:14])
-            for r in reports]
-    want = tuple((POOL_BATCH, r["x"][1], r["x"][2], r["x"][3])
-                 for r in stripes)
-    for r in stripes:
-        print(f"[21] stripe x{tuple(r['x'])} d={r['dilation']} (level "
-              f"{r['level']}): err {r['max_abs_err']:.3g}, against the "
-              f"whole map's rows {r['whole_rows_max_abs_diff']:.3g}; kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, library "
-              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f}")
-        check(r["ok"] and r["whole_rows_ok"],
-              f"kernel on a halo-padded stripe: {r}")
-    check(seen[1] == want, f"rank 1's kernel inputs {seen[1]} are not the "
-                           f"stripes {want}")
+    # each rank's kernel inputs: a stripe of the whole padded map plus 2d
+    # halo rows
+    stripes = [stripe_kernel_checks(POOL_BATCH, IMAGE_HW, POOL_STRIPES, r)
+               for r in range(DP_WORLD)]
+    held_stripes("21", reports, "pool", stripes)
     out["stripe_kernel"] = stripes
     return out
 
@@ -4379,13 +4414,152 @@ def phase_orbax(work: Path) -> dict:
     return out
 
 
+# ------------------------------ phase 23 ------------------------------
+
+# --s2d_backbone under --spatial_query_sharding: phase 21's two ranks and
+# query CLI with blocks 0-3 in s2d layout on row stripes. At 360x480 the
+# 1/4 map has 90 rows (stripes of 48 and 42): blocks 0-3 run s2d, 12
+# depthwise launches and 1 stride-2 grouped conv per forward. At 364x480
+# it has 91 (48 and 43): blocks 2-3 run the standard way on both ranks, as
+# the whole map decides, 13 launches and 2 stride-2 convs
+S2D_ODD_HW, S2D_ODD_IMAGES = (364, 480), 8
+S2D_ODD_STRIPES = (0, 192, S2D_ODD_HW[0])
+S2D_PARTS = {"pool": (IMAGE_HW, 12, 1), "odd": (S2D_ODD_HW, 13, 2)}
+
+
+def phase_spatial_s2d(work: Path, model, spatial: dict) -> dict:
+    """``--s2d_backbone --spatial_query_sharding --data_parallel 2`` at
+    full width (f32, ``--pallas_dw``, phase 3's weights) on two ranks
+    sharing the card over gloo (``--worker``, one launch), through the
+    query CLI: (a) over phase 21's 64 images of 360x480, (b) over 8
+    synthetic images of 364x480 at pool batch 32, each held to the same
+    command with ``--s2d_backbone`` in one process (pick sets, near-ties
+    at the top-k boundary set aside as in phase 20), the depthwise
+    launches per forward on every rank, on stripes, and each rank's peak
+    device memory beside the single process's. (a) runs again warm on the
+    ranks for its images/s beside phase 21's, and once more with its
+    collectives timed. The kernel runs on each rank's halo-padded stripes
+    of (b)'s 13 inputs against its plain version; (a)'s 12 are among
+    phase 21's 14, checked there."""
+    import torch
+
+    from pixelpick_tpu_torch.cli.query import main as query_main
+    from pixelpick_tpu_torch.engine.checkpoint import save_checkpoint
+
+    t_phase = time.perf_counter()
+    sw = work / "spatial_s2d"
+    sw.mkdir()
+    ckpt = sw / "model.ckpt"
+    save_checkpoint(str(ckpt), model)
+    sets = {"pool": (work, labelled_round(work / "camvid",
+                                          SPATIAL_POOL_IMAGES, 21)),
+            "odd": (sw / "odd", spatial_query_set(
+                sw / "odd", S2D_ODD_IMAGES, S2D_ODD_HW, 23))}
+    calls = []
+    for name, part, extra in (("pool", "pool", {"record": True}),
+                              ("pool_warm", "pool", {}),
+                              ("pool_collectives", "pool",
+                               {"collectives": True}),
+                              ("odd", "odd", {"record": True})):
+        root, labelled = sets[part]
+        calls.append(dict(name=name, entry="query", argv=query_argv(
+            root, query_run(sw, name, labelled), ckpt, POOL_BATCH, True,
+            s2d=True), **extra))
+    for c, port in zip(calls, free_ports(len(calls))):
+        c["port"] = port
+    jobs = [dict(kind="spatial", rank=r, world=DP_WORLD, backend="gloo",
+                 calls=calls, output=str(sw / "scores.pt"),
+                 report=str(sw / f"rank_{r}.json"))
+            for r in range(DP_WORLD)]
+    t0 = time.perf_counter()
+    run_workers(jobs, sw / "ranks.log")
+    ranks_s = time.perf_counter() - t0
+    got = torch.load(sw / "scores.pt", weights_only=False)
+    reports = [json.loads((sw / f"rank_{r}.json").read_text())
+               for r in range(DP_WORLD)]
+    out = {"ranks_s": ranks_s, "ranks": reports,
+           "rank_launches": [r[c["name"]]["launches"]
+                             for r in reports for c in calls]}
+    for part, (hw, per_fwd, s2_per_fwd) in S2D_PARTS.items():
+        root, labelled = sets[part]
+        ref = observed(query_main, query_argv(
+            root, query_run(sw, f"{part}_single", labelled), ckpt,
+            POOL_BATCH, False, s2d=True), record=True)
+        agree = held_to_single(sw / part, got[part], sw / f"{part}_single",
+                               ref["scores"], labelled, hw)
+        n_img, n_fwd = len(labelled), -(-len(labelled) // POOL_BATCH)
+        mine = [r[part] for r in reports]
+        counts = [m["launches"] for m in mine]
+        out[part] = {
+            "agree": agree, "n_images": n_img, "hw": hw, "launches": counts,
+            "on_stripes": [m["on_stripes"] for m in mine],
+            "single_launches": ref["launches"],
+            "ranks_peak_mib": [m["peak_mib"] for m in mine],
+            "single_peak_mib": ref["peak_mib"]}
+        print(f"[23] {part}: the query CLI with --s2d_backbone over {n_img} "
+              f"images of {hw[0]}x{hw[1]} on two ranks (height stripes, "
+              f"gloo, one card) against one process: "
+              f"{agree['picks_differ']} pick otherwise, "
+              f"{agree['candidates_differ']} have other candidates (worst "
+              f"tie gap {agree['worst_tie_gap']:.3g}, limit {PICK_TIE_TOL}),"
+              f" {agree['picks_differ_equal_candidates']} pick otherwise "
+              f"from equal candidates; depthwise launches per rank "
+              f"{counts}, on stripes {out[part]['on_stripes']}, for "
+              f"{n_fwd} forwards (one process {ref['launches']}); peak "
+              f"device memory per rank "
+              f"{[round(m, 1) for m in out[part]['ranks_peak_mib']]} MiB, "
+              f"one process {ref['peak_mib']:.1f} MiB")
+        check(agree["ok"], f"phase 23 {part} picks differ: {agree}")
+        check(all(r[part]["sharded"] == [True] * n_fwd for r in reports),
+              f"phase 23 {part} did not shard: {reports}")
+        check(ref["on_stripes"] == 0 and ref["launches"]["kernel"]
+              == per_fwd * n_fwd, f"phase 23 {part} one process {ref}")
+        check(all(m["launches"]["kernel"] == m["on_stripes"]
+                  == per_fwd * n_fwd
+                  and m["launches"]["stride2_conv"] == s2_per_fwd * n_fwd
+                  for m in mine), f"phase 23 {part} launches {mine}")
+    check(all(r[name]["sharded"] == [True] * 2 for r in reports
+              for name in ("pool_warm", "pool_collectives")),
+          f"phase 23 pool_warm did not shard: {reports}")
+    # each rank's kernel inputs: (a)'s the last 12 of phase 21's stripes,
+    # (b)'s checked here
+    skip = len(expected_dw_shapes(1)) - S2D_PARTS["pool"][1]
+    held_stripes("23", reports, "pool",
+                 [c[skip:] for c in spatial["stripe_kernel"]])
+    odd_batch = min(S2D_ODD_IMAGES, POOL_BATCH)
+    skip = len(expected_dw_shapes(1, S2D_ODD_HW)) - S2D_PARTS["odd"][1]
+    odd = [stripe_kernel_checks(odd_batch, S2D_ODD_HW, S2D_ODD_STRIPES, r,
+                                skip) for r in range(DP_WORLD)]
+    held_stripes("23", reports, "odd", odd)
+    out["odd"]["stripe_kernel"] = odd
+    n_img = out["pool"]["n_images"]
+    out["pool"]["ranks_sweep_s"] = [r["pool_warm"]["sweep_s"]
+                                    for r in reports]
+    out["pool"]["ranks_images_per_s"] = n_img / max(
+        out["pool"]["ranks_sweep_s"])
+    coll = [r["pool_collectives"]["collectives"] for r in reports]
+    out["pool"]["collectives"] = coll
+    print(f"[23] pool: the collectives per rank {coll} (ms between "
+          f"synchronisations, waits included; MiB sent by the rank) in a "
+          f"sweep of {[round(r['pool_collectives']['sweep_s'] * 1e3, 1) for r in reports]}"
+          f" ms with them timed; phase 21's without --s2d_backbone "
+          f"{spatial['pool']['collectives']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[23] pool: warm sweep {out['pool']['ranks_images_per_s']:.1f} "
+          f"images/s on the two ranks with --s2d_backbone, "
+          f"{spatial['pool']['ranks_images_per_s']:.1f} in phase 21 "
+          f"without (PNG decode included); the ranks' launch "
+          f"{ranks_s:.1f} s, phase 23 {out['phase_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="chiprun_out",
                     help="directory for chip_smoke.json")
     ap.add_argument("--worker", default="",
-                    help="run one rank of phase 19 or 21 (a JSON job) and "
-                         "exit")
+                    help="run one rank of phase 19, 21 or 23 (a JSON job) "
+                         "and exit")
     opts = ap.parse_args(argv)
 
     import torch
@@ -4443,13 +4617,15 @@ def main(argv=None) -> int:
     spatial["phase_s"] = time.perf_counter() - t_spatial
     phases_2_21_s = time.perf_counter() - t_start
     orbax = phase_orbax(work)
+    s2d_spatial = phase_spatial_s2d(work, model, spatial)
     phases_s = time.perf_counter() - t_start
-    # phase 19's ranks count in their own processes
+    # phase 19's, 21's and 23's ranks count in their own processes
     dp_counts = [{f"depthwise_{k}": v for k, v in c.items()}
                  for c in dp["step_launches_per_rank"]] \
         + dp["campaign_launches"] \
         + [{f"depthwise_{k}": v for k, v in c.items()}
-           for c in spatial["rank_launches"]]
+           for c in (*spatial["rank_launches"],
+                     *s2d_spatial["rank_launches"])]
 
     f32 = kernels["float32"]
     entry = {
@@ -4463,8 +4639,9 @@ def main(argv=None) -> int:
         # phase 12, the --pretrained_ckpt round of phase 13 and the
         # device-augment runs of phases 14 and 15, phase 16's and 18's VOC
         # runs, phase 19's ranks, phase 20's s2d step and sweep and phase
-        # 21's ranks (every entry-point run, on stripes) and phase 22's
-        # round, query CLI runs and resumed stage
+        # 21's ranks (every entry-point run, on stripes), phase 22's
+        # round, query CLI runs and resumed stage and phase 23's ranks (s2d
+        # blocks on stripes)
         "launches": sum(c[f"{pre}kernel"] + c[f"{pre}kernel_dx"]
                         for c, pre in ((oracle["launches"], ""),
                                        (committee["launches"], ""),
@@ -4540,10 +4717,10 @@ def main(argv=None) -> int:
             else "operations",
             "library_ms": sum(r[f"library_{k}_ms"] for r in f32),
         })
-    print(f"[22] phase 20 took {rewrites['phase_s']:.1f} s, phase 21 "
-          f"{spatial['phase_s']:.1f} s, phase 22 {orbax['phase_s']:.1f} s; "
-          f"phases 2-21 took {phases_2_21_s:.1f} s, phases 2-22 "
-          f"{phases_s:.1f} s")
+    print(f"[23] phase 20 took {rewrites['phase_s']:.1f} s, phase 21 "
+          f"{spatial['phase_s']:.1f} s, phase 22 {orbax['phase_s']:.1f} s, "
+          f"phase 23 {s2d_spatial['phase_s']:.1f} s; phases 2-21 took "
+          f"{phases_2_21_s:.1f} s, phases 2-23 {phases_s:.1f} s")
     out = Path(opts.out)
     if not out.is_absolute():
         out = HERE / out
@@ -4559,7 +4736,8 @@ def main(argv=None) -> int:
                    "voc_deeplab": voc, "voc_fpn": voc_fpn,
                    "voc_device_augment": voc_dev, "data_parallel": dp,
                    "rewrites": rewrites, "spatial": spatial,
-                   "orbax": orbax, "phases_2_21_s": phases_2_21_s,
+                   "orbax": orbax, "spatial_s2d": s2d_spatial,
+                   "phases_2_21_s": phases_2_21_s,
                    "phases_s": phases_s,
                    "summary": [entry, *fused_entries]}, f, indent=1)
     shutil.rmtree(work, ignore_errors=True)

@@ -8,9 +8,10 @@ kept here as an own copy so the port imports nothing of the JAX package.
 Two flags are the port's own: ``--device {cuda,cpu}`` (default ``cuda``)
 and ``--dist_backend {auto,nccl,gloo}`` (``parallel/distributed.py``).
 
-Flags whose code path is not ported yet raise ``NotImplementedError`` naming
-the ROADMAP item that ports it (see ``check_supported``); nothing quietly
-runs another path in their place.
+Every flag of the JAX package runs its own code path, in every combination
+the JAX package runs; ``check_supported`` is where a combination the port
+lacks would raise ``NotImplementedError``, and nothing quietly runs another
+path in its place.
 """
 
 from __future__ import annotations
@@ -238,14 +239,10 @@ DATASET_DEFAULTS = {
 
 
 def check_supported(args: Namespace) -> None:
-    """Raise on a combination of flags whose code path the port does not
-    have yet, naming the ROADMAP.md item that ports it."""
-    if args.spatial_query_sharding and args.s2d_backbone \
-            and args.network_name == "deeplab":
-        raise NotImplementedError(
-            "not ported to the PyTorch package yet: --s2d_backbone under "
-            "--spatial_query_sharding (ROADMAP Queue 1 item 18: the s2d "
-            "blocks' border terms on row stripes)")
+    """The one place that raises ``NotImplementedError`` on a combination
+    of flags whose code path the port does not have, naming the ROADMAP.md
+    item that ports it. Every flag and combination of the JAX package is
+    ported, so it accepts all of them."""
 
 
 def finalize_args(args: Namespace, write_files: bool = True) -> Namespace:

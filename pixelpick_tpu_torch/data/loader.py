@@ -66,8 +66,7 @@ class Loader:
                  drop_unit: int = None, bucket_stride: int = None,
                  pad_label: int = 255):
         if mode not in ("train", "train_dense", "val", "query"):
-            raise NotImplementedError(f"loader mode {mode!r} is not ported "
-                                      "yet (ROADMAP.md, Queue 1)")
+            raise ValueError(f"unknown loader mode {mode!r}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.mode = mode

@@ -126,6 +126,13 @@ def frozen_running_stats():
         _STATS_FROZEN.on = before
 
 
+def refuse_height_shard() -> None:
+    """Raise where a train-mode BatchNorm runs under a height shard."""
+    if mesh.current_height_shard() is not None:
+        raise RuntimeError("a height shard runs the eval-mode sweep only; "
+                           "train-mode BatchNorm refuses it")
+
+
 class BatchNorm(nn.Module):
     """BatchNorm2d with the JAX package's arithmetic. Eval:
     ``(x - mean) * rsqrt(var + eps) * scale + bias`` in f32, cast to the
@@ -171,9 +178,7 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            if mesh.current_height_shard() is not None:
-                raise RuntimeError("a height shard runs the eval-mode sweep "
-                                   "only; train-mode BatchNorm refuses it")
+            refuse_height_shard()
             y, mu, var = ghost_bn_train(x, self.weight, self.bias,
                                         self.groups, self.eps, self.dtype)
             self.update_running_stats(mu.detach(), var.detach())
@@ -268,9 +273,9 @@ class Conv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(self.dtype)
-        x, pad_h = halo.pad_rows(x, (self.weight.shape[2] - 1)
-                                 * self.dilation + 1, self.stride,
-                                 self.padding)
+        x, (pad_h, _) = halo.pad_rows(x, (self.weight.shape[2] - 1)
+                                      * self.dilation + 1, self.stride,
+                                      self.padding)
         return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), bias,
                         self.stride, (pad_h, self.padding), self.dilation,
                         self.groups)
@@ -324,8 +329,8 @@ class Conv3x3MatMul(Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xh = x.permute(0, 2, 3, 1).to(self.dtype).float()
-        xh, pad_h = halo.pad_rows(xh, 2 * self.dilation + 1, 1,
-                                  self.dilation, axis=1)
+        xh, (pad_h, _) = halo.pad_rows(xh, 2 * self.dilation + 1, 1,
+                                       self.dilation, axis=1)
         k = self.weight.to(self.dtype).float()
         acc = None
         for ky, kx, win in _taps(xh, self.dilation, pad_h):
@@ -368,7 +373,7 @@ def conv3x3_wgrad_mm(x: torch.Tensor, k: torch.Tensor,
     the library's forward and dx, the weight gradient as 9 tap matmuls
     (JAX's ``conv3x3_wgrad_mm``); under a height shard on ``x``'s rows
     padded by ``halo.pad_rows``."""
-    x, pad_h = halo.pad_rows(x, 2 * dilation + 1, 1, dilation)
+    x, (pad_h, _) = halo.pad_rows(x, 2 * dilation + 1, 1, dilation)
     return _Conv3x3WgradMM.apply(x, k, dilation, pad_h)
 
 
@@ -471,5 +476,6 @@ def fixed_pad(x: torch.Tensor, kernel_size: int, dilation: int,
     neighbours' between stripes (the stride-2 window takes the top halo
     row only)."""
     beg, end = fixed_padding_amounts(kernel_size, dilation)
-    x, pad_h = halo.pad_rows(x, (kernel_size - 1) * dilation + 1, stride, beg)
+    x, (pad_h, _) = halo.pad_rows(x, (kernel_size - 1) * dilation + 1,
+                                  stride, beg)
     return F.pad(x, (beg, end, pad_h, pad_h + end - beg))

@@ -38,7 +38,7 @@ from pixelpick_tpu_torch.models.layers import (
     BatchNorm, Dropout2d, ReLU6, conv, fixed_pad, frozen_running_stats,
 )
 from pixelpick_tpu_torch.ops.s2d import from_s2d, to_s2d
-from pixelpick_tpu_torch.parallel import mesh
+from pixelpick_tpu_torch.parallel import halo
 
 # (expand_ratio t, channels c, repeats n, stride s) — mobilenet_v2.py:82-91
 INVERTED_RESIDUAL_SETTINGS = (
@@ -159,18 +159,16 @@ class MobileNetV2(nn.Module):
         """NCHW in; returns (high_level 1/16, low_level 1/4). The s2d blocks
         run in s2d layout while their input has an even height and width
         (``mobilenet_v2.py:146-175``), each block deciding from its own
-        input, and the standard way otherwise."""
+        input, and the standard way otherwise. Under a height shard the
+        height is the whole map's, so that every rank takes the same path
+        at every block."""
         h = self.features[0](x)
         low = None
         in_s2d = False
         for i, block in enumerate(self.features[1:]):
             use_s2d = hasattr(block, "forward_s2d") and (
-                in_s2d or (h.shape[2] % 2 == 0 and h.shape[3] % 2 == 0))
-            if use_s2d and mesh.current_height_shard() is not None:
-                raise NotImplementedError(
-                    "--s2d_backbone under --spatial_query_sharding: the "
-                    "s2d blocks' border terms assume the image's own edges "
-                    "(ROADMAP Queue 1 item 18)")
+                in_s2d or (halo.bounds(h.shape[2])[0][-1] % 2 == 0
+                           and h.shape[3] % 2 == 0))
             if use_s2d:
                 if not in_s2d:
                     h, in_s2d = to_s2d(h), True

@@ -145,7 +145,7 @@ def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
     """The stem's 3x3 / stride-2 max pool, padded with -inf as the JAX
     package's; under a height shard the pad rows between stripes are the
     neighbours' rows."""
-    x, pad_h = halo.pad_rows(x, 3, 2, 1, float("-inf"))
+    x, (pad_h, _) = halo.pad_rows(x, 3, 2, 1, float("-inf"))
     return F.max_pool2d(x, 3, 2, (pad_h, 1))
 
 

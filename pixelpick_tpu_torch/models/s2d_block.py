@@ -21,6 +21,11 @@ before the block:
 - stride 1 emits s2d layout; stride 2 emits the normal layout, where the
   tail (dw BN, project) runs through the standard modules (``:189-197``).
 
+Under ``--spatial_query_sharding`` (eval only) the block runs on a rank's
+row stripe: the cell convs take their halo from ``parallel/halo.py`` and
+the border map is the whole map's rows of this stripe, as JAX's global
+view computes it.
+
 The phase-grouped BatchNorm (JAX's ``_S2DBNCore``/``S2DBatchNorm``) is
 :class:`S2DBatchNorm`, a :class:`BatchNorm` with one more method: its
 train-mode moments come from ``ghost_bn_train`` on the phase-folded tensor
@@ -42,6 +47,7 @@ from pixelpick_tpu_torch.models.mobilenet_v2 import InvertedResidual
 from pixelpick_tpu_torch.ops.s2d import (
     border_weight_map, conv_s2d_1x1, conv_s2d_dw, rep_phase, to_s2d,
 )
+from pixelpick_tpu_torch.parallel import halo
 
 
 class S2DBatchNorm(BatchNorm):
@@ -64,6 +70,7 @@ class S2DBatchNorm(BatchNorm):
                 * rep_phase(mul).view(shape) + rep_phase(self.bias).view(shape)
             return y.to(self.dtype), (-self.running_mean * mul
                                       + self.bias)[None]
+        layers.refuse_height_shard()
         # the 4 phases of a channel side by side along H: (B, C, 4h, w)
         folded = x.reshape(b, 4, c, h, w).transpose(1, 2).reshape(
             b, c, 4 * h, w)
@@ -98,7 +105,8 @@ class InvertedResidualS2D(InvertedResidual):
         mods = list(self.conv)
         dt = self.dtype
         h2, w2 = x.shape[2:]
-        ho, wo = 2 * h2, 2 * w2            # the block input's extent
+        # the whole block input's extent (a height shard splits the rows)
+        ho, wo = 2 * halo.bounds(h2)[0][-1], 2 * w2
         pad_count = (ho + 2) * (wo + 2)    # the fixed_padding'ed map's pixels
 
         def mm(z, conv):
@@ -119,10 +127,13 @@ class InvertedResidualS2D(InvertedResidual):
         wdw = dw.weight[:, 0].permute(1, 2, 0).to(dt)  # (3, 3, hidden)
         y = conv_s2d_dw(h, wdw, self.stride)
         if rho is not None:
+            # the whole map's, narrowed to this rank's output rows
             m = border_weight_map(wdw, (ho, wo), self.stride)
             rho = rho.to(dt)
-            if self.stride == 1:
-                m, rho = to_s2d(m), rep_phase(rho)  # phase-major channels
+            if self.stride == 1:  # phase-major channels
+                m, rho = to_s2d(halo.stripe(m, 2 * h2)), rep_phase(rho)
+            else:
+                m = halo.stripe(m, h2)
             y = y + rho[:, :, None, None] * m
         if self.stride == 1:
             y = relu6(bn2.forward_s2d(y)[0])

@@ -178,7 +178,7 @@ def depthwise_conv3x3(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     row stripe: the pad rows between stripes are the neighbours' rows
     (``parallel/halo.py``), so the kernel's pre-padded input carries the
     halo; at stride 2 only the top one is read."""
-    x, pad_h = halo.pad_rows(x, 2 * dilation + 1, stride, padding, axis=1)
+    x, (pad_h, _) = halo.pad_rows(x, 2 * dilation + 1, stride, padding, axis=1)
     if padding:
         x = F.pad(x, (0, 0, padding, padding, pad_h, pad_h)).contiguous()
     return _dw_forward(x, w, stride, dilation)

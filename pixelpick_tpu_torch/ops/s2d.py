@@ -22,6 +22,10 @@ transposed. Each function works on the NHWC view (``permute(0, 2, 3, 1)``),
 the JAX package's arithmetic op for op, and returns an NCHW view of an
 NHWC-contiguous result.
 
+Under ``--spatial_query_sharding`` the cell convs read the cells between
+stripes from the other ranks (``parallel/halo.py``) and the rim stays zero
+at the image's edges only, where the border map puts ``rho``.
+
 The JAX package computes all of this outside any Pallas kernel, in plain
 ``jnp``/``lax``, so it is plain tensor math here too; autograd gives the
 backward.
@@ -33,6 +37,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from pixelpick_tpu_torch.parallel import halo, mesh
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -48,6 +54,16 @@ def to_s2d(x: torch.Tensor) -> torch.Tensor:
     b, c, h, w = x.shape
     if h % 2 or w % 2:
         raise ValueError(f"to_s2d needs an even height and width: {h}x{w}")
+    shard = mesh.current_height_shard()
+    if shard is not None:
+        # the cell rows of a stripe at level s must be the level-2s stripe,
+        # where pad_rows looks for the cell convs' halo
+        s = shard.level(h)
+        lo, hi = shard.rows_at(s)
+        if shard.rows_at(2 * s) != (lo // 2, hi // 2):
+            raise AssertionError(
+                f"the cells of rows [{lo}, {hi}) at stride {s} are not the "
+                f"stripe {shard.rows_at(2 * s)} at stride {2 * s}")
     z = _nhwc(x).reshape(b, h // 2, 2, w // 2, 2, c)
     z = z.permute(0, 1, 3, 2, 4, 5)  # b, h2, w2, py, px, c
     return _nchw(z.reshape(b, h // 2, w // 2, 4 * c))
@@ -97,9 +113,11 @@ def conv_s2d_dw(x_s2d: torch.Tensor, w: torch.Tensor,
     b, c4, h2, w2 = x_s2d.shape
     c = c4 // 4
     # cell padding: 1 before each dim always; 1 after only for stride 1
-    # (stride-1 output phases py=1 reach cell +1, stride-2 taps reach -1..0)
+    # (stride-1 output phases py=1 reach cell +1, stride-2 taps reach -1..0);
+    # under a height shard the rows between stripes are the other ranks'
     after = 1 if stride == 1 else 0
-    xp = F.pad(_nhwc(x_s2d), (0, 0, 1, after, 1, after))
+    x_s2d, (top, bottom) = halo.pad_rows(x_s2d, 2 + after, 1, (1, after))
+    xp = F.pad(_nhwc(x_s2d), (0, 0, 1, after, top, bottom))
 
     def tap(sy, sx, qy, qx):
         q = qy * 2 + qx
@@ -124,7 +142,9 @@ def conv_s2d_dw(x_s2d: torch.Tensor, w: torch.Tensor,
 
 def border_weight_map(w: torch.Tensor, hw, stride: int) -> torch.Tensor:
     """Per-position sum of the depthwise weights whose tap falls on the
-    fixed_padding rim of an ``hw`` input: (1, C, H_out, W_out).
+    fixed_padding rim of an ``hw`` input: (1, C, H_out, W_out). ``hw`` is
+    the whole map's; under a height shard a rank adds its stripe's rows
+    (``halo.stripe``), since the rim lies at the image's edges only.
 
     The reference pads the block input, so for t>1 blocks the depthwise
     conv's rim taps read relu6(BN(0)) = rho, not zero. The s2d cell conv

@@ -10,8 +10,8 @@ runs VALID in height. This is where the JAX package leaves GSPMD to insert
 the halo exchanges.
 
 - ``pad_rows``: the rows a window op (a convolution, the depthwise
-  kernel's pre-padded input, a max pool) reads, and the row padding it
-  still applies itself.
+  kernel's pre-padded input, a max pool, the s2d blocks' cell convs)
+  reads, and the row padding it still applies itself.
 - ``fetch_rows``: rows ``[a, b)`` of a map, for every rank its own
   ``(a, b)``. Each rank sends its first and last ``R`` rows, ``R`` the
   farthest any rank reaches past its stripe (at most the tallest
@@ -20,6 +20,8 @@ the halo exchanges.
   reach past the next rank (the ASPP's rate 18 at 1/16 over stripes of 11
   rows) takes the whole stripes in between.
 - ``bounds``: every rank's row boundaries on a map.
+- ``stripe``: this rank's rows of a map computed whole (the s2d blocks'
+  border map).
 - ``mean``: a mean over the rows and more, summed over the ranks.
 - ``gather_rows``: the whole map on every rank (the pick's score map).
 
@@ -30,7 +32,7 @@ back to zeros or to replication.
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import List, Sequence, Tuple, Union
 
 import torch
 
@@ -99,32 +101,45 @@ def fetch_rows(x: torch.Tensor, needs: Sequence[Tuple[int, int]],
     return out
 
 
-def pad_rows(x: torch.Tensor, kernel: int, stride: int, pad: int,
-             fill: float = 0.0, axis: int = 2) -> Tuple[torch.Tensor, int]:
-    """The rows that a window op of ``kernel`` rows (dilation included) at
-    ``stride``, padded by ``pad`` rows above and below, reads for this
-    rank's output rows, and the row padding the op still applies itself.
+Pad = Union[int, Tuple[int, int]]
 
-    With no height shard active, or ``pad`` 0 (a VALID op reads its own
-    stripe's rows, or the rows padded for it): ``(x, pad)``. Under a shard:
-    ``(rows, 0)``, the image's edges filled with ``fill`` and the rows
-    between stripes the other ranks'. A stride-2 op must see every stripe
-    start on an even row, and its output must be the next level's map;
-    the stride rule of ``mesh.height_shard`` makes both hold, and this
-    asserts them."""
+
+def pad_rows(x: torch.Tensor, kernel: int, stride: int, pad: Pad,
+             fill: float = 0.0, axis: int = 2
+             ) -> Tuple[torch.Tensor, Tuple[int, int]]:
+    """The rows that a window op of ``kernel`` rows (dilation included) at
+    ``stride``, padded by ``pad`` rows above and below (or by ``(top,
+    bottom)``), reads for this rank's output rows, and the row padding the
+    op still applies itself, always as ``(top, bottom)``.
+
+    With no height shard active, or no padding (a VALID op reads its own
+    stripe's rows, or the rows padded for it): ``(x, (top, bottom))``.
+    Under a shard: ``(rows, (0, 0))``, the image's edges filled with
+    ``fill`` and the rows between stripes the other ranks'. A stride-2
+    op must see every stripe start on an even row, and its output must be
+    the next level's map; the stride rule of ``mesh.height_shard`` makes
+    both hold, and this asserts them."""
+    top, bottom = (pad, pad) if isinstance(pad, int) else pad
     shard = mesh.current_height_shard()
-    if shard is None or not pad:
-        return x, pad
+    if shard is None or not (top or bottom):
+        return x, (top, bottom)
     s = shard.level(x.shape[axis])
     edges, out = shard.bounds_at(s), shard.bounds_at(s * stride)
-    n_out = (edges[-1] + 2 * pad - kernel) // stride + 1
+    n_out = (edges[-1] + top + bottom - kernel) // stride + 1
     if n_out != out[-1] or any(b % stride for b in edges[:-1]):
         raise AssertionError(
             f"a {kernel}-row window at stride {stride} over stripes "
             f"{edges} gives {n_out} rows, not the stripes {out}")
-    needs = [(out[q] * stride - pad, (out[q + 1] - 1) * stride - pad + kernel)
+    needs = [(out[q] * stride - top, (out[q + 1] - 1) * stride - top + kernel)
              for q in range(len(edges) - 1)]
-    return fetch_rows(x, needs, fill, axis), 0
+    return fetch_rows(x, needs, fill, axis), (0, 0)
+
+
+def stripe(x: torch.Tensor, rows: int, axis: int = 2) -> torch.Tensor:
+    """This rank's rows of ``x``, a whole map whose stripe here has
+    ``rows`` rows on axis ``axis``; ``x`` itself with no height shard."""
+    edges, r = bounds(rows)
+    return x.narrow(axis, edges[r], edges[r + 1] - edges[r])
 
 
 def mean(x: torch.Tensor, dims: Tuple[int, ...], axis: int,

@@ -7,6 +7,9 @@ The maps are 64 rows (the DeepLab's stride-16 split 32 / 32) and 80 rows
 (48 / 32) by 48 columns; the FPN's stride 8 splits 64 rows 32 / 32 and 72
 rows 40 / 32. Three ranks split 128 rows 48 / 48 / 32, 3 / 3 / 2 rows at
 1/16, where the ASPP's rates reach past the next rank's whole stripe.
+``--s2d_backbone`` sweeps also run at 68 rows (48 / 20): the 1/4 map has
+17 rows, stripes of 12 and 5, so blocks 2-3 run the standard way on both
+ranks, as the whole map decides.
 The ranks are ``tests/torch_dist_worker.py`` (one run of every scenario
 under its own timeout); the test process runs the same scenario
 functions at world size 1, where the flag changes nothing.
@@ -27,6 +30,7 @@ committee's dropout masks cannot match JAX's, so it is held to the port's
 single process on the same generator.
 """
 
+import os
 import pickle
 import sys
 
@@ -43,6 +47,8 @@ from pixelpick_tpu.parallel.mesh import get_mesh, shard_batch_spatial
 from pixelpick_tpu_torch import config
 from pixelpick_tpu_torch.active import codec
 from pixelpick_tpu_torch.models.convert import state_dict_from_jax
+from pixelpick_tpu_torch.models.layers import BatchNorm
+from pixelpick_tpu_torch.models.s2d_block import S2DBatchNorm
 from pixelpick_tpu_torch.parallel import distributed, mesh
 from test_torch_acquisition import _jax_draws, _pick_sets
 from test_torch_distributed import WORKER, run_ranks
@@ -57,10 +63,17 @@ STATS_RTOL = 1e-5
 KW = dict(strategy="margin_sampling", n_pixels=5, top_n_percent=0.05,
           reverse_order=False)
 THREE_RANKS_H = 128
+S2D_HEIGHTS = (64, 80, 68)
+S2D_JAX_HEIGHTS = (64, 68)
+# the blocks in s2d layout: 0-3 where the 1/4 map's rows are even, 0-1
+# where they are odd (68 rows)
+S2D_BLOCKS = {64: [0, 1, 2, 3], 80: [0, 1, 2, 3], 68: [0, 1],
+              THREE_RANKS_H: [0, 1, 2, 3]}
 LAYER_OPS = ["conv3x3", "conv3x3_dilated", "atrous_rate6", "atrous_rate18",
              "conv3x3_s2",
              "stem7x7_s2", "conv3x3_matmul", "depthwise_s1", "depthwise_s2",
              "block_s1_fixed_pad", "block_s2_fixed_pad", "block_pallas_dw",
+             "s2d_block_s1", "s2d_block_s2",
              "max_pool", "resize_ac_16_to_4", "resize_ac_4_to_1",
              "resize_half_8_to_4", "dropout", "global_mean", "group_norm"]
 
@@ -105,6 +118,16 @@ def setup(tmp_path_factory):
         spec[f"committee_{h}"] = dict(score, mc=True, seed=5, kw=dict(
             KW, strategy="entropy", mc_n_steps=3))
         spec[f"voc_{h}"] = dict(score, batch=bucket_batch(h), seed=6)
+    for h in S2D_HEIGHTS:
+        batches.setdefault(h, pool_batch(h, h))
+        draws = _jax_draws(jax.random.PRNGKey(11), 2, (h, WIDTH_PX), False)
+        spec[f"s2d_{h}"] = dict(
+            kind="score", weights=weights, batch=batches[h], kw=KW,
+            s2d=True, pallas=True, uniforms={
+                k: v.numpy() for k, v in draws.items()})
+    spec["s2d_committee"] = dict(
+        kind="score", weights=weights, batch=batches[68], s2d=True, mc=True,
+        seed=5, kw=dict(KW, strategy="entropy", mc_n_steps=3))
     for h in FPN_HEIGHTS:
         spec[f"fpn_{h}"] = dict(kind="score", fpn=True, batch=pool_batch(
             h, h + 1), kw=KW, seed=7)
@@ -149,14 +172,15 @@ def setup(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def setup3(tmp_path_factory, setup):
-    """Every per-layer case and a ``--pallas_dw`` sweep on three ranks,
-    and in one process."""
+    """Every per-layer case and a ``--pallas_dw`` sweep, plain and with
+    ``--s2d_backbone``, on three ranks, and in one process."""
     tmp = tmp_path_factory.mktemp("spatial3")
     h = THREE_RANKS_H
     spec = {"layers": dict(kind="layers", hw=(h, WIDTH_PX), ops=LAYER_OPS),
             "sweep": dict(kind="score", weights=setup["spec"]["jax_64"]
                           ["weights"], batch=pool_batch(h, h), kw=KW,
                           pallas=True, seed=9)}
+    spec["s2d_sweep"] = dict(spec["sweep"], s2d=True)
     n = torch.get_num_threads()
     torch.set_num_threads(2)
     try:
@@ -219,6 +243,16 @@ def test_sweep_on_three_ranks_matches_single_process(setup3):
     assert_same_sweep(got, ref, "three ranks")
 
 
+def test_s2d_sweep_on_three_ranks_matches_single_process(setup3):
+    """The ``--s2d_backbone --pallas_dw`` sweep on three ranks' stripes
+    (6 / 6 / 4 cell rows in blocks 2-3): the same picks and stats as one
+    process, blocks 0-3 in s2d layout on every rank."""
+    got, ref = setup3["ranks"]["s2d_sweep"], setup3["single"]["s2d_sweep"]
+    assert got["sharded"] and not ref["sharded"]
+    assert_same_sweep(got, ref, "three ranks s2d")
+    assert got["s2d_blocks"] == [S2D_BLOCKS[THREE_RANKS_H]] * 3
+
+
 @pytest.mark.parametrize("h", HEIGHTS)
 def test_sweep_matches_single_process(setup, h):
     """The two-rank height-sharded sweep at JAX's draws against the
@@ -228,24 +262,65 @@ def test_sweep_matches_single_process(setup, h):
     assert_same_sweep(got, ref, f"jax_{h}")
 
 
-@pytest.mark.parametrize("h", HEIGHTS)
-def test_sweep_matches_jax_spatial_mesh(setup, h):
-    """The same sweep against JAX's ``make_score_fn`` with the batch
-    sharded by height over a 2-device mesh (``shard_batch_spatial``), at
-    the same weights and draws."""
+def jax_mesh_sweep(setup, h: int, s2d_until: int = 0) -> dict:
+    """JAX's ``make_score_fn`` on the ``h``-row batch sharded by height
+    over a 2-device mesh (``shard_batch_spatial``), at the scenarios'
+    weights and draws."""
     kw = dict(KW, mean=worker.MEAN, std=worker.STD,
               ignore_index=worker.N_CLASSES)
     jax_fn = jax_acq.make_score_fn(
-        JaxDeepLab(n_classes=worker.N_CLASSES, width_mult=worker.WIDTH),
+        JaxDeepLab(n_classes=worker.N_CLASSES, width_mult=worker.WIDTH,
+                   s2d_until=s2d_until),
         n_classes=worker.N_CLASSES, **kw)
     batch = shard_batch_spatial(setup["batches"][h], get_mesh(n_devices=2))
     assert batch["x"].sharding.spec == (None, "data")
     idx, stats = jax_fn(jax.tree.map(jnp.asarray, setup["params"]),
                         jax.tree.map(jnp.asarray, setup["stats"]), batch,
                         jax.random.PRNGKey(11))
-    ref = {"idx": np.asarray(idx),
-           "stats": {k: np.asarray(v) for k, v in stats.items()}}
-    assert_same_sweep(setup["ranks"][f"jax_{h}"], ref, f"jax mesh {h}")
+    return {"idx": np.asarray(idx),
+            "stats": {k: np.asarray(v) for k, v in stats.items()}}
+
+
+@pytest.mark.parametrize("h", HEIGHTS)
+def test_sweep_matches_jax_spatial_mesh(setup, h):
+    """The same sweep against JAX's ``make_score_fn`` with the batch
+    sharded by height over a 2-device mesh (``shard_batch_spatial``), at
+    the same weights and draws."""
+    assert_same_sweep(setup["ranks"][f"jax_{h}"], jax_mesh_sweep(setup, h),
+                      f"jax mesh {h}")
+
+
+@pytest.mark.parametrize("name", [f"s2d_{h}" for h in S2D_HEIGHTS]
+                         + ["s2d_committee"])
+def test_s2d_sweep_matches_single_process(setup, name):
+    """``--s2d_backbone`` on two ranks' stripes (with ``--pallas_dw`` at
+    JAX's draws, and the MC-dropout committee of 3 members by entropy at
+    68 rows): the same picks and stats as the single-process s2d sweep.
+    Every rank runs the blocks in s2d layout that one process runs, as
+    the whole map decides: blocks 2-3 run the standard way at 68 rows on
+    both ranks, though rank 0's stripe of the 1/4 map has 12 rows. One
+    stride-2 grouped conv per forward (block 6) where blocks 1 and 3 run
+    in s2d layout, two (blocks 3 and 6) where block 3 does not."""
+    got, ref = setup["ranks"][name], setup["single"][name]
+    assert got["sharded"] and not ref["sharded"]
+    assert_same_sweep(got, ref, name)
+    blocks = S2D_BLOCKS[setup["spec"][name]["batch"]["x"].shape[1]]
+    assert got["s2d_blocks"] == [blocks, blocks]
+    assert ref["s2d_blocks"] == [blocks]
+    if setup["spec"][name].get("pallas"):
+        s2 = 1 if blocks[-1] == 3 else 2
+        assert got["launches"] == ref["launches"] \
+            == {"kernel": 0, "kernel_dx": 0, "stride2_conv": s2}
+
+
+@pytest.mark.parametrize("h", S2D_JAX_HEIGHTS)
+def test_s2d_sweep_matches_jax_spatial_mesh(setup, h):
+    """The two-rank s2d sweep against JAX's s2d ``make_score_fn``
+    (``DeepLab(s2d_until=4)``) on the 2-device height-sharded mesh, at
+    the same weights and draws."""
+    assert_same_sweep(setup["ranks"][f"s2d_{h}"],
+                      jax_mesh_sweep(setup, h, s2d_until=4),
+                      f"jax s2d mesh {h}")
 
 
 @pytest.mark.parametrize("name", ["pallas", "committee", "voc"])
@@ -333,14 +408,31 @@ def test_height_shard_rule(monkeypatch):
 
 
 def test_s2d_under_the_flag_refused():
-    """``--s2d_backbone`` with ``--spatial_query_sharding`` on the DeepLab
-    names its ROADMAP item; the FPN ignores ``--s2d_backbone``."""
+    """``--s2d_backbone`` with ``--spatial_query_sharding`` is ported: the
+    check accepts it on the DeepLab (with data parallelism too), and on
+    the FPN, which ignores ``--s2d_backbone``. Nothing is refused any
+    more."""
     parse = config.build_parser().parse_args
-    with pytest.raises(NotImplementedError, match="item 18"):
-        config.check_supported(parse(["--spatial_query_sharding",
-                                      "--s2d_backbone", "true"]))
-    config.check_supported(parse(["--spatial_query_sharding", "--s2d_backbone",
-                                  "true", "--network_name", "FPN"]))
+    for extra in ([], ["--data_parallel", "2"], ["--network_name", "FPN"]):
+        args = parse(["--spatial_query_sharding", "--s2d_backbone", "true",
+                      *extra])
+        assert args.spatial_query_sharding and args.s2d_backbone
+        assert config.check_supported(args) is None
+
+
+def test_s2d_batchnorm_train_refuses_a_height_shard():
+    """The train-mode s2d BatchNorm under a height shard raises as the
+    standard one does (a shard runs the eval-mode sweep only); in eval
+    mode both run."""
+    x = torch.ones((2, 16, 4, 6))
+    shard = mesh.HeightShard((0, 16, 32), 0, 16)
+    for bn, call in ((S2DBatchNorm(4), S2DBatchNorm.forward_s2d),
+                     (BatchNorm(16), BatchNorm.forward)):
+        with mesh.sharded_height(shard):
+            with pytest.raises(RuntimeError, match="eval-mode sweep only"):
+                call(bn.train(), x)
+            call(bn.eval(), x)
+    assert S2DBatchNorm(4).train().forward_s2d(x)[0].shape == x.shape
 
 
 def _same_queries(a, b) -> bool:
@@ -357,12 +449,39 @@ def _decoded(path) -> dict:
         {k: enc[k] for k in sorted(enc)})))
 
 
+def _overlap(picks: dict, *labelled: dict) -> bool:
+    """Whether a pick falls on a labelled pixel (the files' keys matched
+    by file name)."""
+    done = {}
+    for q in labelled:
+        for k, m in q.items():
+            done[os.path.basename(k)] = done.get(os.path.basename(k), 0) | m
+    return any((m & done[os.path.basename(k)]).any()
+               for k, m in picks.items())
+
+
+def _write_labelled(src, dst) -> None:
+    """``src``'s picks as the annotation tools write them (``category_id``
+    filled in, here class 0), so that the query CLI excludes just those
+    pixels from its pool."""
+    with open(src, "rb") as f:
+        enc = pickle.load(f)
+    for info in enc.values():
+        info["category_id"] = np.zeros(len(info["x_coords"]), np.int64)
+    dst.parent.mkdir(parents=True, exist_ok=True)
+    with open(dst, "wb") as f:
+        pickle.dump(enc, f)
+
+
 def test_entry_points_with_the_flag(tmp_path):
     """``main_al --spatial_query_sharding --data_parallel 2 --device cpu``
     (two rounds on 48x64 images: stripes of 32 and 16 rows) writes the
     round files of the run without the flag, the same picks as sets; then
     the query CLI with the flag over its labelled rounds picks what it
-    picks without."""
+    picks without. With ``--s2d_backbone true`` (top-k picks, no draws):
+    one round of ``main_al`` with the flag, then the query CLI with and
+    without the flag over its round 0 and checkpoint, all three the same
+    picks."""
     from torch_helpers import custom_camvid
 
     cfg = custom_camvid(tmp_path, n_train=6, n_val=2)
@@ -387,9 +506,8 @@ def test_entry_points_with_the_flag(tmp_path):
                        ("plain", [])):
         d = tmp_path / f"cli_{name}"
         for r in (0, 1):
-            (d / f"{r}_query").mkdir(parents=True)
-            (d / f"{r}_query" / "queries.pkl").write_bytes(
-                (runs["flag"] / f"{r}_query" / "queries.pkl").read_bytes())
+            _write_labelled(runs["flag"] / f"{r}_query" / "queries.pkl",
+                            d / f"{r}_query" / "queries.pkl")
         run_ranks(lambda r: [
             sys.executable, "-m", "pixelpick_tpu_torch.cli.query", *common,
             "--p_state_dict", str(runs["flag"] / "0_query" /
@@ -398,3 +516,32 @@ def test_entry_points_with_the_flag(tmp_path):
             world=1)
         cli[name] = _decoded(d / "2_query" / "queries.pkl")
     assert len(cli["flag"]) == 6 and _same_queries(cli["flag"], cli["plain"])
+    assert not _overlap(cli["flag"], *(
+        _decoded(runs["flag"] / f"{r}_query" / "queries.pkl")
+        for r in (0, 1)))
+
+    s2d = ["--s2d_backbone", "true", "--top_n_percent", "0"]
+    run_ranks(lambda r: [
+        sys.executable, "-m", "pixelpick_tpu_torch.cli.main_al", *common,
+        *s2d, "--max_budget", "3", "--dir_checkpoints",
+        str(tmp_path / "s2d"), "--spatial_query_sharding"],
+        tmp_path / "s2d.log", world=1)
+    picks = {"main_al": _decoded(tmp_path / "s2d" / "1_query" /
+                                 "queries.pkl")}
+    for name, flag in (("flag", ["--spatial_query_sharding"]),
+                       ("plain", [])):
+        d = tmp_path / f"s2d_cli_{name}"
+        _write_labelled(tmp_path / "s2d" / "0_query" / "queries.pkl",
+                        d / "0_query" / "queries.pkl")
+        run_ranks(lambda r: [
+            sys.executable, "-m", "pixelpick_tpu_torch.cli.query", *common,
+            *s2d, "--p_state_dict", str(tmp_path / "s2d" / "0_query" /
+                                        "best_miou_model.ckpt"),
+            "--dir_checkpoints", str(d), *flag],
+            tmp_path / f"s2d_cli_{name}.log", world=1)
+        picks[name] = _decoded(d / "1_query" / "queries.pkl")
+    assert len(picks["plain"]) == 6
+    assert not _overlap(picks["plain"], _decoded(
+        tmp_path / "s2d" / "0_query" / "queries.pkl"))
+    for name in ("main_al", "flag"):
+        assert _same_queries(picks[name], picks["plain"]), name

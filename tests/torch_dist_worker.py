@@ -179,8 +179,10 @@ def layer_op(name: str, size):
     from pixelpick_tpu_torch.models.fpn import GroupNorm
     from pixelpick_tpu_torch.models.mobilenet_v2 import InvertedResidual
     from pixelpick_tpu_torch.models.resnet import max_pool_3x3_s2
+    from pixelpick_tpu_torch.models.s2d_block import InvertedResidualS2D
     from pixelpick_tpu_torch.ops.depthwise import depthwise_conv3x3
     from pixelpick_tpu_torch.ops.resize import resize_bilinear
+    from pixelpick_tpu_torch.ops.s2d import from_s2d, to_s2d
 
     conv = layers.Conv2d
     w = torch.randn((3, 3, 8), generator=torch.Generator().manual_seed(3))
@@ -191,6 +193,21 @@ def layer_op(name: str, size):
             return _init_(InvertedResidual(8, cout, stride, dilation, 6), 5)
         finally:
             layers.set_depthwise_impl("xla")
+
+    def s2d_block(stride, cout):
+        """An s2d block on a level-2 map: the s2d input made, the s2d
+        output (stride 1) unmade. Its rim value rho must be nonzero in a
+        channel, or the border map's rows could be any."""
+        block = _init_(InvertedResidualS2D(8, cout, stride, 1, 6), 5)
+        bn = block.conv[1]
+        rho = layers.relu6(bn.bias - bn.running_mean * bn.weight
+                           * torch.rsqrt(bn.running_var + bn.eps))
+        assert (rho > 0).any(), "rho is 0 in every channel"
+
+        def op(x):
+            y = block.forward_s2d(to_s2d(x))
+            return from_s2d(y) if stride == 1 else y
+        return op
 
     def dropout(x):
         d = layers.Dropout(0.5)
@@ -217,6 +234,8 @@ def layer_op(name: str, size):
         "block_s1_fixed_pad": (2, 8, False, dw_block(1, 2, 8, "xla")),
         "block_s2_fixed_pad": (2, 8, False, dw_block(2, 1, 16, "xla")),
         "block_pallas_dw": (4, 8, False, dw_block(1, 1, 8, "pallas")),
+        "s2d_block_s1": (2, 8, False, s2d_block(1, 8)),
+        "s2d_block_s2": (2, 8, False, s2d_block(2, 16)),
         "max_pool": (2, 8, False, max_pool_3x3_s2),
         "resize_ac_16_to_4": (16, 8, True,
                               lambda x: resize_bilinear(x, size(4), True)),
@@ -266,7 +285,8 @@ def run_layers(sc) -> dict:
 def build_port(sc):
     """The scenario's model: the width-0.5 DeepLab at ``sc["weights"]``
     (``--pallas_dw`` with ``sc["pallas"]``, the MC-dropout sites with
-    ``sc["mc"]``), or the seeded ResNet-18 FPN."""
+    ``sc["mc"]``, blocks 0-3 in s2d layout with ``sc["s2d"]``), or the
+    seeded ResNet-18 FPN."""
     from pixelpick_tpu_torch.models.factory import init_model
     from pixelpick_tpu_torch.models.fpn import FPNSeg
 
@@ -277,7 +297,8 @@ def build_port(sc):
     layers.set_depthwise_impl("pallas" if sc.get("pallas") else "xla")
     try:
         model = DeepLab(N_CLASSES, width_mult=WIDTH,
-                        mc_dropout=sc.get("mc", False))
+                        mc_dropout=sc.get("mc", False),
+                        s2d_until=4 if sc.get("s2d") else 0)
     finally:
         layers.set_depthwise_impl("xla")
     model.load_state_dict(sc["weights"])
@@ -289,8 +310,9 @@ def run_score(sc) -> dict:
     ``--spatial_query_sharding``'s split (the rank's row stripes; the whole
     images in one process), the draws injected (``sc["uniforms"]``) or
     from a generator seeded ``sc["seed"]`` that the dropouts share: the
-    picks, the stats, whether the split warned and fell back, and the
-    depthwise launches counted."""
+    picks, the stats, whether the split warned and fell back, the
+    depthwise launches counted and, on every rank, the blocks that ran in
+    s2d layout."""
     import warnings
 
     import numpy as np
@@ -312,6 +334,11 @@ def run_score(sc) -> dict:
              for k, v in local.items()}
     uniforms = None if sc.get("uniforms") is None else {
         k: torch.from_numpy(v) for k, v in sc["uniforms"].items()}
+    ran_s2d = set()
+    for i, block in enumerate(model.backbone.features[1:]
+                              if sc.get("s2d") else ()):
+        if hasattr(block, "forward_s2d"):
+            block.forward_s2d = _recorded(block.forward_s2d, ran_s2d, i)
     depthwise.reset_launch_counts()
     with mesh.sharded_height(shard):
         idx, stats = score(batch, g, uniforms)
@@ -319,7 +346,17 @@ def run_score(sc) -> dict:
                                           for k, v in stats.items()},
             "warned": any("replicated" in str(w.message) for w in caught),
             "sharded": shard is not None,
-            "launches": dict(depthwise.launch_counts)}
+            "launches": dict(depthwise.launch_counts),
+            "s2d_blocks": distributed.all_gather_object(sorted(ran_s2d))}
+
+
+def _recorded(fn, ran: set, i: int):
+    """``fn`` (a block's ``forward_s2d``), adding the block's index to
+    ``ran`` at each call."""
+    def call(*a, **kw):
+        ran.add(i)
+        return fn(*a, **kw)
+    return call
 
 
 def run_pipe(sc) -> dict:
