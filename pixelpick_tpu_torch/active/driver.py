@@ -91,7 +91,9 @@ from pixelpick_tpu_torch.parallel import distributed, mesh
 from pixelpick_tpu_torch.parallel.mesh import pad_batch_to_devices
 from pixelpick_tpu_torch.utils.logging import write_log
 from pixelpick_tpu_torch.utils.metrics import AverageMeter, RunningScore
-from pixelpick_tpu_torch.utils.profiling import PhaseTimer, trace
+from pixelpick_tpu_torch.utils.profiling import (
+    PhaseTimer, enabled as tracing, span, trace,
+)
 from pixelpick_tpu_torch.utils.visualiser import Visualiser, render_vis_panels
 
 
@@ -206,6 +208,10 @@ class ALModel:
             with trace(f"{profile_dir}/query" if profile_dir
                        and nth_query == 0 else None):
                 queries = selector(nth_query, human_labels=self.human_labels)
+            if tracing() and distributed.is_primary():
+                # the stage's timing.json again, with the sweep's spans
+                self.timer.dump(f"{self.dir_checkpoints}/{nth_query}_query/"
+                                "timing.json")
             self.dataset.label_queries(queries, nth_query + 1)
             # the reference queries and labels before breaking on the last
             # stage (model.py:82-87)
@@ -317,7 +323,12 @@ class ALModel:
         last_batch = None
         micro = self._micro_bs()
         pad_mult = self._train_pad_multiple()
-        for batch in self._epoch_batches(epoch):
+        batches = self._epoch_batches(epoch)
+        while True:
+            with span("train.load"):
+                batch = next(batches, None)
+            if batch is None:
+                break
             if self.device_pipe is not None:
                 n_real = batch["n_real"]
                 overflows.append(batch["overflow"])
@@ -327,20 +338,28 @@ class ALModel:
                 # a remainder batch (CamVid 367 % 48 = 31) pads with inert
                 # rows to a micro multiple, and to a world-size multiple
                 # when the full batches shard
-                batch, n_real = pad_batch_to_devices(
-                    batch, pad_label=args.ignore_index, multiple=pad_mult)
+                with span("train.upload"):
+                    batch, n_real = pad_batch_to_devices(
+                        batch, pad_label=args.ignore_index, multiple=pad_mult)
+                    if not micro:
+                        shard = mesh.row_shard(batch["x"].shape[0])
+                        dev = batch_to_device(mesh.shard_batch(batch, shard),
+                                              self.device)
                 if micro:  # the step shards and uploads the megabatch once
                     loss, hist = step_fn(batch)
                 else:
-                    shard = mesh.row_shard(batch["x"].shape[0])
-                    loss, hist = step_fn(batch_to_device(
-                        mesh.shard_batch(batch, shard), self.device), shard)
+                    loss, hist = step_fn(dev, shard)
             losses.append(loss.reshape(-1))
             score.merge(hist)
             n_imgs += n_real
             last_batch = batch
             if args.debug:
                 break
+        with span("train.close"):
+            self._close_epoch(epoch, losses, overflows, score, n_imgs, t0)
+        return last_batch
+
+    def _close_epoch(self, epoch, losses, overflows, score, n_imgs, t0):
         # the epoch-mean loss over optimizer updates, read from the device
         # once (model.py:126,147); NaN marks an all-pad micro-batch, which
         # made no update
@@ -366,7 +385,6 @@ class ALModel:
         if distributed.is_primary():
             write_log(self.log_train, list_entities=[
                 epoch, miou, pixel_acc, self.running_loss.avg])
-        return last_batch
 
     def _epoch_batches(self, epoch: int):
         """The host loader's batches, or the device pipeline's along
@@ -394,23 +412,37 @@ class ALModel:
         args = self.args
         score = RunningScore(args.n_classes)
         last = None
-        for batch in self.loader_val:
-            # a bucket batch is already padded to a stride multiple, its pad
-            # labels the ignore index, which the confusion matrix drops
-            feed = {k: v for k, v in batch.items() if k not in ("index", "hw")}
-            if distributed.world_size() > 1:
-                # a remainder pads to the full batch with ignore-labelled
-                # rows, so that it shards (driver.py:468-477)
-                feed, _ = pad_batch_to_devices(
-                    feed, pad_label=args.ignore_index,
-                    target_rows=self.loader_val.batch_size)
-            shard = mesh.row_shard(feed["x"].shape[0])
-            hist, _, vis = eval_fn(batch_to_device(
-                mesh.shard_batch(feed, shard), self.device), shard=shard)
+        batches = iter(self.loader_val)
+        while True:
+            with span("val.load"):
+                batch = next(batches, None)
+            if batch is None:
+                break
+            with span("val.upload"):
+                # a bucket batch is already padded to a stride multiple, its
+                # pad labels the ignore index, which the confusion matrix
+                # drops
+                feed = {k: v for k, v in batch.items()
+                        if k not in ("index", "hw")}
+                if distributed.world_size() > 1:
+                    # a remainder pads to the full batch with ignore-labelled
+                    # rows, so that it shards (driver.py:468-477)
+                    feed, _ = pad_batch_to_devices(
+                        feed, pad_label=args.ignore_index,
+                        target_rows=self.loader_val.batch_size)
+                shard = mesh.row_shard(feed["x"].shape[0])
+                dev = batch_to_device(mesh.shard_batch(feed, shard),
+                                      self.device)
+            hist, _, vis = eval_fn(dev, shard=shard)
             score.merge(hist)
             last = (batch, vis)
             if args.debug:
                 break
+        with span("val.close"):
+            self._close_val(epoch, model, score, last, dir_stage)
+
+    def _close_val(self, epoch, model, score, last, dir_stage):
+        args = self.args
         scores = score.get_scores()[0]
         miou, pixel_acc = scores["Mean IoU"], scores["Pixel Acc"]
         if miou > self.best_miou:

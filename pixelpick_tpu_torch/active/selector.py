@@ -39,6 +39,7 @@ from pixelpick_tpu_torch.active import codec
 from pixelpick_tpu_torch.active.acquisition import make_score_fn
 from pixelpick_tpu_torch.active.stats import QueryStats
 from pixelpick_tpu_torch.parallel import distributed, mesh
+from pixelpick_tpu_torch.utils.profiling import span
 
 
 class QuerySelector:
@@ -81,53 +82,68 @@ class QuerySelector:
         # avoid a second XLA compile; here nothing is compiled per shape,
         # and in eval mode every image is scored independently of the rest
         # of its batch.
-        for batch in self.loader:
-            if self.spatial:
-                shard, hshard = None, mesh.height_shard(
-                    batch["x"].shape[1], self.model.total_stride)
-            else:
-                shard, hshard = mesh.row_shard(batch["x"].shape[0]), None
-            local = mesh.shard_rows(mesh.shard_batch(batch, shard), hshard)
-            dev_batch = {k: torch.from_numpy(
-                np.ascontiguousarray(local[k])).to(self.device)
-                for k in ("x", "excluded", "y", "hw") if k in local}
-            with mesh.sharded(shard), mesh.sharded_height(hshard):
+        batches = iter(self.loader)
+        while True:
+            with span("query.load"):
+                batch = next(batches, None)
+            if batch is None:
+                break
+            with span("query.upload"):
+                if self.spatial:
+                    shard, hshard = None, mesh.height_shard(
+                        batch["x"].shape[1], self.model.total_stride)
+                else:
+                    shard, hshard = mesh.row_shard(batch["x"].shape[0]), None
+                local = mesh.shard_rows(mesh.shard_batch(batch, shard),
+                                        hshard)
+                dev_batch = {k: torch.from_numpy(
+                    np.ascontiguousarray(local[k])).to(self.device)
+                    for k in ("x", "excluded", "y", "hw") if k in local}
+            with span("query.score"), mesh.sharded(shard), \
+                    mesh.sharded_height(hshard):
                 indices, dev_stats = self._score_fn(dev_batch, generator)
-            indices = indices.cpu().numpy()
-            dev_stats = {k: v.cpu().numpy() for k, v in dev_stats.items()}
-            if shard is not None:  # every rank's rows, in image order
-                parts = distributed.all_gather_object((indices, dev_stats))
-                indices = np.concatenate([i for i, _ in parts])
-                dev_stats = {k: np.concatenate([st[k] for _, st in parts])
-                             for k in dev_stats}
-            big_h, big_w = batch["x"].shape[1:3]
-            index = batch.get("index", np.arange(
-                sample_idx, sample_idx + indices.shape[0]))
-            rows = [b for b in range(indices.shape[0]) if index[b] >= 0]
-            for b in rows:
-                q = np.zeros(big_h * big_w, bool)
-                q[indices[b]] = True
-                q = q.reshape(big_h, big_w)
-                h, w = (int(v) for v in batch["hw"][b]) if "hw" in batch \
-                    else (big_h, big_w)
-                q = q[:h, :w]  # the bucket's padding cropped off
-                n_pixels_total += int(q.sum())
-                dict_queries.update(codec.encode_query(
-                    ds.list_inputs[int(index[b])], (h, w), q))
+            with span("query.readback"):
+                indices = indices.cpu().numpy()
+                dev_stats = {k: v.cpu().numpy()
+                             for k, v in dev_stats.items()}
+                if shard is not None:  # every rank's rows, in image order
+                    parts = distributed.all_gather_object(
+                        (indices, dev_stats))
+                    indices = np.concatenate([i for i, _ in parts])
+                    dev_stats = {k: np.concatenate([st[k] for _, st in parts])
+                                 for k in dev_stats}
+            with span("query.encode"):
+                big_h, big_w = batch["x"].shape[1:3]
+                index = batch.get("index", np.arange(
+                    sample_idx, sample_idx + indices.shape[0]))
+                rows = [b for b in range(indices.shape[0]) if index[b] >= 0]
+                for b in rows:
+                    q = np.zeros(big_h * big_w, bool)
+                    q[indices[b]] = True
+                    q = q.reshape(big_h, big_w)
+                    h, w = (int(v) for v in batch["hw"][b]) \
+                        if "hw" in batch else (big_h, big_w)
+                    q = q[:h, :w]  # the bucket's padding cropped off
+                    n_pixels_total += int(q.sum())
+                    dict_queries.update(codec.encode_query(
+                        ds.list_inputs[int(index[b])], (h, w), q))
             if not human_labels:
-                stats.update_batch({k: v[rows] for k, v in dev_stats.items()})
+                with span("query.stats"):
+                    stats.update_batch({k: v[rows]
+                                        for k, v in dev_stats.items()})
             sample_idx += len(rows)
 
         if not dict_queries:
             raise RuntimeError("no queries are chosen: the pool is empty")
         if not human_labels:
-            if distributed.is_primary():
-                stats.save(nth_query)
-            print(f"{n_pixels_total} labelled pixels are chosen by "
-                  f"{self.args.query_strategy} strategy")
-            # keep the pool dataset's masks in sync (query.py:220); as in
-            # the JAX selector, nth_query=None leaves the round's existing
-            # queries.pkl alone — the caller dumps the picks at
-            # {nth+1}_query/queries.pkl (model.py:84)
-            ds.label_queries(dict_queries, None)
+            with span("query.close"):
+                if distributed.is_primary():
+                    stats.save(nth_query)
+                print(f"{n_pixels_total} labelled pixels are chosen by "
+                      f"{self.args.query_strategy} strategy")
+                # keep the pool dataset's masks in sync (query.py:220); as
+                # in the JAX selector, nth_query=None leaves the round's
+                # existing queries.pkl alone — the caller dumps the picks at
+                # {nth+1}_query/queries.pkl (model.py:84)
+                ds.label_queries(dict_queries, None)
         return dict_queries

@@ -42,6 +42,7 @@ from pixelpick_tpu_torch.ops.resize import (
 from pixelpick_tpu_torch.ops.uncertainty import vis_maps
 from pixelpick_tpu_torch.parallel import mesh
 from pixelpick_tpu_torch.utils.metrics import confusion_matrix
+from pixelpick_tpu_torch.utils.profiling import allocator_calls, span
 
 # the batch keys the sparse train step reads
 SPARSE_KEYS = ("x", "coords", "labels", "valid")
@@ -102,11 +103,13 @@ def _update(model, optimizer, loss, shard) -> None:
     """Backward and one optimizer update; under a row shard the gradients
     are summed over the ranks first, so the weight decay the optimizer
     adds to them is counted once."""
-    optimizer.zero_grad()
-    loss.backward()
-    if shard is not None:
-        mesh.all_reduce_grads(model.parameters())
-    optimizer.step()
+    with span("train.backward"):
+        optimizer.zero_grad()
+        loss.backward()
+        if shard is not None:
+            mesh.all_reduce_grads(model.parameters())
+    with span("train.optimizer"):
+        optimizer.step()
 
 
 def make_train_step(model, optimizer, *, n_classes: int, mean, std,
@@ -121,14 +124,16 @@ def make_train_step(model, optimizer, *, n_classes: int, mean, std,
 
     def train_step(batch, shard=None):
         model.train()
-        with mesh.sharded(shard):
-            x = normalize_images(batch["x"], mean, std) if normalize \
-                else batch["x"]
-            out = model(x, upsample=False)
-            loss, hist = sparse_ce_and_hist(
-                out["pred"], batch["coords"], batch["labels"],
-                batch["valid"], batch["x"].shape[1:3], n_classes,
-                gather_impl=gather_impl)
+        with span("train.step"), allocator_calls(batch["x"].device), \
+                mesh.sharded(shard):
+            with span("train.forward"):
+                x = normalize_images(batch["x"], mean, std) if normalize \
+                    else batch["x"]
+                out = model(x, upsample=False)
+                loss, hist = sparse_ce_and_hist(
+                    out["pred"], batch["coords"], batch["labels"],
+                    batch["valid"], batch["x"].shape[1:3], n_classes,
+                    gather_impl=gather_impl)
             _update(model, optimizer, loss, shard)
             return mesh.reduce_sum(loss.detach().clone()), \
                 mesh.reduce_sum(hist)
@@ -182,9 +187,10 @@ def make_microbatch_train_step(model, optimizer, *, micro_bs: int,
             dev = {k: batch[k] for k in SPARSE_KEYS}
         else:
             rows = batch["valid"].any(1)
-            dev = batch_to_device(batch if pos is None else
-                                  {k: v[pos] for k, v in batch.items()},
-                                  device)
+            with span("train.upload"):
+                dev = batch_to_device(batch if pos is None else
+                                      {k: v[pos] for k, v in batch.items()},
+                                      device)
         # every rank decides the no-ops from the global batch's flags
         any_real = rows.reshape(b // micro_bs, -1).any(1)
         per = micro_bs if shard is None else shard.hi - shard.lo
@@ -220,22 +226,24 @@ def make_dense_train_step(model, optimizer, *, n_classes: int,
 
     def train_step(batch, shard=None):
         model.train()
-        with mesh.sharded(shard):
-            x = normalize_images(batch["x"], mean, std)
-            logits = model(x, upsample=False)["pred"].float()
-            if logits.shape[1:3] != x.shape[1:3]:
-                logits = resize_align_corners(logits, x.shape[1:3])
-            y = batch["y"].long()
-            valid = (y != ignore_index) & (y >= 0) & (y < n_classes)
-            logp = torch.log_softmax(logits, -1)
-            ll = torch.gather(logp, -1,
-                              y.clamp(0, n_classes - 1)[..., None])
-            validf = valid.float()
-            n_valid = mesh.reduce_sum(validf.sum()).clamp(min=1)
-            loss = -(ll[..., 0] * validf).sum() / n_valid
-            hist = confusion_matrix(
-                torch.where(valid, y, torch.full_like(y, -1)),
-                logits.argmax(-1), n_classes)
+        with span("train.step"), allocator_calls(batch["x"].device), \
+                mesh.sharded(shard):
+            with span("train.forward"):
+                x = normalize_images(batch["x"], mean, std)
+                logits = model(x, upsample=False)["pred"].float()
+                if logits.shape[1:3] != x.shape[1:3]:
+                    logits = resize_align_corners(logits, x.shape[1:3])
+                y = batch["y"].long()
+                valid = (y != ignore_index) & (y >= 0) & (y < n_classes)
+                logp = torch.log_softmax(logits, -1)
+                ll = torch.gather(logp, -1,
+                                  y.clamp(0, n_classes - 1)[..., None])
+                validf = valid.float()
+                n_valid = mesh.reduce_sum(validf.sum()).clamp(min=1)
+                loss = -(ll[..., 0] * validf).sum() / n_valid
+                hist = confusion_matrix(
+                    torch.where(valid, y, torch.full_like(y, -1)),
+                    logits.argmax(-1), n_classes)
             _update(model, optimizer, loss, shard)
             return mesh.reduce_sum(loss.detach().clone()), \
                 mesh.reduce_sum(hist)
@@ -255,16 +263,20 @@ def make_eval_step(model, *, n_classes: int, mean, std) -> Callable:
     @torch.no_grad()
     def eval_step(batch, vis_index: int = 0, valid_hw=None, shard=None):
         model.eval()
-        x = normalize_images(batch["x"], mean, std)
-        logits = model(x, upsample=False)["pred"].float()
-        if logits.shape[1:3] != x.shape[1:3]:
-            logits = resize_align_corners(logits, x.shape[1:3])
-        if valid_hw is not None:
-            logits = logits[:, :valid_hw[0], :valid_hw[1]]
-        pred = logits.argmax(-1)
-        hist = confusion_matrix(batch["y"], pred, n_classes)
-        with mesh.sharded(shard):
-            hist = mesh.reduce_sum(hist)
-        return hist, pred, vis_maps(logits[vis_index:vis_index + 1])
+        with span("val.step"):
+            with span("val.forward"):
+                x = normalize_images(batch["x"], mean, std)
+                logits = model(x, upsample=False)["pred"].float()
+                if logits.shape[1:3] != x.shape[1:3]:
+                    logits = resize_align_corners(logits, x.shape[1:3])
+                if valid_hw is not None:
+                    logits = logits[:, :valid_hw[0], :valid_hw[1]]
+                pred = logits.argmax(-1)
+                hist = confusion_matrix(batch["y"], pred, n_classes)
+                with mesh.sharded(shard):
+                    hist = mesh.reduce_sum(hist)
+            with span("val.vis"):
+                vis = vis_maps(logits[vis_index:vis_index + 1])
+        return hist, pred, vis
 
     return eval_step
