@@ -17,7 +17,9 @@ Counterpart of ``pixelpick_tpu/engine/trainer.py``:
 - :func:`make_dense_train_step`: the fully supervised step, cross-entropy
   over the full-resolution label map (``trainer.py:229-255``);
 - :func:`make_eval_step`: full-resolution argmax and confusion matrix, and
-  one image's visualisation maps (``trainer.py:256-293``).
+  one image's visualisation maps (``trainer.py:256-293``). On one CUDA
+  card each input signature's step becomes CUDA graphs, captured at its
+  first call and replayed after it (:class:`_EvalGraphs`).
 
 Data parallelism (``parallel/mesh.py``): a step given a ``shard`` holds
 that rank's rows of the global batch. The loss divides by the global valid
@@ -31,18 +33,19 @@ ranks' valid counts differ (remainder pads, void pixels, human labels).
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
+from pixelpick_tpu_torch.ops import depthwise, fused_ir
 from pixelpick_tpu_torch.ops.resize import (
     gather_bilinear_align_corners, gather_bilinear_matmul,
     resize_align_corners,
 )
 from pixelpick_tpu_torch.ops.uncertainty import vis_maps
-from pixelpick_tpu_torch.parallel import mesh
+from pixelpick_tpu_torch.parallel import distributed, mesh
 from pixelpick_tpu_torch.utils.metrics import confusion_matrix
-from pixelpick_tpu_torch.utils.profiling import allocator_calls, span
+from pixelpick_tpu_torch.utils.profiling import allocator_calls, count, span
 
 # the batch keys the sparse train step reads
 SPARSE_KEYS = ("x", "coords", "labels", "valid")
@@ -251,32 +254,168 @@ def make_dense_train_step(model, optimizer, *, n_classes: int,
     return train_step
 
 
+def graphable(device: torch.device) -> bool:
+    """Whether an eval step on ``device`` may run as CUDA graphs: a CUDA
+    card in a single process outside a height shard. The collectives of
+    data parallelism and the halo exchanges of a height shard stay
+    eager."""
+    return device.type == "cuda" and distributed.world_size() == 1 \
+        and mesh.current_height_shard() is None
+
+
+# the hand kernels' launch counters, which a replay adds to
+_LAUNCH_COUNTERS = (depthwise.launch_counts, fused_ir.launch_counts)
+
+
+class _Captured:
+    """``fn(*args)``, a function of fixed tensors, as a CUDA graph. At its
+    making ``fn(*warm)`` runs once on ``stream``, the warm-up a capture
+    needs (library handles and workspaces are per stream), and its results
+    are :attr:`first`, the caller's: every later use of ``stream`` waits
+    for the current stream first. Then ``fn(*args)`` is captured there into
+    ``pool``. The launch counters keep what the warm-up ran and drop what
+    the capture recorded, which ran nothing; each :meth:`replay` adds it
+    back."""
+
+    def __init__(self, fn, warm, args, pool, stream):
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            self.first = fn(*warm)
+        torch.cuda.current_stream().wait_stream(stream)
+        before = [dict(c) for c in _LAUNCH_COUNTERS]
+        self.graph = torch.cuda.CUDAGraph()
+        # thread_local: the loader's threads may call the CUDA runtime
+        with torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                              capture_error_mode="thread_local"):
+            self.out = fn(*args)
+        self.launches = [(c, k, c[k] - b[k])
+                         for c, b in zip(_LAUNCH_COUNTERS, before)
+                         for k in c if c[k] != b[k]]
+        for c, k, n in self.launches:
+            c[k] -= n
+
+    def replay(self):
+        """Run the graph on the current stream; returns the outputs of the
+        capture, which the next replay overwrites."""
+        self.graph.replay()
+        for c, k, n in self.launches:
+            c[k] += n
+        return self.out
+
+
+class _EvalGraph:
+    """One input signature's eval step: ``fn``, the forward (normalise to
+    confusion matrix), and the visualisation maps of its logits, one graph
+    per image index asked for. Each graph is captured at its first call,
+    which returns the warm-up's results, and replayed after it. The batch
+    is copied into fixed input buffers; a replay's results are cloned out
+    of the graph's outputs, so that a caller may keep them across later
+    calls. Counts ``eval_graph_captures`` or ``eval_graph_replays`` by how
+    the forward ran."""
+
+    def __init__(self, batch, fn, pool, stream):
+        self.inputs = {k: torch.empty_like(v) for k, v in batch.items()}
+        self.fn, self.pool, self.stream = fn, pool, stream
+        self.fwd = None
+        self.maps = {}
+
+    def forward(self, batch):
+        """(logits, pred, hist) of ``fn(batch)``; the logits, which
+        :meth:`vis` reads, are the graph's own after a replay."""
+        for k, v in batch.items():
+            self.inputs[k].copy_(v)
+        if self.fwd is None:
+            count("eval_graph_captures")
+            self.fwd = _Captured(self.fn, (self.inputs,), (self.inputs,),
+                                 self.pool, self.stream)
+            return self.fwd.first
+        count("eval_graph_replays")
+        logits, pred, hist = self.fwd.replay()
+        return logits, pred.clone(), hist.clone()
+
+    def vis(self, logits, vis_index: int, fn):
+        """``fn(logits)``, the maps of image ``vis_index`` of the logits
+        :meth:`forward` returned."""
+        graph = self.maps.get(vis_index)
+        if graph is None:
+            graph = self.maps[vis_index] = _Captured(
+                fn, (logits,), (self.fwd.out[0],), self.pool, self.stream)
+            return graph.first
+        return {k: v.clone() for k, v in graph.replay().items()}
+
+
+class _EvalGraphs:
+    """The CUDA graphs of one eval step, by input signature: the shape and
+    dtype of every tensor of the batch and ``valid_hw``. The graphs never
+    run at once, so they share one memory pool; the model's parameters and
+    buffers are read where they lie, so a replay sees the weights as
+    updated in place since the capture. A step that runs eagerly counts
+    one ``eval_eager_steps``."""
+
+    def __init__(self):
+        self.graphs = {}
+        self.pool = self.stream = None
+
+    def get(self, batch, valid_hw, shard, fn) -> Optional[_EvalGraph]:
+        """The graph to run this step with, made with ``fn(batch)`` as its
+        forward, or None to run it eagerly."""
+        if shard is not None or not graphable(batch["x"].device):
+            count("eval_eager_steps")
+            return None
+        key = (tuple((k, tuple(v.shape), v.dtype)
+                     for k, v in sorted(batch.items())),
+               None if valid_hw is None else tuple(valid_hw))
+        graph = self.graphs.get(key)
+        if graph is None:
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+                self.stream = torch.cuda.Stream()
+            graph = self.graphs[key] = _EvalGraph(batch, fn, self.pool,
+                                                  self.stream)
+        return graph
+
+
 def make_eval_step(model, *, n_classes: int, mean, std) -> Callable:
     """Validation step: full-resolution argmax and device confusion matrix.
     Returns (hist, pred, vis) with ``vis`` the visualisation maps of image
-    ``vis_index``, all on the device. ``valid_hw`` crops the logits to the
-    unpadded size of an x padded to a stride multiple (``trainer.py:
-    256-293``; ``active/driver.py:pad_to_stride``). With ``shard`` the
-    batch is this rank's rows and ``hist`` the global batch's; ``pred``
-    and ``vis`` stay the rank's."""
+    ``vis_index``, all on the device and owned by the caller. ``valid_hw``
+    crops the logits to the unpadded size of an x padded to a stride
+    multiple (``trainer.py:256-293``; ``active/driver.py:pad_to_stride``).
+    With ``shard`` the batch is this rank's rows and ``hist`` the global
+    batch's; ``pred`` and ``vis`` stay the rank's. Where :func:`graphable`
+    holds, the device work is replayed from CUDA graphs
+    (:class:`_EvalGraphs`), the same work as the eager step's."""
+
+    def forward(batch, valid_hw):
+        x = normalize_images(batch["x"], mean, std)
+        logits = model(x, upsample=False)["pred"].float()
+        if logits.shape[1:3] != x.shape[1:3]:
+            logits = resize_align_corners(logits, x.shape[1:3])
+        if valid_hw is not None:
+            logits = logits[:, :valid_hw[0], :valid_hw[1]]
+        pred = logits.argmax(-1)
+        return logits, pred, confusion_matrix(batch["y"], pred, n_classes)
+
+    graphs = _EvalGraphs()
 
     @torch.no_grad()
     def eval_step(batch, vis_index: int = 0, valid_hw=None, shard=None):
         model.eval()
         with span("val.step"):
+            graph = graphs.get(batch, valid_hw, shard,
+                               lambda b: forward(b, valid_hw))
             with span("val.forward"):
-                x = normalize_images(batch["x"], mean, std)
-                logits = model(x, upsample=False)["pred"].float()
-                if logits.shape[1:3] != x.shape[1:3]:
-                    logits = resize_align_corners(logits, x.shape[1:3])
-                if valid_hw is not None:
-                    logits = logits[:, :valid_hw[0], :valid_hw[1]]
-                pred = logits.argmax(-1)
-                hist = confusion_matrix(batch["y"], pred, n_classes)
-                with mesh.sharded(shard):
-                    hist = mesh.reduce_sum(hist)
+                if graph is None:
+                    logits, pred, hist = forward(batch, valid_hw)
+                    with mesh.sharded(shard):
+                        hist = mesh.reduce_sum(hist)
+                else:
+                    logits, pred, hist = graph.forward(batch)
             with span("val.vis"):
-                vis = vis_maps(logits[vis_index:vis_index + 1])
+                def maps(logits):
+                    return vis_maps(logits[vis_index:vis_index + 1])
+                vis = maps(logits) if graph is None \
+                    else graph.vis(logits, vis_index, maps)
         return hist, pred, vis
 
     return eval_step

@@ -26,7 +26,10 @@ profile of the same process. Spans and counters, where they are opened:
   allocator's device allocations, frees and retries over each update);
 - ``ALModel._val``: ``val.load``, ``val.upload``, ``val.close``; the eval
   step: ``val.step`` > ``val.forward`` (forward, argmax, confusion
-  matrix), ``val.vis`` (the visualisation maps);
+  matrix), ``val.vis`` (the visualisation maps), and one count per step
+  of ``eval_eager_steps``, ``eval_graph_captures`` or
+  ``eval_graph_replays`` (how its device work ran, ``engine/trainer.py:
+  _EvalGraphs``);
 - ``active/selector.py:QuerySelector.__call__``: ``query.load``,
   ``query.upload``, ``query.score``, ``query.readback`` (the ``.cpu()``
   reads and the gather over the ranks), ``query.encode`` (the picks' masks

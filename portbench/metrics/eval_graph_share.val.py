@@ -1,0 +1,27 @@
+"""eval_graph_share.val (%): the share of the window's eval steps that
+replayed a captured CUDA graph (``engine/trainer.py:_EvalGraphs``): the
+port's counter ``eval_graph_replays`` over it and ``eval_graph_captures``
+and ``eval_eager_steps`` together, between the window's first and last
+``val.step``. Silent on a device without CUDA graphs, and with a port that
+counts none of them."""
+
+from pb import program
+
+program.enable()
+
+COUNTERS = ("eval_graph_replays", "eval_graph_captures", "eval_eager_steps")
+
+
+def read(ctx):
+    if ctx.phase.device.type != "cuda":
+        return None
+    picked = program.window(ctx, "val.step", len(ctx.window["image_ms"]))
+    if picked is None:
+        return None
+    steps, _ = picked
+    n = [program.counted(c, steps[0].start_ns, steps[-1].end_ns)
+         for c in COUNTERS]
+    if all(v is None for v in n):
+        return None
+    total = sum(v or 0 for v in n)
+    return 100.0 * (n[0] or 0) / total if total else None

@@ -34,8 +34,16 @@ output reaches another train-mode BatchNorm through linear maps only, to
 their rounding noise); the parameters after three steps within 1e-4 of their
 largest three-step move plus 1e-6 of their largest |value|; running
 statistics 1e-4 of their largest |value| (at least 1).
+
+The eval step's CUDA graphs (``engine/trainer.py:_EvalGraphs``) on the CPU:
+the step stays eager there and returns tensors of its own; the signature
+bookkeeping (one graph per signature) with the capture stubbed; and no
+capture with more than one rank, a row shard or a height shard.
+``tests/test_torch_eval_graph_cuda.py`` runs the graphs on a card.
 """
 
+
+from types import SimpleNamespace
 
 import flax.linen
 import numpy as np
@@ -214,3 +222,126 @@ def test_eval_step_matches_jax(variables):
         np.testing.assert_allclose(vis[k].float().numpy(), v, rtol=0,
                                    atol=1e-4 * max(np.abs(v).max(), 1.0),
                                    err_msg=k)
+
+
+def _eval_counters():
+    from pixelpick_tpu_torch.utils import profiling
+
+    return {k: profiling.counters().get(k, 0) for k in (
+        "eval_eager_steps", "eval_graph_captures", "eval_graph_replays")}
+
+
+@pytest.fixture
+def tracer():
+    from pixelpick_tpu_torch.utils import profiling
+
+    profiling.clear()
+    profiling.enable()
+    try:
+        yield profiling
+    finally:
+        profiling.disable()
+        profiling.clear()
+
+
+def test_eval_step_stays_eager_on_the_cpu(variables, tracer):
+    """No CUDA graph on the CPU: every step runs eagerly, and two calls on
+    the same batch return tensors that share no storage, so a caller may
+    keep one call's results across the next."""
+    params, stats = variables
+    rng = np.random.default_rng(6)
+    batch = trainer.batch_to_device(
+        {"x": rng.integers(0, 256, (1, *HW, 3), dtype=np.uint8),
+         "y": rng.integers(0, N_CLASSES + 1, (1, *HW)).astype(np.int32)},
+        "cpu")
+    step = trainer.make_eval_step(_port_model(params, stats, False),
+                                  n_classes=N_CLASSES, mean=MEAN, std=STD)
+    calls = [step(batch) for _ in range(3)]
+    assert _eval_counters() == {"eval_eager_steps": 3,
+                                "eval_graph_captures": 0,
+                                "eval_graph_replays": 0}
+    (hist0, pred0, vis0), (hist1, pred1, vis1) = calls[:2]
+    first = [hist0, pred0, *vis0.values()]
+    second = [hist1, pred1, *vis1.values()]
+    ptrs = {t.untyped_storage().data_ptr() for t in first}
+    assert not ptrs & {t.untyped_storage().data_ptr() for t in second}
+    np.testing.assert_array_equal(hist0.numpy(), hist1.numpy())
+    np.testing.assert_array_equal(pred0.numpy(), pred1.numpy())
+
+
+def _fake_cuda_batch(hw):
+    """Stands for a batch on a CUDA card: the graphs' bookkeeping reads
+    only each tensor's shape and dtype and x's device."""
+    cuda = torch.device("cuda")
+    return {"x": SimpleNamespace(shape=(1, *hw, 3), dtype=torch.uint8,
+                                 device=cuda),
+            "y": SimpleNamespace(shape=(1, *hw), dtype=torch.int32,
+                                 device=cuda)}
+
+
+@pytest.fixture
+def stub_capture(monkeypatch):
+    """``_EvalGraph`` and the CUDA pool and stream replaced by stubs that
+    record what the bookkeeping asked for."""
+    made = []
+
+    class Stub:
+        def __init__(self, batch, fn, pool, stream):
+            made.append(self)
+
+    monkeypatch.setattr(trainer, "_EvalGraph", Stub)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: "pool")
+    monkeypatch.setattr(torch.cuda, "Stream", lambda: "stream")
+    return made
+
+
+def _forward(batch):
+    raise AssertionError("the bookkeeping runs no forward")
+
+
+def test_eval_graphs_capture_at_a_signatures_first_call(tracer,
+                                                        stub_capture):
+    """A signature's graph is made at its first call, which captures it,
+    and every later call gets the same graph to replay, so the second call
+    captures nothing; another shape or ``valid_hw`` is another signature,
+    ``vis_index`` is not part of it. No step of a graph counts as eager
+    (the graph counts its capture and replays)."""
+    graphs = trainer._EvalGraphs()
+    a, b = _fake_cuda_batch((8, 8)), _fake_cuda_batch((8, 16))
+    g = graphs.get(a, None, None, _forward)
+    assert stub_capture == [g]
+    assert all(graphs.get(a, None, None, _forward) is g for _ in range(3))
+    assert graphs.get(b, None, None, _forward) not in (None, g)
+    h = graphs.get(a, (7, 8), None, _forward)
+    assert h not in (None, g)
+    assert graphs.get(a, [7, 8], None, _forward) is h  # a list is a tuple
+    assert len(stub_capture) == 3
+    assert graphs.pool == "pool" and graphs.stream == "stream"
+    assert _eval_counters() == {"eval_eager_steps": 0,
+                                "eval_graph_captures": 0,
+                                "eval_graph_replays": 0}
+
+
+def test_eval_step_never_captures_across_ranks(tracer, stub_capture,
+                                               monkeypatch):
+    """With more than one rank, a row shard or a height shard the step
+    stays eager: its all-reduce and halo exchanges are not captured."""
+    from pixelpick_tpu_torch.parallel import distributed, mesh
+
+    cuda = torch.device("cuda")
+    assert trainer.graphable(cuda) and not trainer.graphable(
+        torch.device("cpu"))
+    graphs = trainer._EvalGraphs()
+    a = _fake_cuda_batch((8, 8))
+    with mesh.sharded_height(mesh.HeightShard((0, 8, 16), 0, 8)):
+        assert not trainer.graphable(cuda)
+        assert all(graphs.get(a, None, None, _forward) is None
+                   for _ in range(3))
+    shard = mesh.RowShard(0, 1, 2)
+    assert all(graphs.get(a, None, shard, _forward) is None
+               for _ in range(3))
+    monkeypatch.setattr(distributed, "world_size", lambda: 2)
+    assert not trainer.graphable(cuda)
+    assert all(graphs.get(a, None, None, _forward) is None for _ in range(3))
+    assert stub_capture == [] and graphs.pool is None
+    assert _eval_counters()["eval_eager_steps"] == 9
