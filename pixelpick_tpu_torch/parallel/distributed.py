@@ -17,6 +17,11 @@ rank), and computes its rows of each batch (``parallel/mesh.py``).
   one card, gloo does not).
 - A gloo group beside the world group carries host-side data: picks,
   objects and barriers.
+- With the tracer on (``utils/profiling.py``), each collective here is a
+  span (``ranks.all_gather``, ``ranks.all_reduce``, ``ranks.gather_object``)
+  and adds 1 to ``collective_calls`` and the bytes this rank hands to it
+  (a tensor's, or an object's pickle) to ``collective_bytes``; the spans
+  carry the rank. Under NCCL a span holds the enqueue, not the transfer.
 - ``--data_parallel N`` without a coordinator starts N local ranks on a
   free localhost port (``launch_data_parallel``); 0 means every visible
   card, so one card runs the single-process path as before.
@@ -28,6 +33,7 @@ program's first compile, and nothing here is compiled per shape.
 from __future__ import annotations
 
 import os
+import pickle
 import socket
 import subprocess
 import sys
@@ -37,6 +43,8 @@ from typing import Callable, List, Optional
 
 import torch
 import torch.distributed as dist
+
+from pixelpick_tpu_torch.utils import profiling
 
 # the gloo group for host-side data; the world group itself under gloo
 _HOST_GROUP = None
@@ -82,6 +90,7 @@ def initialize_from_args(args) -> bool:
     global _HOST_GROUP
     _HOST_GROUP = dist.group.WORLD if backend == "gloo" \
         else dist.new_group(backend="gloo", timeout=TIMEOUT)
+    profiling.set_rank(rank)
     return True
 
 
@@ -91,6 +100,7 @@ def shutdown() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
     _HOST_GROUP = None
+    profiling.set_rank(0)
 
 
 def world_size() -> int:
@@ -112,12 +122,25 @@ def barrier() -> None:
         dist.barrier(group=_HOST_GROUP)
 
 
+def _counted(nbytes: int) -> None:
+    profiling.count("collective_calls")
+    profiling.count("collective_bytes", nbytes)
+
+
+def _pickled_bytes(obj) -> int:
+    """The bytes of ``obj``'s pickle, as the object collectives send it;
+    pickled only with the tracer on."""
+    return len(pickle.dumps(obj)) if profiling.enabled() else 0
+
+
 def all_gather_object(obj) -> list:
     """Every rank's ``obj``, in rank order (host-side, over gloo)."""
     if world_size() == 1:
         return [obj]
     out = [None] * world_size()
-    dist.all_gather_object(out, obj, group=_HOST_GROUP)
+    with profiling.span("ranks.gather_object"):
+        _counted(_pickled_bytes(obj))
+        dist.all_gather_object(out, obj, group=_HOST_GROUP)
     return out
 
 
@@ -143,10 +166,12 @@ def all_gather_tensor(t: torch.Tensor) -> List[torch.Tensor]:
     if world_size() == 1:
         return [t]
     _eval_only(t)
-    src = _staged(t)
-    out = [torch.empty_like(src) for _ in range(world_size())]
-    dist.all_gather(out, src)
-    return [o.to(t.device) for o in out]
+    with profiling.span("ranks.all_gather"):
+        src = _staged(t)
+        _counted(src.numel() * src.element_size())
+        out = [torch.empty_like(src) for _ in range(world_size())]
+        dist.all_gather(out, src)
+        return [o.to(t.device) for o in out]
 
 
 def sum_over_ranks(t: torch.Tensor) -> torch.Tensor:
@@ -155,11 +180,13 @@ def sum_over_ranks(t: torch.Tensor) -> torch.Tensor:
     if world_size() == 1:
         return t
     _eval_only(t)
-    src = _staged(t)
-    if src.data_ptr() == t.data_ptr():
-        src = src.clone()
-    dist.all_reduce(src)
-    return src.to(t.device)
+    with profiling.span("ranks.all_reduce"):
+        src = _staged(t)
+        if src.data_ptr() == t.data_ptr():
+            src = src.clone()
+        _counted(src.numel() * src.element_size())
+        dist.all_reduce(src)
+        return src.to(t.device)
 
 
 def check_replicated(model: torch.nn.Module) -> None:

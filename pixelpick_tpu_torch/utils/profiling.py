@@ -36,7 +36,19 @@ profile of the same process. Spans and counters, where they are opened:
   and ``codec.encode_query``), ``query.stats`` (``QueryStats.
   update_batch``), ``query.close`` (``stats.save`` and ``label_queries``);
 - :meth:`PhaseTimer.phase`: the top-level spans ``train``, ``vis``,
-  ``val``, ``stage_ckpt``.
+  ``val``, ``stage_ckpt``;
+- ``parallel/distributed.py``: ``ranks.all_gather`` (``all_gather_tensor``:
+  the height shard's halo rows and gathered maps), ``ranks.all_reduce``
+  (``sum_over_ranks``: its sums over the ranks) and ``ranks.gather_object``
+  (``all_gather_object``: host objects over gloo),
+  each adding 1 to the counter ``collective_calls`` and the bytes this rank
+  hands to the collective to ``collective_bytes``; none with one rank.
+
+Every span record carries the rank of the process that recorded it (0
+outside a world of ranks, ``set_rank``), and :func:`gather_records` brings
+every rank's records and counts to every rank, rank 0 among them. The
+ranks of one host share its Unix clock, so their spans' starts can be
+compared across ranks.
 
 The program marks its spans in a profile (``record_function``) only inside
 its own :func:`trace`, which turns the tracer on for its extent: under a
@@ -62,6 +74,7 @@ class SpanRecord(NamedTuple):
     start_ns: int
     end_ns: int
     cpu_ns: int
+    rank: int = 0
 
 
 class Tracer:
@@ -77,6 +90,7 @@ class Tracer:
         # stretch of time
         self.counts: List[tuple] = []
         self.stack: List[str] = []
+        self.rank = 0
 
     def span(self, name: str):
         return _Span(self, name) if self.on else _NOOP
@@ -120,7 +134,7 @@ class _Span:
         tr = self.tracer
         tr.stack.pop()
         tr.records.append(SpanRecord(self.name, self.parent, self.t0, t1,
-                                     c1 - self.c0))
+                                     c1 - self.c0, tr.rank))
         return False
 
 
@@ -155,6 +169,12 @@ def clear() -> None:
     TRACER.clear()
 
 
+def set_rank(rank: int) -> None:
+    """Tag the spans recorded from now on with ``rank`` (set when the
+    process joins a world of ranks, ``parallel/distributed.py``)."""
+    TRACER.rank = rank
+
+
 def spans() -> List[SpanRecord]:
     """The spans recorded so far, in the order they closed."""
     return list(TRACER.records)
@@ -168,6 +188,15 @@ def counters() -> Dict[str, int]:
 def count_events() -> List[tuple]:
     """(name, n, time_ns) of each count, in order."""
     return list(TRACER.counts)
+
+
+def gather_records() -> List[tuple]:
+    """Every rank's ``(spans(), count_events())``, in rank order, on every
+    rank (rank 0 reads them). A collective over the ranks' host group:
+    every rank calls it. One process gets its own, in a list of one."""
+    from pixelpick_tpu_torch.parallel import distributed
+
+    return distributed.all_gather_object((spans(), count_events()))
 
 
 def span_totals(records) -> Dict[str, dict]:
@@ -257,8 +286,9 @@ class PhaseTimer:
 @contextlib.contextmanager
 def trace(log_dir: Optional[str]) -> Iterator[None]:
     """A ``torch.profiler`` trace of the CPU and, where there is one, the
-    card, written to ``log_dir/trace.json``, with the program's spans marked
-    in it (the tracer is on for the extent); a no-op without ``log_dir``."""
+    card, written to ``log_dir/trace.json`` (``trace.rank<N>.json`` by rank
+    N of several), with the program's spans marked in it (the tracer is on
+    for the extent); a no-op without ``log_dir``."""
     if not log_dir:
         yield
         return
@@ -276,5 +306,9 @@ def trace(log_dir: Optional[str]) -> Iterator[None]:
         finally:
             TRACER.marking = False
             TRACER.on = was_on
+    from pixelpick_tpu_torch.parallel import distributed
+
+    name = "trace.json" if distributed.world_size() == 1 \
+        else f"trace.rank{distributed.rank()}.json"
     os.makedirs(log_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    prof.export_chrome_trace(os.path.join(log_dir, name))
