@@ -19,8 +19,9 @@ Counterpart of ``pixelpick_tpu/engine/optim.py`` (reference
 for the JAX package's mid-stage snapshots (``engine/checkpoint.py``).
 
 The schedule factor is computed on the host in f32, as the JAX schedule
-computes it on the device; updates use ``torch._foreach`` ops, a few
-launches per step for all parameters.
+computes it on the device, and handed to the update as a device scalar;
+updates use ``torch._foreach`` ops, a few launches per step for all
+parameters, and write the moments in place.
 """
 
 from __future__ import annotations
@@ -81,7 +82,17 @@ def param_group_table(args) -> Dict[str, dict]:
 class Optimizer:
     """The JAX package's optimizer chain over ``torch`` parameters.
     ``groups``: [(cfg, [params])]; ``factor(step)`` scales each group's lr,
-    ``step`` counting updates from 0."""
+    ``step`` counting updates from 0.
+
+    An update is two parts. :meth:`prepare`, on the host, fills each
+    group's device scalars (the step size, and Adam's two bias
+    corrections) for update ``step_count``; :meth:`apply`, on the device,
+    reads them and updates the parameters and the moments in place. So
+    :meth:`apply` changes no host state and holds no number of the update
+    count, and a CUDA graph of it serves every update; :meth:`step` is
+    both and advances ``step_count``. The moment tensors are never
+    replaced (:meth:`load_state_dict` writes into them), so a graph
+    captured once keeps reading the live state."""
 
     def __init__(self, groups: List[tuple], factor: Callable[[int], float]):
         self.groups = [(cfg, [p for p in params if p.requires_grad])
@@ -93,6 +104,10 @@ class Optimizer:
              "nu": [torch.zeros_like(p) for p in ps]} if cfg["opt"] == "adam"
             else {"trace": [torch.zeros_like(p) for p in ps]}
             for cfg, ps in self.groups]
+        self.scalars = [
+            {k: torch.zeros((), device=ps[0].device)
+             for k in self.scalar_values(cfg, 0)} if ps else {}
+            for cfg, ps in self.groups]
 
     def zero_grad(self) -> None:
         for _, ps in self.groups:
@@ -103,13 +118,34 @@ class Optimizer:
         """The f32 step size of update ``step``: ``-lr * factor(step)``."""
         return float(np.float32(-cfg["lr"]) * np.float32(self.factor(step)))
 
+    def scalar_values(self, cfg: dict, step: int) -> Dict[str, float]:
+        """The f32 values of a group's device scalars at update ``step``:
+        ``lr``, and for Adam the bias corrections ``bc1 = 1 - b1 ** (step
+        + 1)`` and ``bc2 = 1 - b2 ** (step + 1)``."""
+        values = {"lr": self.lr(cfg, step)}
+        if cfg["opt"] == "adam":
+            b1, b2 = cfg["betas"]
+            count = np.float32(step + 1)
+            values["bc1"] = float(np.float32(1) - np.float32(b1) ** count)
+            values["bc2"] = float(np.float32(1) - np.float32(b2) ** count)
+        return values
+
+    def prepare(self) -> None:
+        """Fill the device scalars for update ``step_count`` (one small
+        launch each, no sync)."""
+        for (cfg, _), scalars in zip(self.groups, self.scalars):
+            if scalars:
+                for k, v in self.scalar_values(cfg,
+                                               self.step_count).items():
+                    scalars[k].fill_(v)
+
     @torch.no_grad()
-    def step(self) -> None:
-        """One update of every parameter; a parameter without a gradient
-        takes a zero one, as optax updates every leaf (weight decay and
-        momentum still move it)."""
-        t = self.step_count
-        for (cfg, ps), st in zip(self.groups, self.state):
+    def apply(self) -> None:
+        """One update of every parameter from the device scalars that
+        :meth:`prepare` filled; a parameter without a gradient takes a
+        zero one, as optax updates every leaf (weight decay and momentum
+        still move it)."""
+        for (cfg, ps), st, sc in zip(self.groups, self.state, self.scalars):
             if not ps:
                 continue
             grads = [torch.zeros_like(p) if p.grad is None else p.grad
@@ -119,40 +155,44 @@ class Optimizer:
             if cfg["opt"] == "adam":
                 b1, b2 = cfg["betas"]
                 # optax update_moment: (1 - decay) * g + decay * t
-                mu = torch._foreach_add(torch._foreach_mul(grads, 1 - b1),
-                                        torch._foreach_mul(st["mu"], b1))
+                mu, nu = st["mu"], st["nu"]
+                torch._foreach_mul_(mu, b1)
+                torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - b1))
                 sq = torch._foreach_mul(grads, grads)
-                nu = torch._foreach_add(torch._foreach_mul(sq, 1 - b2),
-                                        torch._foreach_mul(st["nu"], b2))
-                st["mu"], st["nu"] = mu, nu
-                count = np.float32(t + 1)
-                bc1 = float(np.float32(1) - np.float32(b1) ** count)
-                bc2 = float(np.float32(1) - np.float32(b2) ** count)
+                torch._foreach_mul_(nu, b2)
+                torch._foreach_add_(nu, torch._foreach_mul(sq, 1 - b2))
                 denom = torch._foreach_add(
-                    torch._foreach_sqrt(torch._foreach_div(nu, bc2)),
+                    torch._foreach_sqrt(torch._foreach_div(nu, sc["bc2"])),
                     cfg["eps"])
-                upd = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
+                upd = torch._foreach_div(torch._foreach_div(mu, sc["bc1"]),
+                                         denom)
             else:
-                upd = torch._foreach_add(
-                    grads, torch._foreach_mul(st["trace"], cfg["momentum"]))
-                st["trace"] = upd
-            torch._foreach_add_(ps, torch._foreach_mul(upd, self.lr(cfg, t)))
+                upd = st["trace"]
+                torch._foreach_mul_(upd, cfg["momentum"])
+                torch._foreach_add_(upd, grads)
+            torch._foreach_add_(ps, torch._foreach_mul(upd, sc["lr"]))
+
+    def step(self) -> None:
+        """One whole update: :meth:`prepare`, :meth:`apply`, and the count
+        advanced."""
+        self.prepare()
+        self.apply()
         self.step_count += 1
 
     def state_dict(self) -> dict:
-        """The update count and each group's moment lists, on the CPU."""
+        """The update count and a copy of each group's moment lists, on
+        the CPU: the moments change in place with every update."""
         return {"step_count": self.step_count,
-                "state": [{k: [t.detach().cpu() for t in ts]
+                "state": [{k: [t.detach().to("cpu", copy=True) for t in ts]
                            for k, ts in st.items()} for st in self.state]}
 
     def load_state_dict(self, sd: dict) -> None:
-        """Install a ``state_dict``: ``step`` replaces the moment lists
-        rather than writing into them, so new tensors are made here, on
-        each parameter's device."""
+        """Install a ``state_dict``, written into the moment tensors there
+        are (a CUDA graph of :meth:`apply` reads them where they lie);
+        nothing is written unless every tensor fits."""
         if len(sd["state"]) != len(self.state):
             raise ValueError(f"{len(sd['state'])} optimizer groups saved, "
                              f"{len(self.state)} here")
-        state = []
         for (_, ps), st, saved in zip(self.groups, self.state, sd["state"]):
             if set(saved) != set(st) or any(len(v) != len(ps)
                                             for v in saved.values()):
@@ -160,10 +200,17 @@ class Optimizer:
                                  f"{[len(v) for v in saved.values()]} "
                                  f"tensors does not fit {sorted(st)} of "
                                  f"{len(ps)} parameters")
-            state.append({k: [t.to(device=p.device, dtype=p.dtype, copy=True)
-                              for t, p in zip(v, ps)]
-                          for k, v in saved.items()})
-        self.state = state
+            for k, v in saved.items():
+                for t, own in zip(v, st[k]):
+                    if tuple(t.shape) != tuple(own.shape):
+                        raise ValueError(
+                            f"optimizer state {k}: a saved tensor of shape "
+                            f"{tuple(t.shape)} for one of "
+                            f"{tuple(own.shape)}")
+        for st, saved in zip(self.state, sd["state"]):
+            for k, v in saved.items():
+                for own, t in zip(st[k], v):
+                    own.copy_(t)
         self.step_count = int(sd["step_count"])
 
 

@@ -10,7 +10,9 @@ Counterpart of ``pixelpick_tpu/engine/trainer.py``:
 - :func:`make_train_step`: forward in train mode (``upsample=False``), loss,
   backward, optimizer update (``make_train_step``/``_jit_step``,
   ``trainer.py:125-133, 210-226``). The loss and the confusion matrix stay on
-  the device; nothing syncs the host per step;
+  the device; nothing syncs the host per step. On one CUDA card each input
+  signature's update becomes a CUDA graph, captured at its first call and
+  replayed after it (:class:`_TrainGraphs`);
 - :func:`make_microbatch_train_step`: sequential bs-M updates over one
   megabatch uploaded once (``trainer.py:136-227``), the reference's bs-M
   schedule at a larger loader batch;
@@ -102,17 +104,15 @@ def batch_to_device(batch: dict, device) -> dict:
             for k, v in batch.items()}
 
 
-def _update(model, optimizer, loss, shard) -> None:
-    """Backward and one optimizer update; under a row shard the gradients
-    are summed over the ranks first, so the weight decay the optimizer
-    adds to them is counted once."""
+def _backward(model, optimizer, loss, shard) -> None:
+    """``zero_grad`` and the backward; under a row shard the gradients
+    are summed over the ranks, so the weight decay the optimizer adds to
+    them is counted once."""
     with span("train.backward"):
         optimizer.zero_grad()
         loss.backward()
         if shard is not None:
             mesh.all_reduce_grads(model.parameters())
-    with span("train.optimizer"):
-        optimizer.step()
 
 
 def make_train_step(model, optimizer, *, n_classes: int, mean, std,
@@ -123,23 +123,45 @@ def make_train_step(model, optimizer, *, n_classes: int, mean, std,
     (``data/device_pipeline.py``; ``trainer.py:125-133``), coords (B, K, 2),
     labels (B, K), valid (B, K); with ``shard`` (``parallel/mesh.py:
     RowShard``) this rank's rows of the global batch. Returns (loss, hist)
-    of the global batch, both on the device."""
+    of the global batch, both on the device and owned by the caller.
+
+    The device work of an update is :func:`update` (forward, loss and
+    confusion matrix, backward, ``optimizer.apply``); around it the host
+    fills the optimizer's scalars for its update count and advances the
+    count. Where :func:`graphable` holds and no shard is given, that work
+    is replayed from a CUDA graph per input signature
+    (:class:`_TrainGraphs`), the same work as the eager step's."""
+
+    def update(batch, shard=None):
+        with span("train.forward"):
+            x = normalize_images(batch["x"], mean, std) if normalize \
+                else batch["x"]
+            out = model(x, upsample=False)
+            loss, hist = sparse_ce_and_hist(
+                out["pred"], batch["coords"], batch["labels"],
+                batch["valid"], batch["x"].shape[1:3], n_classes,
+                gather_impl=gather_impl)
+        _backward(model, optimizer, loss, shard)
+        with span("train.optimizer"):
+            optimizer.apply()
+        return loss.detach(), hist
+
+    graphs = _TrainGraphs(model, optimizer, update)
 
     def train_step(batch, shard=None):
         model.train()
         with span("train.step"), allocator_calls(batch["x"].device), \
                 mesh.sharded(shard):
-            with span("train.forward"):
-                x = normalize_images(batch["x"], mean, std) if normalize \
-                    else batch["x"]
-                out = model(x, upsample=False)
-                loss, hist = sparse_ce_and_hist(
-                    out["pred"], batch["coords"], batch["labels"],
-                    batch["valid"], batch["x"].shape[1:3], n_classes,
-                    gather_impl=gather_impl)
-            _update(model, optimizer, loss, shard)
-            return mesh.reduce_sum(loss.detach().clone()), \
-                mesh.reduce_sum(hist)
+            graph = graphs.get(batch, shard)
+            if graph is not None:
+                loss, hist = graph(batch)
+            else:
+                optimizer.prepare()
+                loss, hist = update(batch, shard)
+                loss = mesh.reduce_sum(loss.clone())
+                hist = mesh.reduce_sum(hist)
+            optimizer.step_count += 1
+            return loss, hist
 
     return train_step
 
@@ -247,7 +269,9 @@ def make_dense_train_step(model, optimizer, *, n_classes: int,
                 hist = confusion_matrix(
                     torch.where(valid, y, torch.full_like(y, -1)),
                     logits.argmax(-1), n_classes)
-            _update(model, optimizer, loss, shard)
+            _backward(model, optimizer, loss, shard)
+            with span("train.optimizer"):
+                optimizer.step()
             return mesh.reduce_sum(loss.detach().clone()), \
                 mesh.reduce_sum(hist)
 
@@ -255,9 +279,9 @@ def make_dense_train_step(model, optimizer, *, n_classes: int,
 
 
 def graphable(device: torch.device) -> bool:
-    """Whether an eval step on ``device`` may run as CUDA graphs: a CUDA
-    card in a single process outside a height shard. The collectives of
-    data parallelism and the halo exchanges of a height shard stay
+    """Whether a train or eval step on ``device`` may run as CUDA graphs: a
+    CUDA card in a single process outside a height shard. The collectives
+    of data parallelism and the halo exchanges of a height shard stay
     eager."""
     return device.type == "cuda" and distributed.world_size() == 1 \
         and mesh.current_height_shard() is None
@@ -275,15 +299,20 @@ class _Captured:
     for the current stream first. Then ``fn(*args)`` is captured there into
     ``pool``. The launch counters keep what the warm-up ran and drop what
     the capture recorded, which ran nothing; each :meth:`replay` adds it
-    back."""
+    back. ``generators``: the CUDA generators ``fn`` draws from besides the
+    default one; a replay draws from each generator's state at its time
+    and advances it as ``fn`` run eagerly would, and the capture leaves
+    it as it was."""
 
-    def __init__(self, fn, warm, args, pool, stream):
+    def __init__(self, fn, warm, args, pool, stream, generators=()):
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):
             self.first = fn(*warm)
         torch.cuda.current_stream().wait_stream(stream)
         before = [dict(c) for c in _LAUNCH_COUNTERS]
         self.graph = torch.cuda.CUDAGraph()
+        for g in generators:
+            self.graph.register_generator_state(g)
         # thread_local: the loader's threads may call the CUDA runtime
         with torch.cuda.graph(self.graph, pool=pool, stream=stream,
                               capture_error_mode="thread_local"):
@@ -301,6 +330,112 @@ class _Captured:
         for c, k, n in self.launches:
             c[k] += n
         return self.out
+
+
+class _TrainGraph:
+    """One input signature's sparse update, ``fn(batch)`` (forward to
+    ``optimizer.apply``), as a CUDA graph captured at the signature's
+    first call and replayed after it. The batch is copied into fixed
+    input buffers and the step's loss and confusion matrix are cloned out
+    of the graph's outputs. The first call returns the warm-up's update,
+    a real one; the capture that follows it changes nothing: not the
+    weights, the moments, BatchNorm's statistics, the update count, a
+    generator's offset or the launch counters. After every call the
+    parameters' ``grad`` holds that update's gradients, as after an eager
+    step: the graph's own gradient buffers, which it keeps. The caller
+    fills the optimizer's scalars and advances its count around each
+    call."""
+
+    def __init__(self, batch, fn, optimizer, pool, stream, generators):
+        self.inputs = {k: torch.empty_like(batch[k]) for k in SPARSE_KEYS}
+        self.fn, self.optimizer = fn, optimizer
+        self.pool, self.stream, self.generators = pool, stream, generators
+        self.params = [p for _, ps in optimizer.groups for p in ps]
+        self.captured = self.grads = None
+
+    def __call__(self, batch):
+        if self.captured is None:
+            count("train_graph_captures")
+            self._fill(batch)
+            grads = []  # the warm-up's, then the capture's
+
+            def update(inputs):
+                out = self.fn(inputs)
+                grads.append([p.grad for p in self.params])
+                return out
+
+            self.captured = _Captured(update, (self.inputs,),
+                                      (self.inputs,), self.pool,
+                                      self.stream, self.generators)
+            warm, self.grads = grads
+            for g, w in zip(self.grads, warm):
+                if g is not None:
+                    g.copy_(w)
+            return self.captured.first
+        count("train_graph_replays")
+        with span("train.replay"):
+            self._fill(batch)
+            loss, hist = self.captured.replay()
+            for p, g in zip(self.params, self.grads):
+                p.grad = g
+            return loss.clone(), hist.clone()
+
+    def _fill(self, batch):
+        for k, v in self.inputs.items():
+            v.copy_(batch[k])
+        self.optimizer.prepare()
+
+
+class _TrainGraphs:
+    """The CUDA graphs of one sparse train step, by input signature: the
+    shape and dtype of each of the batch's :data:`SPARSE_KEYS`, and the
+    generators the model's dropouts draw from (a graph holds the ones it
+    was captured with). The graphs never run at once, so they share one
+    memory pool; the parameters, buffers and optimizer moments are read
+    and written where they lie, so a replay sees what changed in place
+    since the capture. A step that runs eagerly counts one
+    ``train_eager_steps``."""
+
+    def __init__(self, model, optimizer, fn):
+        self.optimizer, self.fn = optimizer, fn
+        # the modules that draw from a generator of their own (dropouts)
+        self.drawers = [m for m in model.modules()
+                        if hasattr(m, "generator")]
+        self.graphs = {}
+        self.pool = self.stream = None
+
+    def _generators(self, device) -> tuple:
+        """The CUDA generators the model draws from besides ``device``'s
+        default one."""
+        default = torch.cuda.default_generators[
+            device.index if device.index is not None
+            else torch.cuda.current_device()]
+        found = {}
+        for m in self.drawers:
+            g = m.generator
+            if isinstance(g, torch.Generator) and g.device.type == "cuda" \
+                    and g is not default:
+                found[id(g)] = g
+        return tuple(found.values())
+
+    def get(self, batch, shard) -> Optional[_TrainGraph]:
+        """The graph to run this step with, or None to run it eagerly."""
+        device = batch["x"].device
+        if shard is not None or not graphable(device):
+            count("train_eager_steps")
+            return None
+        generators = self._generators(device)
+        key = (tuple((k, tuple(batch[k].shape), batch[k].dtype)
+                     for k in SPARSE_KEYS), generators)
+        graph = self.graphs.get(key)
+        if graph is None:
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+                self.stream = torch.cuda.Stream()
+            graph = self.graphs[key] = _TrainGraph(
+                batch, self.fn, self.optimizer, self.pool, self.stream,
+                generators)
+        return graph
 
 
 class _EvalGraph:

@@ -22,8 +22,13 @@ profile of the same process. Spans and counters, where they are opened:
   log); ``engine/trainer.py``: ``train.step`` per optimizer update, with
   the children ``train.forward`` (forward and loss), ``train.backward``
   (``zero_grad``, backward, the gradients' all-reduce) and
-  ``train.optimizer``, and the counter ``allocator_calls`` (the caching
-  allocator's device allocations, frees and retries over each update);
+  ``train.optimizer`` where the update runs eagerly or is captured, and
+  ``train.replay`` (the input copy, the optimizer's scalars and the
+  replay) where it replays a CUDA graph; the counter ``allocator_calls``
+  (the caching allocator's device allocations, frees and retries over
+  each update), and one count per step of the sparse step's
+  ``train_eager_steps``, ``train_graph_captures`` or
+  ``train_graph_replays`` (``engine/trainer.py:_TrainGraphs``);
 - ``ALModel._val``: ``val.load``, ``val.upload``, ``val.close``; the eval
   step: ``val.step`` > ``val.forward`` (forward, argmax, confusion
   matrix), ``val.vis`` (the visualisation maps), and one count per step
