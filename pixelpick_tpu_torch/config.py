@@ -9,9 +9,7 @@ Two flags are the port's own: ``--device {cuda,cpu}`` (default ``cuda``)
 and ``--dist_backend {auto,nccl,gloo}`` (``parallel/distributed.py``).
 
 Every flag of the JAX package runs its own code path, in every combination
-the JAX package runs; ``check_supported`` is where a combination the port
-lacks would raise ``NotImplementedError``, and nothing quietly runs another
-path in its place.
+the JAX package runs, and nothing quietly runs another path in its place.
 """
 
 from __future__ import annotations
@@ -238,19 +236,11 @@ DATASET_DEFAULTS = {
 }
 
 
-def check_supported(args: Namespace) -> None:
-    """The one place that raises ``NotImplementedError`` on a combination
-    of flags whose code path the port does not have, naming the ROADMAP.md
-    item that ports it. Every flag and combination of the JAX package is
-    ported, so it accepts all of them."""
-
-
 def finalize_args(args: Namespace, write_files: bool = True) -> Namespace:
     """Apply derived fields, dataset blocks, YAML overlay, naming and seeding
     (reference ``args.py:59-205``; ``pixelpick_tpu.config.finalize_args``
     without its jax set-up). Joins the ranks ``--dist_coordinator`` names
     (``parallel/distributed.py``); only the primary writes ``args.txt``."""
-    check_supported(args)
     from pixelpick_tpu_torch.parallel import distributed
     distributed.initialize_from_args(args)
     if args.pallas_dw:

@@ -10,18 +10,19 @@ Counterpart of ``pixelpick_tpu/engine/trainer.py``:
 - :func:`make_train_step`: forward in train mode (``upsample=False``), loss,
   backward, optimizer update (``make_train_step``/``_jit_step``,
   ``trainer.py:125-133, 210-226``). The loss and the confusion matrix stay on
-  the device; nothing syncs the host per step. On one CUDA card each input
-  signature's update becomes a CUDA graph, captured at its first call and
-  replayed after it (:class:`_TrainGraphs`);
+  the device; nothing syncs the host per step;
 - :func:`make_microbatch_train_step`: sequential bs-M updates over one
   megabatch uploaded once (``trainer.py:136-227``), the reference's bs-M
   schedule at a larger loader batch;
 - :func:`make_dense_train_step`: the fully supervised step, cross-entropy
-  over the full-resolution label map (``trainer.py:229-255``);
+  over the full-resolution label map (``trainer.py:229-255``), under the
+  sparse step's wrapper;
 - :func:`make_eval_step`: full-resolution argmax and confusion matrix, and
-  one image's visualisation maps (``trainer.py:256-293``). On one CUDA
-  card each input signature's step becomes CUDA graphs, captured at its
-  first call and replayed after it (:class:`_EvalGraphs`).
+  one image's visualisation maps (``trainer.py:256-293``).
+
+On one CUDA card and process, outside a shard, each input signature of a
+train or eval step becomes a CUDA graph, captured at its first call and
+replayed after it (:class:`_Graphs`); elsewhere the steps run eagerly.
 
 Data parallelism (``parallel/mesh.py``): a step given a ``shard`` holds
 that rank's rows of the global batch. The loss divides by the global valid
@@ -34,6 +35,7 @@ ranks' valid counts differ (remainder pads, void pixels, human labels).
 
 from __future__ import annotations
 
+import contextlib
 from functools import lru_cache
 from typing import Callable, Optional
 
@@ -115,6 +117,47 @@ def _backward(model, optimizer, loss, shard) -> None:
             mesh.all_reduce_grads(model.parameters())
 
 
+def _train_step(model, optimizer, update, keys) -> Callable:
+    """The train step around ``update(batch, shard)``, the device work of
+    one optimizer update (forward, loss and confusion matrix, backward,
+    ``optimizer.apply``), which returns the rank's (loss, hist). Around it
+    the ``train.step`` span, ``allocator_calls`` and the row shard; the
+    host fills the optimizer's scalars for its update count before it and
+    advances the count after. Eagerly the loss and the confusion matrix
+    are summed over the ranks. Where :func:`graphable` holds and no shard
+    is given, the update is replayed from a CUDA graph per signature of
+    the batch's tensors ``keys`` and the model's dropout generators
+    (:class:`_Graphs`), the same work as the eager step's; the parameters'
+    ``grad`` then hold the graph's gradients, as after an eager step."""
+    params = [p for _, ps in optimizer.groups for p in ps]
+
+    def graphed(batch):  # what a graph captures, its gradients included
+        loss, hist = update(batch)
+        return loss, hist, [p.grad for p in params]
+
+    graphs = _Graphs("train", keys, graphed, _dropout_generators(model),
+                     replay_span="train.replay")
+
+    def train_step(batch, shard=None):
+        model.train()
+        with span("train.step"), allocator_calls(batch["x"].device), \
+                mesh.sharded(shard):
+            optimizer.prepare()
+            graph = graphs.get(batch, shard)
+            if graph is None:
+                loss, hist = update(batch, shard)
+                loss = mesh.reduce_sum(loss.clone())
+                hist = mesh.reduce_sum(hist)
+            else:
+                loss, hist, grads = graph(batch)
+                for p, g in zip(params, grads):
+                    p.grad = g
+            optimizer.step_count += 1
+            return loss, hist
+
+    return train_step
+
+
 def make_train_step(model, optimizer, *, n_classes: int, mean, std,
                     normalize: bool = True,
                     gather_impl: str = "matmul") -> Callable:
@@ -123,14 +166,8 @@ def make_train_step(model, optimizer, *, n_classes: int, mean, std,
     (``data/device_pipeline.py``; ``trainer.py:125-133``), coords (B, K, 2),
     labels (B, K), valid (B, K); with ``shard`` (``parallel/mesh.py:
     RowShard``) this rank's rows of the global batch. Returns (loss, hist)
-    of the global batch, both on the device and owned by the caller.
-
-    The device work of an update is :func:`update` (forward, loss and
-    confusion matrix, backward, ``optimizer.apply``); around it the host
-    fills the optimizer's scalars for its update count and advances the
-    count. Where :func:`graphable` holds and no shard is given, that work
-    is replayed from a CUDA graph per input signature
-    (:class:`_TrainGraphs`), the same work as the eager step's."""
+    of the global batch, both on the device and owned by the caller. The
+    update runs eagerly or as a graph as :func:`_train_step` says."""
 
     def update(batch, shard=None):
         with span("train.forward"):
@@ -146,24 +183,7 @@ def make_train_step(model, optimizer, *, n_classes: int, mean, std,
             optimizer.apply()
         return loss.detach(), hist
 
-    graphs = _TrainGraphs(model, optimizer, update)
-
-    def train_step(batch, shard=None):
-        model.train()
-        with span("train.step"), allocator_calls(batch["x"].device), \
-                mesh.sharded(shard):
-            graph = graphs.get(batch, shard)
-            if graph is not None:
-                loss, hist = graph(batch)
-            else:
-                optimizer.prepare()
-                loss, hist = update(batch, shard)
-                loss = mesh.reduce_sum(loss.clone())
-                hist = mesh.reduce_sum(hist)
-            optimizer.step_count += 1
-            return loss, hist
-
-    return train_step
+    return _train_step(model, optimizer, update, SPARSE_KEYS)
 
 
 def make_microbatch_train_step(model, optimizer, *, micro_bs: int,
@@ -246,36 +266,32 @@ def make_dense_train_step(model, optimizer, *, n_classes: int,
     optimizer update. JAX calls the model with ``upsample=True``, which
     also resizes the embedding the loss never reads; here ``pred`` alone
     is resized, so loss and gradients are the same. ``shard``: as
-    :func:`make_train_step`. Returns (loss, hist) of the global batch on
-    the device."""
+    :func:`make_train_step`, whose wrapper (:func:`_train_step`) this
+    update runs under. Returns (loss, hist) of the global batch on the
+    device."""
 
-    def train_step(batch, shard=None):
-        model.train()
-        with span("train.step"), allocator_calls(batch["x"].device), \
-                mesh.sharded(shard):
-            with span("train.forward"):
-                x = normalize_images(batch["x"], mean, std)
-                logits = model(x, upsample=False)["pred"].float()
-                if logits.shape[1:3] != x.shape[1:3]:
-                    logits = resize_align_corners(logits, x.shape[1:3])
-                y = batch["y"].long()
-                valid = (y != ignore_index) & (y >= 0) & (y < n_classes)
-                logp = torch.log_softmax(logits, -1)
-                ll = torch.gather(logp, -1,
-                                  y.clamp(0, n_classes - 1)[..., None])
-                validf = valid.float()
-                n_valid = mesh.reduce_sum(validf.sum()).clamp(min=1)
-                loss = -(ll[..., 0] * validf).sum() / n_valid
-                hist = confusion_matrix(
-                    torch.where(valid, y, torch.full_like(y, -1)),
-                    logits.argmax(-1), n_classes)
-            _backward(model, optimizer, loss, shard)
-            with span("train.optimizer"):
-                optimizer.step()
-            return mesh.reduce_sum(loss.detach().clone()), \
-                mesh.reduce_sum(hist)
+    def update(batch, shard=None):
+        with span("train.forward"):
+            x = normalize_images(batch["x"], mean, std)
+            logits = model(x, upsample=False)["pred"].float()
+            if logits.shape[1:3] != x.shape[1:3]:
+                logits = resize_align_corners(logits, x.shape[1:3])
+            y = batch["y"].long()
+            valid = (y != ignore_index) & (y >= 0) & (y < n_classes)
+            logp = torch.log_softmax(logits, -1)
+            ll = torch.gather(logp, -1, y.clamp(0, n_classes - 1)[..., None])
+            validf = valid.float()
+            n_valid = mesh.reduce_sum(validf.sum()).clamp(min=1)
+            loss = -(ll[..., 0] * validf).sum() / n_valid
+            hist = confusion_matrix(
+                torch.where(valid, y, torch.full_like(y, -1)),
+                logits.argmax(-1), n_classes)
+        _backward(model, optimizer, loss, shard)
+        with span("train.optimizer"):
+            optimizer.apply()
+        return loss.detach(), hist
 
-    return train_step
+    return _train_step(model, optimizer, update, ("x", "y"))
 
 
 def graphable(device: torch.device) -> bool:
@@ -285,6 +301,24 @@ def graphable(device: torch.device) -> bool:
     eager."""
     return device.type == "cuda" and distributed.world_size() == 1 \
         and mesh.current_height_shard() is None
+
+
+def _dropout_generators(model) -> Callable[[], tuple]:
+    """A function that gives the CUDA generators the model's dropouts draw
+    from besides a default one, which a graph must register; read at each
+    step, since ``set_dropout_generator`` may replace them."""
+    drawers = [m for m in model.modules() if hasattr(m, "generator")]
+
+    def generators() -> tuple:
+        found = {}
+        for m in drawers:
+            g = m.generator
+            if g is not None and g.device.type == "cuda" and all(
+                    g is not d for d in torch.cuda.default_generators):
+                found[id(g)] = g
+        return tuple(found.values())
+
+    return generators
 
 
 # the hand kernels' launch counters, which a replay adds to
@@ -332,181 +366,88 @@ class _Captured:
         return self.out
 
 
-class _TrainGraph:
-    """One input signature's sparse update, ``fn(batch)`` (forward to
-    ``optimizer.apply``), as a CUDA graph captured at the signature's
-    first call and replayed after it. The batch is copied into fixed
-    input buffers and the step's loss and confusion matrix are cloned out
-    of the graph's outputs. The first call returns the warm-up's update,
-    a real one; the capture that follows it changes nothing: not the
-    weights, the moments, BatchNorm's statistics, the update count, a
-    generator's offset or the launch counters. After every call the
-    parameters' ``grad`` holds that update's gradients, as after an eager
-    step: the graph's own gradient buffers, which it keeps. The caller
-    fills the optimizer's scalars and advances its count around each
-    call."""
+class _Graph:
+    """One input signature's step, ``fn(inputs, *extra)``, as a CUDA graph
+    (:class:`_Graphs` gives ``fn``). The batch's tensors are copied into
+    fixed inputs. The first call captures the step and returns the
+    warm-up's results, a real step's; the capture that follows the
+    warm-up changes nothing: not the weights, the moments, BatchNorm's
+    statistics, a generator's offset or the launch counters. Every later
+    call replays it and returns the graph's output tensors cloned, so that
+    a caller may keep them across later calls, and a list among the
+    outputs as the graph's own tensors (the train step's gradients, the
+    eval step's logits), which the next replay overwrites. Counts ``<kind>_graph_captures`` or
+    ``<kind>_graph_replays`` by how it ran."""
 
-    def __init__(self, batch, fn, optimizer, pool, stream, generators):
-        self.inputs = {k: torch.empty_like(batch[k]) for k in SPARSE_KEYS}
-        self.fn, self.optimizer = fn, optimizer
-        self.pool, self.stream, self.generators = pool, stream, generators
-        self.params = [p for _, ps in optimizer.groups for p in ps]
-        self.captured = self.grads = None
+    def __init__(self, graphs, batch, extra, generators):
+        # not ``graphs`` itself: through a cycle a dropped step's graphs
+        # would wait for the cycle collector, which may run while another
+        # graph is captured, where freeing a CUDA graph is not permitted
+        self.kind, self.fn, self.replay_span = \
+            graphs.kind, graphs.fn, graphs.replay_span
+        self.pool, self.stream = graphs.pool, graphs.stream
+        self.extra, self.generators = extra, generators
+        self.inputs = {k: torch.empty_like(batch[k]) for k in graphs.keys}
+        self.captured = None
 
     def __call__(self, batch):
         if self.captured is None:
-            count("train_graph_captures")
+            count(f"{self.kind}_graph_captures")
             self._fill(batch)
-            grads = []  # the warm-up's, then the capture's
-
-            def update(inputs):
-                out = self.fn(inputs)
-                grads.append([p.grad for p in self.params])
-                return out
-
-            self.captured = _Captured(update, (self.inputs,),
-                                      (self.inputs,), self.pool,
+            args = (self.inputs, *self.extra)
+            self.captured = _Captured(self.fn, args, args, self.pool,
                                       self.stream, self.generators)
-            warm, self.grads = grads
-            for g, w in zip(self.grads, warm):
-                if g is not None:
-                    g.copy_(w)
-            return self.captured.first
-        count("train_graph_replays")
-        with span("train.replay"):
+            # the caller's alone: the graph keeps none of the warm-up's
+            first, self.captured.first = self.captured.first, None
+            return first
+        count(f"{self.kind}_graph_replays")
+        with span(self.replay_span) if self.replay_span \
+                else contextlib.nullcontext():
             self._fill(batch)
-            loss, hist = self.captured.replay()
-            for p, g in zip(self.params, self.grads):
-                p.grad = g
-            return loss.clone(), hist.clone()
+            return tuple(t.clone() if isinstance(t, torch.Tensor) else t
+                         for t in self.captured.replay())
 
     def _fill(self, batch):
         for k, v in self.inputs.items():
             v.copy_(batch[k])
-        self.optimizer.prepare()
 
 
-class _TrainGraphs:
-    """The CUDA graphs of one sparse train step, by input signature: the
-    shape and dtype of each of the batch's :data:`SPARSE_KEYS`, and the
-    generators the model's dropouts draw from (a graph holds the ones it
-    was captured with). The graphs never run at once, so they share one
-    memory pool; the parameters, buffers and optimizer moments are read
-    and written where they lie, so a replay sees what changed in place
-    since the capture. A step that runs eagerly counts one
-    ``train_eager_steps``."""
+class _Graphs:
+    """The CUDA graphs of one step, by input signature: the name, shape and
+    dtype of each of the batch's tensors ``keys``, the arguments ``extra``
+    the step takes besides them, and the CUDA generators
+    ``generators()`` gives, which the step draws from besides the default
+    one (a graph holds the ones it was captured with). ``fn(inputs,
+    *extra)`` is the step's device work, returning a tuple. The graphs
+    never run at once, so they share one memory pool and one side stream,
+    made with the first; the parameters, buffers and optimizer moments are
+    read and written where they lie, so a replay sees what changed in
+    place since the capture. A step that runs eagerly counts one
+    ``<kind>_eager_steps``; ``replay_span`` names a span around each
+    replay."""
 
-    def __init__(self, model, optimizer, fn):
-        self.optimizer, self.fn = optimizer, fn
-        # the modules that draw from a generator of their own (dropouts)
-        self.drawers = [m for m in model.modules()
-                        if hasattr(m, "generator")]
+    def __init__(self, kind: str, keys, fn, generators=lambda: (),
+                 replay_span: Optional[str] = None):
+        self.kind, self.keys, self.fn = kind, keys, fn
+        self.generators, self.replay_span = generators, replay_span
         self.graphs = {}
         self.pool = self.stream = None
 
-    def _generators(self, device) -> tuple:
-        """The CUDA generators the model draws from besides ``device``'s
-        default one."""
-        default = torch.cuda.default_generators[
-            device.index if device.index is not None
-            else torch.cuda.current_device()]
-        found = {}
-        for m in self.drawers:
-            g = m.generator
-            if isinstance(g, torch.Generator) and g.device.type == "cuda" \
-                    and g is not default:
-                found[id(g)] = g
-        return tuple(found.values())
-
-    def get(self, batch, shard) -> Optional[_TrainGraph]:
-        """The graph to run this step with, or None to run it eagerly."""
-        device = batch["x"].device
-        if shard is not None or not graphable(device):
-            count("train_eager_steps")
-            return None
-        generators = self._generators(device)
-        key = (tuple((k, tuple(batch[k].shape), batch[k].dtype)
-                     for k in SPARSE_KEYS), generators)
-        graph = self.graphs.get(key)
-        if graph is None:
-            if self.pool is None:
-                self.pool = torch.cuda.graph_pool_handle()
-                self.stream = torch.cuda.Stream()
-            graph = self.graphs[key] = _TrainGraph(
-                batch, self.fn, self.optimizer, self.pool, self.stream,
-                generators)
-        return graph
-
-
-class _EvalGraph:
-    """One input signature's eval step: ``fn``, the forward (normalise to
-    confusion matrix), and the visualisation maps of its logits, one graph
-    per image index asked for. Each graph is captured at its first call,
-    which returns the warm-up's results, and replayed after it. The batch
-    is copied into fixed input buffers; a replay's results are cloned out
-    of the graph's outputs, so that a caller may keep them across later
-    calls. Counts ``eval_graph_captures`` or ``eval_graph_replays`` by how
-    the forward ran."""
-
-    def __init__(self, batch, fn, pool, stream):
-        self.inputs = {k: torch.empty_like(v) for k, v in batch.items()}
-        self.fn, self.pool, self.stream = fn, pool, stream
-        self.fwd = None
-        self.maps = {}
-
-    def forward(self, batch):
-        """(logits, pred, hist) of ``fn(batch)``; the logits, which
-        :meth:`vis` reads, are the graph's own after a replay."""
-        for k, v in batch.items():
-            self.inputs[k].copy_(v)
-        if self.fwd is None:
-            count("eval_graph_captures")
-            self.fwd = _Captured(self.fn, (self.inputs,), (self.inputs,),
-                                 self.pool, self.stream)
-            return self.fwd.first
-        count("eval_graph_replays")
-        logits, pred, hist = self.fwd.replay()
-        return logits, pred.clone(), hist.clone()
-
-    def vis(self, logits, vis_index: int, fn):
-        """``fn(logits)``, the maps of image ``vis_index`` of the logits
-        :meth:`forward` returned."""
-        graph = self.maps.get(vis_index)
-        if graph is None:
-            graph = self.maps[vis_index] = _Captured(
-                fn, (logits,), (self.fwd.out[0],), self.pool, self.stream)
-            return graph.first
-        return {k: v.clone() for k, v in graph.replay().items()}
-
-
-class _EvalGraphs:
-    """The CUDA graphs of one eval step, by input signature: the shape and
-    dtype of every tensor of the batch and ``valid_hw``. The graphs never
-    run at once, so they share one memory pool; the model's parameters and
-    buffers are read where they lie, so a replay sees the weights as
-    updated in place since the capture. A step that runs eagerly counts
-    one ``eval_eager_steps``."""
-
-    def __init__(self):
-        self.graphs = {}
-        self.pool = self.stream = None
-
-    def get(self, batch, valid_hw, shard, fn) -> Optional[_EvalGraph]:
-        """The graph to run this step with, made with ``fn(batch)`` as its
-        forward, or None to run it eagerly."""
+    def get(self, batch, shard, extra: tuple = ()) -> Optional[_Graph]:
+        """The graph to run this step with, or None to run it eagerly:
+        under a row shard or where :func:`graphable` does not hold."""
         if shard is not None or not graphable(batch["x"].device):
-            count("eval_eager_steps")
+            count(f"{self.kind}_eager_steps")
             return None
-        key = (tuple((k, tuple(v.shape), v.dtype)
-                     for k, v in sorted(batch.items())),
-               None if valid_hw is None else tuple(valid_hw))
+        generators = self.generators()
+        key = (tuple((k, tuple(batch[k].shape), batch[k].dtype)
+                     for k in self.keys), extra, generators)
         graph = self.graphs.get(key)
         if graph is None:
             if self.pool is None:
                 self.pool = torch.cuda.graph_pool_handle()
                 self.stream = torch.cuda.Stream()
-            graph = self.graphs[key] = _EvalGraph(batch, fn, self.pool,
-                                                  self.stream)
+            graph = self.graphs[key] = _Graph(self, batch, extra, generators)
         return graph
 
 
@@ -518,8 +459,9 @@ def make_eval_step(model, *, n_classes: int, mean, std) -> Callable:
     multiple (``trainer.py:256-293``; ``active/driver.py:pad_to_stride``).
     With ``shard`` the batch is this rank's rows and ``hist`` the global
     batch's; ``pred`` and ``vis`` stay the rank's. Where :func:`graphable`
-    holds, the device work is replayed from CUDA graphs
-    (:class:`_EvalGraphs`), the same work as the eager step's."""
+    holds, the forward is replayed from a CUDA graph per signature of x, y
+    and ``valid_hw`` (:class:`_Graphs`), and the maps of its logits from a
+    graph per ``vis_index`` beside it, the same work as the eager step's."""
 
     def forward(batch, valid_hw):
         x = normalize_images(batch["x"], mean, std)
@@ -529,28 +471,41 @@ def make_eval_step(model, *, n_classes: int, mean, std) -> Callable:
         if valid_hw is not None:
             logits = logits[:, :valid_hw[0], :valid_hw[1]]
         pred = logits.argmax(-1)
-        return logits, pred, confusion_matrix(batch["y"], pred, n_classes)
+        # the logits in a list: a replay hands back the graph's own, which
+        # the maps' graph reads
+        return pred, confusion_matrix(batch["y"], pred, n_classes), [logits]
 
-    graphs = _EvalGraphs()
+    graphs = _Graphs("eval", ("x", "y"), forward)
+    maps_graphs = {}  # (forward's graph, vis_index) -> the maps' graph
 
     @torch.no_grad()
     def eval_step(batch, vis_index: int = 0, valid_hw=None, shard=None):
         model.eval()
+        hw = None if valid_hw is None else tuple(valid_hw)
+
+        def maps(logits):
+            return vis_maps(logits[vis_index:vis_index + 1])
+
         with span("val.step"):
-            graph = graphs.get(batch, valid_hw, shard,
-                               lambda b: forward(b, valid_hw))
+            graph = graphs.get(batch, shard, (hw,))
             with span("val.forward"):
                 if graph is None:
-                    logits, pred, hist = forward(batch, valid_hw)
+                    pred, hist, (logits,) = forward(batch, hw)
                     with mesh.sharded(shard):
                         hist = mesh.reduce_sum(hist)
                 else:
-                    logits, pred, hist = graph.forward(batch)
+                    pred, hist, (logits,) = graph(batch)
             with span("val.vis"):
-                def maps(logits):
-                    return vis_maps(logits[vis_index:vis_index + 1])
-                vis = maps(logits) if graph is None \
-                    else graph.vis(logits, vis_index, maps)
+                if graph is None:
+                    vis = maps(logits)
+                elif (graph, vis_index) in maps_graphs:
+                    vis = {k: v.clone() for k, v in
+                           maps_graphs[graph, vis_index].replay().items()}
+                else:
+                    own = graph.captured.out[2][0]  # the graph's logits
+                    captured = maps_graphs[graph, vis_index] = _Captured(
+                        maps, (logits,), (own,), graphs.pool, graphs.stream)
+                    vis = captured.first
         return hist, pred, vis
 
     return eval_step

@@ -23,18 +23,18 @@ profile of the same process. Spans and counters, where they are opened:
   the children ``train.forward`` (forward and loss), ``train.backward``
   (``zero_grad``, backward, the gradients' all-reduce) and
   ``train.optimizer`` where the update runs eagerly or is captured, and
-  ``train.replay`` (the input copy, the optimizer's scalars and the
-  replay) where it replays a CUDA graph; the counter ``allocator_calls``
-  (the caching allocator's device allocations, frees and retries over
-  each update), and one count per step of the sparse step's
-  ``train_eager_steps``, ``train_graph_captures`` or
-  ``train_graph_replays`` (``engine/trainer.py:_TrainGraphs``);
+  ``train.replay`` (the input copy and the replay) where it replays a
+  CUDA graph; the counter ``allocator_calls`` (the caching allocator's
+  device allocations, frees and retries over each update), and one count
+  per step, sparse or dense, of ``train_eager_steps``,
+  ``train_graph_captures`` or ``train_graph_replays``
+  (``engine/trainer.py:_Graphs``);
 - ``ALModel._val``: ``val.load``, ``val.upload``, ``val.close``; the eval
   step: ``val.step`` > ``val.forward`` (forward, argmax, confusion
   matrix), ``val.vis`` (the visualisation maps), and one count per step
   of ``eval_eager_steps``, ``eval_graph_captures`` or
   ``eval_graph_replays`` (how its device work ran, ``engine/trainer.py:
-  _EvalGraphs``);
+  _Graphs``);
 - ``active/selector.py:QuerySelector.__call__``: ``query.load``,
   ``query.upload``, ``query.score``, ``query.readback`` (the ``.cpu()``
   reads and the gather over the ranks), ``query.encode`` (the picks' masks

@@ -1,4 +1,4 @@
-"""The eval step's CUDA graphs (``engine/trainer.py:_EvalGraphs``) on a CUDA
+"""The eval step's CUDA graphs (``engine/trainer.py:_Graphs``) on a CUDA
 card, against the same step run eagerly. Skips without one.
 
 This file imports neither JAX nor the JAX package, so it also runs where

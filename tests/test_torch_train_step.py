@@ -35,11 +35,12 @@ their rounding noise); the parameters after three steps within 1e-4 of their
 largest three-step move plus 1e-6 of their largest |value|; running
 statistics 1e-4 of their largest |value| (at least 1).
 
-The eval step's CUDA graphs (``engine/trainer.py:_EvalGraphs``) on the CPU:
-the step stays eager there and returns tensors of its own; the signature
-bookkeeping (one graph per signature) with the capture stubbed; and no
+The CUDA graphs of the train and eval steps (``engine/trainer.py:_Graphs``)
+on the CPU: the eval step stays eager there and returns tensors of its own;
+the signature bookkeeping of either step (one graph per signature, the
+train step's dropout generators in it) with the capture stubbed; and no
 capture with more than one rank, a row shard or a height shard.
-``tests/test_torch_eval_graph_cuda.py`` runs the graphs on a card.
+``tests/test_torch_{train,eval}_graph_cuda.py`` run the graphs on a card.
 """
 
 
@@ -224,13 +225,6 @@ def test_eval_step_matches_jax(variables):
                                    err_msg=k)
 
 
-def _eval_counters():
-    from pixelpick_tpu_torch.utils import profiling
-
-    return {k: profiling.counters().get(k, 0) for k in (
-        "eval_eager_steps", "eval_graph_captures", "eval_graph_replays")}
-
-
 @pytest.fixture
 def tracer():
     from pixelpick_tpu_torch.utils import profiling
@@ -257,9 +251,8 @@ def test_eval_step_stays_eager_on_the_cpu(variables, tracer):
     step = trainer.make_eval_step(_port_model(params, stats, False),
                                   n_classes=N_CLASSES, mean=MEAN, std=STD)
     calls = [step(batch) for _ in range(3)]
-    assert _eval_counters() == {"eval_eager_steps": 3,
-                                "eval_graph_captures": 0,
-                                "eval_graph_replays": 0}
+    assert _counters("eval") == {"eager_steps": 3, "graph_captures": 0,
+                                 "graph_replays": 0}
     (hist0, pred0, vis0), (hist1, pred1, vis1) = calls[:2]
     first = [hist0, pred0, *vis0.values()]
     second = [hist1, pred1, *vis1.values()]
@@ -269,79 +262,202 @@ def test_eval_step_stays_eager_on_the_cpu(variables, tracer):
     np.testing.assert_array_equal(pred0.numpy(), pred1.numpy())
 
 
-def _fake_cuda_batch(hw):
+def _fake_cuda_batch(hw, keys=("x", "y")):
     """Stands for a batch on a CUDA card: the graphs' bookkeeping reads
     only each tensor's shape and dtype and x's device."""
     cuda = torch.device("cuda")
-    return {"x": SimpleNamespace(shape=(1, *hw, 3), dtype=torch.uint8,
-                                 device=cuda),
-            "y": SimpleNamespace(shape=(1, *hw), dtype=torch.int32,
-                                 device=cuda)}
+    tensors = {"x": ((1, *hw, 3), torch.uint8),
+               "y": ((1, *hw), torch.int32),
+               "coords": ((1, 12, 2), torch.int32),
+               "labels": ((1, 12), torch.int32),
+               "valid": ((1, 12), torch.bool)}
+    return {k: SimpleNamespace(shape=tensors[k][0], dtype=tensors[k][1],
+                               device=cuda) for k in keys}
+
+
+class _Drawer(torch.nn.Module):
+    """Stands for a dropout: the train graphs read its ``generator``."""
+
+    def __init__(self):
+        super().__init__()
+        self.generator = None
+
+
+class _FakeCudaGenerator:
+    """Stands for a ``torch.Generator`` on a card."""
+
+    device = torch.device("cuda")
+
+
+def _graphs(kind, drawer=None):
+    """The graphs of a ``kind`` step as ``make_train_step`` or
+    ``make_eval_step`` makes them (the train step's keyed on its model's
+    dropout generators, here one ``drawer``) and the batch keys they
+    read."""
+    if kind == "train":
+        model = torch.nn.Sequential(drawer or _Drawer())
+        return trainer._Graphs("train", trainer.SPARSE_KEYS, _forward,
+                               trainer._dropout_generators(model),
+                               replay_span="train.replay"), \
+            trainer.SPARSE_KEYS
+    return trainer._Graphs("eval", ("x", "y"), _forward), ("x", "y")
+
+
+def _counters(kind):
+    from pixelpick_tpu_torch.utils import profiling
+
+    return {k: profiling.counters().get(f"{kind}_{k}", 0)
+            for k in ("eager_steps", "graph_captures", "graph_replays")}
 
 
 @pytest.fixture
 def stub_capture(monkeypatch):
-    """``_EvalGraph`` and the CUDA pool and stream replaced by stubs that
+    """``_Graph`` and the CUDA pool and stream replaced by stubs that
     record what the bookkeeping asked for."""
     made = []
 
     class Stub:
-        def __init__(self, batch, fn, pool, stream):
+        def __init__(self, graphs, batch, extra, generators):
+            self.extra, self.generators = extra, generators
             made.append(self)
 
-    monkeypatch.setattr(trainer, "_EvalGraph", Stub)
+    monkeypatch.setattr(trainer, "_Graph", Stub)
     monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: "pool")
     monkeypatch.setattr(torch.cuda, "Stream", lambda: "stream")
     return made
 
 
-def _forward(batch):
+def _forward(batch, *extra):
     raise AssertionError("the bookkeeping runs no forward")
 
 
+@pytest.mark.parametrize("kind", ["train", "eval"])
 def test_eval_graphs_capture_at_a_signatures_first_call(tracer,
-                                                        stub_capture):
-    """A signature's graph is made at its first call, which captures it,
-    and every later call gets the same graph to replay, so the second call
-    captures nothing; another shape or ``valid_hw`` is another signature,
-    ``vis_index`` is not part of it. No step of a graph counts as eager
-    (the graph counts its capture and replays)."""
-    graphs = trainer._EvalGraphs()
-    a, b = _fake_cuda_batch((8, 8)), _fake_cuda_batch((8, 16))
-    g = graphs.get(a, None, None, _forward)
+                                                        stub_capture, kind):
+    """For the train and the eval step: a signature's graph is made at its
+    first call, which captures it, and every later call gets the same
+    graph to replay, so the second call captures nothing; another shape or
+    another extra argument of the step (the eval step's ``valid_hw``) is
+    another signature. No step of a graph counts as eager (the graph
+    counts its capture and replays)."""
+    graphs, keys = _graphs(kind)
+    a, b = _fake_cuda_batch((8, 8), keys), _fake_cuda_batch((8, 16), keys)
+    g = graphs.get(a, None)
     assert stub_capture == [g]
-    assert all(graphs.get(a, None, None, _forward) is g for _ in range(3))
-    assert graphs.get(b, None, None, _forward) not in (None, g)
-    h = graphs.get(a, (7, 8), None, _forward)
-    assert h not in (None, g)
-    assert graphs.get(a, [7, 8], None, _forward) is h  # a list is a tuple
+    assert all(graphs.get(a, None) is g for _ in range(3))
+    assert graphs.get(b, None) not in (None, g)
+    h = graphs.get(a, None, ((7, 8),))
+    assert h not in (None, g) and h.extra == ((7, 8),)
+    assert graphs.get(a, None, ((7, 8),)) is h
     assert len(stub_capture) == 3
+    assert all(s.generators == () for s in stub_capture)
     assert graphs.pool == "pool" and graphs.stream == "stream"
-    assert _eval_counters() == {"eval_eager_steps": 0,
-                                "eval_graph_captures": 0,
-                                "eval_graph_replays": 0}
+    assert _counters(kind) == {"eager_steps": 0, "graph_captures": 0,
+                               "graph_replays": 0}
 
 
+def test_train_graphs_key_on_the_dropout_generators(tracer, stub_capture,
+                                                    monkeypatch):
+    """The train step's signature holds the CUDA generators its model's
+    dropouts draw from, which the graph registers: another generator is
+    another graph, and the first one's graph comes back with it. A
+    dropout without a generator of its own, with a CPU one or with the
+    card's default one (which every graph registers itself) registers
+    none."""
+    drawer = _Drawer()
+    graphs, keys = _graphs("train", drawer)
+    a = _fake_cuda_batch((8, 8), keys)
+    default, g1, g2 = (_FakeCudaGenerator() for _ in range(3))
+    monkeypatch.setattr(torch.cuda, "default_generators", (default,))
+    plain = graphs.get(a, None)
+    for gen in (torch.Generator(), default):
+        drawer.generator = gen
+        assert graphs.get(a, None) is plain
+    drawer.generator = g1
+    first = graphs.get(a, None)
+    drawer.generator = g2
+    second = graphs.get(a, None)
+    drawer.generator = g1
+    assert graphs.get(a, None) is first
+    assert stub_capture == [plain, first, second]
+    assert [s.generators for s in stub_capture] == [(), (g1,), (g2,)]
+
+
+@pytest.mark.parametrize("kind", ["train", "eval"])
 def test_eval_step_never_captures_across_ranks(tracer, stub_capture,
-                                               monkeypatch):
-    """With more than one rank, a row shard or a height shard the step
-    stays eager: its all-reduce and halo exchanges are not captured."""
+                                               monkeypatch, kind):
+    """With more than one rank, a row shard or a height shard the train
+    and the eval step stay eager: their all-reduces and halo exchanges
+    are not captured."""
     from pixelpick_tpu_torch.parallel import distributed, mesh
 
     cuda = torch.device("cuda")
     assert trainer.graphable(cuda) and not trainer.graphable(
         torch.device("cpu"))
-    graphs = trainer._EvalGraphs()
-    a = _fake_cuda_batch((8, 8))
+    graphs, keys = _graphs(kind)
+    a = _fake_cuda_batch((8, 8), keys)
     with mesh.sharded_height(mesh.HeightShard((0, 8, 16), 0, 8)):
         assert not trainer.graphable(cuda)
-        assert all(graphs.get(a, None, None, _forward) is None
-                   for _ in range(3))
+        assert all(graphs.get(a, None) is None for _ in range(3))
     shard = mesh.RowShard(0, 1, 2)
-    assert all(graphs.get(a, None, shard, _forward) is None
-               for _ in range(3))
+    assert all(graphs.get(a, shard) is None for _ in range(3))
     monkeypatch.setattr(distributed, "world_size", lambda: 2)
     assert not trainer.graphable(cuda)
-    assert all(graphs.get(a, None, None, _forward) is None for _ in range(3))
+    assert all(graphs.get(a, None) is None for _ in range(3))
     assert stub_capture == [] and graphs.pool is None
-    assert _eval_counters()["eval_eager_steps"] == 9
+    assert _counters(kind)["eager_steps"] == 9
+
+
+@pytest.mark.parametrize("kind", ["train", "eval"])
+def test_a_dropped_steps_graphs_are_freed_at_once(monkeypatch, kind):
+    """A step's graphs hold no reference cycle: dropped, they are freed at
+    once and not left to the cycle collector, which may run while another
+    step's graph is captured, where freeing a CUDA graph is not
+    permitted."""
+    import gc
+    import weakref
+
+    monkeypatch.setattr(trainer, "graphable", lambda device: True)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: "pool")
+    monkeypatch.setattr(torch.cuda, "Stream", lambda: "stream")
+    graphs, keys = _graphs(kind)
+    batch = {k: torch.zeros(v.shape, dtype=v.dtype)
+             for k, v in _fake_cuda_batch((8, 8), keys).items()}
+    graph = graphs.get(batch, None)
+    assert isinstance(graph, trainer._Graph)
+    dropped = [weakref.ref(graphs), weakref.ref(graph)]
+    gc.disable()
+    try:
+        del graphs, graph
+        assert [r() for r in dropped] == [None, None]
+    finally:
+        gc.enable()
+
+
+def test_eval_step_keys_valid_hw_as_a_tuple(monkeypatch):
+    """The eval step hands ``valid_hw`` to its graphs as a tuple, so a list
+    and a tuple of the same size are one signature."""
+    asked = []
+
+    class Graphs:  # records what the step asks its cache for
+        def __init__(self, *args, **kwargs):
+            pass
+
+        def get(self, batch, shard, extra=()):
+            asked.append(extra)
+            return None  # the eager step
+
+    class Model(torch.nn.Module):
+        def forward(self, x, upsample=False):
+            return {"pred": torch.zeros(x.shape[0], 2, 2, N_CLASSES)}
+
+    monkeypatch.setattr(trainer, "_Graphs", Graphs)
+    step = trainer.make_eval_step(Model(), n_classes=N_CLASSES, mean=MEAN,
+                                  std=STD)
+    batch = {"x": torch.zeros(1, 8, 8, 3, dtype=torch.uint8),
+             "y": torch.zeros(1, 7, 8, dtype=torch.int32)}
+    for valid_hw in ([7, 8], (7, 8)):
+        hist, pred, _ = step(batch, valid_hw=valid_hw)
+        assert pred.shape == (1, 7, 8) and int(hist.sum()) == 56
+    assert asked == [((7, 8),), ((7, 8),)]
+    assert all(type(hw) is tuple for (hw,) in asked)
